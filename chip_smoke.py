@@ -3,21 +3,32 @@
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
-It builds every CUDA kernel of the serving path from ``fateavatar_tpu_torch/
-csrc``, holds each against its plain PyTorch version on the card, and serves
-a full-width FateAvatar (``configs/fateavatar.yaml``: 65,536 splats at a
-200,000 capacity, 512x512, twotier binning) through the user-facing entry
-points ``cli/common`` -> ``Loader`` -> ``Reenactor.reenact``, from seeded
-synthetic assets: a FLAME pickle at FLAME's 5,023 vertices, a matching UV
-template, an identity_info.json and a checkpoint of a perturbed avatar.
+It builds every CUDA kernel of the port from ``fateavatar_tpu_torch/csrc``
+(the instance blend's forward and backward, one nvcc each, in parallel),
+holds each against its plain PyTorch version on the card, and drives the
+port's two main paths at the full width of ``configs/fateavatar.yaml``
+(65,536 splats at a 200,000 capacity, 512x512, twotier binning R = 64) from
+seeded synthetic assets (a FLAME pickle at FLAME's 5,023 vertices, a
+matching UV template, random VGG16 weights):
 
-It prints, one per line: the card's name and power limit (nvidia-smi), the
-kernels' ptxas reports, each check with its numbers, the timings, a
-``{"kernels": [...]}`` JSON line, and last a ``{"ok": true, "device": ...}``
-JSON line. Any failed check raises, and the script exits non-zero with no
-result line; so does a host without CUDA. It imports nothing of JAX.
+* serving: ``cli/common`` -> ``Loader`` -> ``Reenactor.reenact`` over 16
+  frames of a checkpointed, perturbed avatar;
+* training: the ``Trainer`` (per-step mode, autosize, the yaml's loss and
+  learning rates, densify / prune intervals shortened so both fire) over a
+  ``SyntheticDataset`` of 512x512 frames for one epoch, then ``evaluate``,
+  ``save_checkpoint``, and a fresh Trainer that ``load_checkpoint``s and
+  trains on; and one train step's gradients with the kernels against the
+  same step with both blends swapped for their plain versions.
+
+It prints, one per line: the kernels' ptxas reports, each check with its
+numbers, every override of the config, the timings (each beside the card's
+name and power limit), a ``{"kernels": [...]}`` JSON line, the nvidia-smi
+name/power line and last a ``{"ok": true, "device": ...}`` JSON line. Any
+failed check raises, and the script exits non-zero with no result line; so
+does a host without CUDA. It imports nothing of JAX.
 """
 
+import dataclasses
 import json
 import os
 import pickle
@@ -39,12 +50,53 @@ OPS_PER_PAIR = 21
 BYTES_PER_INSTANCE = 40
 BYTES_PER_PIXEL = 16
 
+# the backward kernel per evaluated pair: the forward's recompute up to
+# alpha (2 sub, 8 mul/add, exp, mul, min: 14); per blended pair on top: the
+# transmittance step, w, g.c, the prefix, dalpha, the 9 partials and a 32nd
+# share of the warp's 9 x 5 shuffle-adds (41)
+BWD_OPS_PER_EVALUATED = 14
+BWD_OPS_PER_BLENDED = 41
+# bytes: 40 per binned instance read, img + t_final + g_img + g_tfin (32)
+# per pixel read, the whole [16, M] gradient (64 per column) written
+BWD_BYTES_PER_PIXEL = 32
+BWD_BYTES_PER_COLUMN = 64
+# backward kernel vs plain version, relative to each gradient row's largest
+# element: the two sum 256 pixel terms in another order (~1e-6), and a
+# termination flip (see check_blend) moves the crossing instance's term at
+# one pixel, which carries T_j <= 1e-4 / (1 - 0.99)
+BWD_RTOL = 1e-3
+# one train step with the kernels vs with the plain blends: every parameter
+# gradient within 1e-2 in relative L2 norm and within 5e-2 of its field's
+# largest element. The two images differ by ~1e-6 per pixel (see
+# check_blend); the loss turns that into O(1) changes where an L1 residual,
+# a VGG ReLU input or a max pool's top two sit within it, and against
+# noise targets a splat's gradient is a sum of nearly cancelling terms.
+# Measured on the H100 over four runs: up to 1.6e-3 in L2 and 5.8e-3 in
+# max, while the same step twice differs by <= 5e-5 (atomic sum order); a
+# wrong gradient shows as O(1)
+STEP_RTOL_L2 = 1e-2
+STEP_RTOL_MAX = 5e-2
+
+N_TRAIN = 24        # frames of the training epoch = its steps
+N_TEST = 4
+N_RESUME = 4
+# the synthetic blendshapes are uncorrelated per vertex; the dataset's codes
+# (std 0.3) crumple the mesh, so they are scaled to the serving phase's 0.05
+EXPR_SCALE = 0.05 / 0.3
+# the yaml's 3000 / 2000 intervals never fire in one epoch
+MAINT_OVERRIDES = {"densify_interval": 10, "prune_interval": 15}
+
 KERNELS = {
     # kernel name -> its fixed fields in the {"kernels": [...]} line
     "blend_instances_fwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:92",
+    },
+    "blend_instances_bwd": {
+        "route": "cuda",
+        "source": "fateavatar_tpu_torch/csrc/blend_instances_bwd.cu",
+        "replaces": "fateavatar_tpu/render/blend_instances.py:183",
     },
 }
 
@@ -77,7 +129,7 @@ def cuda_ms(fn, reps, warmup=3):
 
 @contextmanager
 def swapped_blend(fn):
-    """Route render()'s blend through ``fn`` (the plain version, or a
+    """Route render()'s blend through ``fn`` (a plain version, or a
     recorder) for the comparisons; restored on exit."""
     from fateavatar_tpu_torch.render import render as render_mod
 
@@ -151,6 +203,32 @@ def check_blend(label, inputs, results):
     return tfin_k
 
 
+def check_blend_bwd(label, args, results):
+    """Backward kernel vs plain version on the same inputs, each gradient
+    row within BWD_RTOL of its largest element; rows 9-15 and every column
+    past the last range must be 0."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    g_k = bi.blend_instances_bwd(*args)
+    torch.cuda.synchronize()
+    g_p = bi.blend_instances_backward_reference(*args)
+    d = (g_k - g_p).abs()
+    scale = g_p[:9].abs().amax(dim=1, keepdim=True) + 1e-12
+    rel = (d[:9] / scale).max().item()
+    err = d.max().item()
+    total = int(args[1][-1])
+    log(f"[kernel] {label}: backward max|diff| {err:.3e}, largest relative to its "
+        f"row {rel:.3e}, row scales {[round(x, 6) for x in scale[:, 0].tolist()]}")
+    check(bool(torch.isfinite(g_k).all()), f"{label}: non-finite backward output")
+    check(rel <= BWD_RTOL, f"{label}: backward kernel vs plain {rel:.3e} > {BWD_RTOL}")
+    check(bool((g_k[9:] == 0).all()), f"{label}: rows 9-15 must be 0")
+    check(bool((g_k[:, total:] == 0).all()), f"{label}: columns past the ranges must be 0")
+    results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
+    return g_k
+
+
 def write_assets(ws, seed):
     """Seeded synthetic FLAME pickle, UV template and identity_info.json."""
     import numpy as np
@@ -178,6 +256,350 @@ def write_assets(ws, seed):
     with open(os.path.join(ws, "identity_info.json"), "w") as fh:
         json.dump(info, fh)
     return pkl, obj
+
+
+def train_phase(ws, gen, rows, card):
+    """The training slice at full width: Trainer epoch, eval, checkpoint,
+    resume, kernel 2 on a captured training frame, the whole step against
+    the plain blends, and the step's timings."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import common
+    from fateavatar_tpu_torch.models import maintenance
+    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train.datasets import SyntheticDataset
+    from fateavatar_tpu_torch.train.losses import FateAvatarLoss, vgg16_random_params
+    from fateavatar_tpu_torch.train.optim import (
+        apply_updates, fateavatar_optimizers, zero_moment_rows)
+    from fateavatar_tpu_torch.train.step import make_train_step
+    from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.utils.config import config_to_dict, load_config
+
+    dev = "cuda"
+    bwd_row = rows["blend_instances_bwd"]
+    fwd_row = rows["blend_instances_fwd"]
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tws = os.path.join(ws, "train")
+    cfg = load_config(os.path.join(root, "configs", "fateavatar.yaml"), [
+        f"assets.flame_model_path={os.path.join(ws, 'generic_model.pkl')}",
+        f"assets.template_mesh_path={os.path.join(ws, 'head_template.obj')}",
+        f"workspace={tws}",
+    ])
+    h, w = cfg.dataset.img_res
+
+    def dataset(n, seed):
+        ds = SyntheticDataset(num_frames=n, img_res=(h, w), n_shape=100, n_exp=50, seed=seed)
+        ds.expressions = ds.expressions * EXPR_SCALE
+        return ds
+
+    train_ds, test_ds = dataset(N_TRAIN, 0), dataset(N_TEST, 1)
+    flame = common.construct_flame(cfg, train_ds, device=dev)
+    model, params, state = common.construct_model(cfg, flame, device=dev)
+    common.save_identity_info(tws, train_ds, cfg)
+    # construct_loss's semantics, with seeded random VGG16 weights in place
+    # of assets.vgg16_weights_path (the repository ships none)
+    vgg = vgg16_random_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+    loss_cfg = common.loss_config(cfg)
+    loss_fn = FateAvatarLoss(loss_cfg, vgg_params=vgg)
+    optimizer = fateavatar_optimizers(config_to_dict(cfg.training))
+    maint = dataclasses.replace(common.maintenance_config(cfg), **MAINT_OVERRIDES)
+    log(f"[train] config overrides: {MAINT_OVERRIDES} (yaml: densify_interval "
+        f"{cfg.training.densify_interval}, prune_interval {cfg.training.prune_interval}); "
+        f"VGG16 weights random (seed 0) in place of assets.vgg16_weights_path; "
+        f"SyntheticDataset expression codes scaled by {EXPR_SCALE:.4f} (std 0.05); "
+        f"{N_TRAIN} train / {N_TEST} test frames of {h}x{w}")
+    log(f"[train] loss {dataclasses.asdict(loss_cfg)}; lr {optimizer.lr_tree}; "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+
+    trainer = Trainer(cfg.name, model, params, state, loss_fn, optimizer, train_ds,
+                      test_ds, workspace=tws, maint_cfg=maint,
+                      render_cfg=common.render_config(cfg), seed=cfg.seed)
+    rcfg = trainer.render_cfg
+    log(f"[train] render config after autosize: budget {rcfg.instance_budget} "
+        f"R {rcfg.max_tiles_per_gaussian} tail_k {rcfg.tail_k} binning {rcfg.binning}")
+
+    # watch the maintenance steps (this instrumentation syncs only there)
+    events = []
+    step_fn = trainer.train_step
+
+    def watched(ts, frame):
+        before = ts.state.alive
+        ts2, aux = step_fn(ts, frame)
+        if ts2.step % maint.densify_interval == 0:
+            new = ts2.state.alive & ~before
+            moments = max(float((getattr(o, f).reshape(new.shape[0], -1).abs()
+                                 * new[:, None]).max())
+                          for o in (ts2.opt_state.mu, ts2.opt_state.nu)
+                          for f in maintenance.SPLAT_FIELDS)
+            events.append(("densify", ts2.step, int(before.sum()),
+                           int(ts2.state.alive.sum()), int(new.sum()), moments))
+        if ts2.step % maint.prune_interval == 0:
+            events.append(("prune", ts2.step, int(before.sum()),
+                           int(ts2.state.alive.sum())))
+        return ts2, aux
+
+    trainer.train_step = watched
+    torch.cuda.synchronize()
+    # ---- the training path: counts to 0 just before, read just after
+    bi.blend_instances.launches = 0
+    bi.blend_instances_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(1)                     # one epoch, then save_checkpoint
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    trainer.train_step = step_fn
+    launches = {"blend_instances_fwd": bi.blend_instances.launches,
+                "blend_instances_bwd": bi.blend_instances_bwd.launches}
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+        log(f"[train] {name} launches in the training epoch: {n} ({N_TRAIN} steps)")
+        check(n == N_TRAIN, f"{name}: one launch per training step")
+    losses = trainer.epoch_losses
+    stats = trainer.last_epoch_stats
+    log(f"[train] epoch of {N_TRAIN} steps in {epoch_s:.3f} s (host clock, incl. "
+        f"maintenance and the checkpoint); per-step loss {[round(x, 5) for x in losses]}")
+    for ev in events:
+        log(f"[train] {ev[0]} at step {ev[1]}: alive {ev[2]} -> {ev[3]}"
+            + (f", {ev[4]} slots written, their largest Adam moment {ev[5]:.1e}"
+               if ev[0] == "densify" else ""))
+    check(len(losses) == N_TRAIN and all(np.isfinite(losses)), "finite loss every step")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"mean loss of the last 5 steps {last:.5f} below the first 5 {first:.5f}")
+    dens = [ev for ev in events if ev[0] == "densify"]
+    check(len(dens) >= 1 and all(ev[3] == ev[2] + maint.increase_num and ev[4] == maint.increase_num
+                                 for ev in dens), "densify adds increase_num splats")
+    check(all(ev[5] == 0.0 for ev in dens), "densified rows start with zero Adam moments")
+    check(any(ev[0] == "prune" for ev in events), "prune fired")
+    check(stats["overflow"] == 0, f"overflow {stats['overflow']} in the training epoch")
+
+    # ---- evaluation (its forwards counted apart)
+    bi.blend_instances.launches = 0
+    bi.blend_instances_bwd.launches = 0
+    summary = trainer.evaluate("test")
+    torch.cuda.synchronize()
+    log(f"[train] eval on {N_TEST} test frames: {summary}; forward launches "
+        f"{bi.blend_instances.launches}, backward {bi.blend_instances_bwd.launches}")
+    check(np.isfinite(summary["psnr"]), "finite eval PSNR")
+    check(bi.blend_instances.launches == N_TEST and bi.blend_instances_bwd.launches == 0,
+          "eval runs one forward per frame and no backward")
+
+    # ---- resume: a fresh Trainer restores the checkpoint and trains on
+    resumed = Trainer(cfg.name, model, params, state, loss_fn, optimizer,
+                      dataset(N_RESUME, 2), test_ds, workspace=tws, maint_cfg=maint,
+                      render_cfg=rcfg, seed=cfg.seed)
+    resumed.load_checkpoint()
+    ts, rs = trainer.ts, resumed.ts
+    same = all(torch.equal(getattr(a, f), getattr(b, f))
+               for a, b in ((ts.opt_state.mu, rs.opt_state.mu), (ts.opt_state.nu, rs.opt_state.nu),
+                            (ts.params, rs.params))
+               for f in maintenance.SPLAT_FIELDS)
+    check(resumed.global_step == N_TRAIN and rs.step == N_TRAIN and same
+          and torch.equal(ts.opt_state.count, rs.opt_state.count),
+          "resume restores global_step, the step counter and the Adam moments")
+    resumed.train(2)
+    check(resumed.global_step == N_TRAIN + N_RESUME and all(np.isfinite(resumed.epoch_losses)),
+          "the resumed trainer trains on")
+    log(f"[train] resumed at step {N_TRAIN} with equal moments, trained to step "
+        f"{resumed.global_step}, losses {[round(x, 5) for x in resumed.epoch_losses]}")
+
+    # ---- kernel 2 on a captured full-width training frame
+    frame = trainer._make_frame(train_ds.sample(0))
+    captured = []
+
+    def record(*args):
+        img, tfin = bi.blend_instances(*args)
+        captured.append((args, img.detach(), tfin.detach()))
+        img.register_hook(lambda g: captured.append(g))
+        return img, tfin
+
+    with swapped_blend(record):
+        trainer.train_step.grads(trainer.ts, frame)
+    (inst, starts, bg, grid), img, tfin = captured[0]
+    bwd_args = (inst.detach(), starts, bg, img, tfin, captured[1].contiguous(),
+                torch.zeros_like(tfin), grid)
+    n_inst = int(starts[-1])
+    counts = (starts[1:] - starts[:-1]).float()
+    log(f"[kernel] training frame: M {inst.shape[1]} binned instances {n_inst} "
+        f"per-tile max {int(counts.max())} mean {counts.mean().item():.1f}")
+    check_blend("training frame (forward)", (inst.detach(), starts, bg, grid), fwd_row)
+    check_blend_bwd("training frame", bwd_args, bwd_row)
+    ms = cuda_ms(lambda: bi.blend_instances_bwd(*bwd_args), reps=20)
+    plain_ms = cuda_ms(lambda: bi.blend_instances_backward_reference(*bwd_args),
+                       reps=2, warmup=1)
+    evaluated, blended = bi.pair_counts(inst.detach(), starts, grid)
+    n_pix = grid[0] * grid[1] * 256
+    bytes_moved = (BYTES_PER_INSTANCE * n_inst + 4 * starts.numel()
+                   + BWD_BYTES_PER_PIXEL * n_pix + BWD_BYTES_PER_COLUMN * inst.shape[1])
+    ops = BWD_OPS_PER_EVALUATED * evaluated + BWD_OPS_PER_BLENDED * blended
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    bwd_row.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   library_ms=None)
+    log(f"[kernel] blend_instances_bwd: {ms:.4f} ms/launch (CUDA events, 20 launches), "
+        f"plain version {plain_ms:.3f} ms; evaluated pairs {evaluated}, blended "
+        f"{blended}; bound {bwd_row['bound_ms']:.5f} ms ({t_bytes:.5f} ms for "
+        f"{bytes_moved} B at 3.35 TB/s, {t_ops:.5f} ms for {ops} ops at 67 TFLOP/s "
+        f"fp32) -> {bwd_row['bound_ms'] / ms:.1%} of bound [{card}]")
+
+    # ---- one whole step: kernels vs both blends plain, same state and frame.
+    # The VGG stack runs in float32 with TF32 off and deterministic cuDNN
+    # here, so that only the blends differ between the two.
+    cmp_loss = FateAvatarLoss(dataclasses.replace(loss_cfg, vgg_dtype=None),
+                              vgg_params=vgg)
+    cmp_step = make_train_step(model, cmp_loss, optimizer, maint, rcfg)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        gk, pk, _, lk = cmp_step.grads(trainer.ts, frame)
+        gk2, pk2, _, _ = cmp_step.grads(trainer.ts, frame)
+        with swapped_blend(bi.blend_instances_plain):
+            gp, pp, _, lp = cmp_step.grads(trainer.ts, frame)
+    torch.cuda.synchronize()
+
+    def rel_errors(ga, pa, gb, pb):
+        out = []
+        for f in [fl.name for fl in dataclasses.fields(ga)] + ["probe"]:
+            a, b = (pa, pb) if f == "probe" else (getattr(ga, f), getattr(gb, f))
+            if b.numel() == 0 or float(b.abs().max()) == 0.0:
+                check(float(a.abs().max()) == 0.0, f"step gradient {f}: one side 0")
+                continue
+            out.append((f, float((a - b).norm() / b.norm()),
+                        float((a - b).abs().max() / b.abs().max())))
+        return out
+
+    noise = rel_errors(gk2, pk2, gk, pk)
+    worst = rel_errors(gk, pk, gp, pp)
+    for f, l2, mx in worst:
+        check(l2 <= STEP_RTOL_L2 and mx <= STEP_RTOL_MAX,
+              f"step gradient {f}: kernels vs plain rel L2 {l2:.2e}, max {mx:.2e}")
+    log(f"[train] one step, kernels vs plain blends: loss {lk['loss'].item():.7f} vs "
+        f"{lp['loss'].item():.7f}; per field (rel L2, max rel): "
+        + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in worst))
+    log("[train] the same step twice with the kernels (run-to-run noise of the "
+        "atomic scatter-adds): " + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in noise))
+
+    # ---- timings of the step at full width
+    never = 10**9    # steady steps: no maintenance falls due
+    timing_step = make_train_step(model, loss_fn, optimizer, dataclasses.replace(
+        maint, densify_interval=never, prune_interval=never,
+        opacity_reset_interval=never), rcfg)
+    frames = [trainer._make_frame(train_ds.sample(i)) for i in range(N_TRAIN)]
+    ts = trainer.ts
+    for f in frames[:3]:
+        timing_step(ts, f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for f in frames[3:13]:
+        ts, _ = timing_step(ts, f)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[train] ms/step {step_ms:.3f} (host clock, synchronized, 10 steady steps, "
+        f"maintenance excluded), peak device memory {peak_gib:.3f} GiB "
+        f"(resident before the steps {base_mem / 2**30:.3f} GiB) [{card}]")
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stages = ("forward", "loss", "backward", "adam", "maintenance")
+
+    def split_step(f, host_ms, dev_ms=None):
+        """One step in its five stages, each run alone (synchronized): host
+        milliseconds per stage into ``host_ms``; with ``dev_ms``, each stage
+        under its own torch.profiler and the device time of its kernels
+        into ``dev_ms`` (index 5: kernel 2's part of the backward)."""
+        box = {}
+
+        def forward():
+            leaves = {k.name: getattr(ts.params, k.name).detach().requires_grad_()
+                      for k in dataclasses.fields(ts.params)}
+            probe = torch.zeros((2, ts.params.offset.shape[0]), device=dev,
+                                requires_grad=True)
+            box.update(leaves=leaves, probe=probe, out=fateavatar_forward(
+                model, dataclasses.replace(ts.params, **leaves), ts.state,
+                f.expression, f.flame_pose, f.camera, bg_color=f.bg_color,
+                render_cfg=rcfg, means2d_probe=probe))
+
+        def loss():
+            box["loss"] = loss_fn(box["out"], {"rgb": f.rgb})["loss"]
+
+        def backward():
+            box["g"] = torch.autograd.grad(box["loss"], [*box["leaves"].values(), box["probe"]])
+
+        def adam():
+            g, out = box["g"], box["out"]
+            grads = dataclasses.replace(ts.params, **dict(zip(box["leaves"], g[:-1])))
+            st = maintenance.add_densification_stats(ts.state, g[-1], out["visibility_filter"])
+            box["state"] = maintenance.update_max_radii(st, out["radii"], out["visibility_filter"])
+            upd, box["opt"] = optimizer.update(grads, ts.opt_state, ts.params)
+            box["params"] = apply_updates(ts.params, upd)
+
+        def maint_due():
+            p3, s3, touched = maintenance.uv_densify(ts.generator, box["params"], box["state"],
+                                                     maint.increase_num)
+            zero_moment_rows(box["opt"], touched, maintenance.SPLAT_FIELDS)
+            maintenance.prune_low_opacity(p3, s3, maint.min_opacity)
+
+        for i, fn in enumerate((forward, loss, backward, adam, maint_due)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if dev_ms is None:
+                fn()
+            else:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+                ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+                dev_ms[i] += sum(e.self_device_time_total for e in ks) / 1e3
+                dev_ms[5] += sum(e.self_device_time_total for e in ks
+                                 if "blend_instances_bwd_kernel" in e.key) / 1e3
+            torch.cuda.synchronize()
+            host_ms[i] += (time.perf_counter() - t0) * 1e3
+
+    reps = 5
+    host, dev_split = np.zeros(5), np.zeros(6)
+    split_step(frames[0], np.zeros(5))                       # warm-up
+    for f in frames[1:1 + reps]:
+        split_step(f, host)
+    for f in frames[1:1 + reps]:
+        split_step(f, np.zeros(5), dev_split)
+    host /= reps
+    dev_split /= reps
+    log(f"[train] stage split, host ms (each stage run alone, synchronized, {reps} "
+        f"steps): " + ", ".join(f"{n} {host[i]:.3f}" for i, n in enumerate(stages))
+        + f"; sum {host.sum():.3f} (maintenance = densify + moment reset + prune, "
+        f"when due) [{card}]")
+    log(f"[train] stage split, device ms (kernel time under torch.profiler, same "
+        f"steps): " + ", ".join(f"{n} {dev_split[i]:.3f}" for i, n in enumerate(stages))
+        + f"; blend_instances_bwd {dev_split[5]:.3f} of the backward's "
+        f"{dev_split[2]:.3f} ({dev_split[5] / dev_split[2]:.1%}) [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f in frames[13:16]:
+            ts, _ = timing_step(ts, f)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_launch = sum(e.count for e in kernels)
+    check(busy_us > 0, "the profiler saw device time in the training steps")
+    log(f"[profile] 3 train steps: wall {wall_us / 3e3:.3f} ms/step, device busy "
+        f"{busy_us / 3e3:.3f} ms/step ({busy_us / wall_us:.1%}; idle "
+        f"{1 - busy_us / wall_us:.1%}), {n_launch / 3:.0f} kernels/step (under the "
+        f"profiler) [{card}]")
+    for e in kernels[:10]:
+        log(f"[profile]   {e.self_device_time_total / 3e3:8.4f} ms/step "
+            f"x{e.count // 3:<4d} {e.key[:90]}")
+    log(f"[train] phase total {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -210,7 +632,7 @@ def main():
 
     # ---- build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["blend_instances"])
+    libs = cuda_build.build_all(["blend_instances", "blend_instances_bwd"])
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -218,6 +640,7 @@ def main():
                 log(f"[ptxas] {name}: {line.strip()}")
     rows = {name: {"name": name, **spec} for name, spec in KERNELS.items()}
     blend_row = rows["blend_instances_fwd"]
+    bwd_row = rows["blend_instances_bwd"]
 
     # ---- kernel phase 1: edge cases
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -227,6 +650,18 @@ def main():
     empty = (edge[1][1:] - edge[1][:-1]) == 0
     check(bool((tfin[empty] == 1.0).all()), "empty tiles must keep T = 1")
     check(int((tfin < 1e-3).sum()) > 0, "saturated tiles must terminate")
+    # the backward kernel on the same inputs, with seeded cotangents
+    img_e = bi.blend_instances(*edge)[0]
+    g_img = torch.randn(img_e.shape, generator=gen, device=dev)
+    g_tfin = torch.randn(tfin.shape, generator=gen, device=dev)
+    bwd_args = (*edge[:3], img_e, tfin, g_img, g_tfin, edge[3])
+    g_clean = check_blend_bwd("edge cases", bwd_args, bwd_row)
+    g_dirty = bi.blend_instances_bwd(*bwd_args, out=torch.full_like(g_clean, float("nan")))
+    torch.cuda.synchronize()
+    check(torch.equal(g_dirty, g_clean),
+          "a NaN-filled output buffer must come back equal to a clean call")
+    log("[kernel] edge cases: NaN-prefilled output buffer comes back finite and "
+        "bit-equal to a clean call")
 
     # ---- serve phase: seeded workspace, checkpoint, reenactment
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
@@ -289,7 +724,7 @@ def main():
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for name, n in launches.items():
             rows[name]["launches"] = n
-            log(f"[serve] {name} launches in the main path: {n}")
+            log(f"[serve] {name} launches in the serving path: {n}")
             check(n > 0, f"{name} never launched on the main path")
         check(launches["blend_instances_fwd"] == N_FRAMES,
               "one blend launch per frame")
@@ -350,7 +785,7 @@ def main():
         ms = cuda_ms(lambda: bi.blend_instances(*inputs), reps=50)
         plain_ms = cuda_ms(lambda: bi.blend_instances_reference(*inputs), reps=3,
                            warmup=1)
-        pairs = bi.evaluated_pairs(inst, starts, grid)
+        pairs = bi.pair_counts(inst, starts, grid)[0]
         n_pix = grid[0] * grid[1] * 256
         bytes_moved = (BYTES_PER_INSTANCE * n_inst + 4 * starts.numel() + 12
                        + BYTES_PER_PIXEL * n_pix)
@@ -404,6 +839,8 @@ def main():
         for e in kernels[:8]:
             log(f"[profile]   {e.self_device_time_total / 4e3:8.4f} ms/frame "
                 f"x{e.count // 4:<4d} {e.key[:90]}")
+
+        train_phase(ws, gen, rows, card)
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -1,7 +1,7 @@
-"""Construction helpers for the serving entry points (port of the
-dataset-free part of ``fateavatar_tpu/cli/common.py``): config -> FLAME ->
-model, the render settings, and the identity-info artifact used for
-dataset-free inference."""
+"""Construction helpers for the entry points (port of
+``fateavatar_tpu/cli/common.py`` without the image dataset readers): config
+-> FLAME -> model, the loss, the render and maintenance settings, and the
+identity-info artifact used for dataset-free inference."""
 
 from __future__ import annotations
 
@@ -9,20 +9,36 @@ import json
 import os
 from typing import Optional
 
+import numpy as np
+
 from fateavatar_tpu_torch.flame.loader import load_flame_pickle, make_flame
 from fateavatar_tpu_torch.models.fateavatar import FateAvatarConfig, init_fateavatar
 from fateavatar_tpu_torch.render.render import RenderConfig
+from fateavatar_tpu_torch.train.losses import (
+    FateAvatarLoss,
+    FateAvatarLossConfig,
+    load_vgg16_from_torch,
+)
+from fateavatar_tpu_torch.train.step import MaintenanceConfig
 from fateavatar_tpu_torch.utils.config import Config
 from fateavatar_tpu_torch.utils.obj_io import ObjMesh, load_obj
 
 
-def construct_flame(cfg: Config, device="cuda"):
-    """FLAME from the user-supplied pickle, without a dataset: n_shape 100,
-    n_exp 50, no identity shape, zero canonical expression
-    (common.py:62-75)."""
+def construct_flame(cfg: Config, dataset=None, device="cuda"):
+    """FLAME from the user-supplied pickle (common.py:62-75). With a
+    dataset, its n_shape / n_exp, identity shape and mean expression are
+    baked in; without one (inference from a workspace): n_shape 100, n_exp
+    50, no identity shape, zero canonical expression."""
+    if dataset is not None:
+        n_shape, n_exp = dataset.n_shape, dataset.n_exp
+        shape_params, canonical_exp = dataset.shape_params, dataset.mean_expression
+    else:
+        n_shape, n_exp, shape_params, canonical_exp = 100, 50, None, None
     flame_data = load_flame_pickle(cfg.assets.flame_model_path)
     return make_flame(
-        flame_data, n_shape=100, n_exp=50,
+        flame_data, n_shape=n_shape, n_exp=n_exp,
+        shape_params=shape_params,
+        canonical_expression=canonical_exp,
         canonical_pose=cfg.dataset.canonical_pose,
         device=device,
     )
@@ -50,16 +66,84 @@ def construct_model(cfg: Config, flame, template: Optional[ObjMesh] = None,
                            seed=cfg.seed, device=device)
 
 
+def construct_loss(cfg: Config, device="cuda") -> FateAvatarLoss:
+    """The FateAvatar loss of the config. A VGG weight > 0 needs
+    ``assets.vgg16_weights_path``: without it this raises, as the JAX
+    package does."""
+    vgg_params = None
+    if cfg.loss.vgg_weight > 0:
+        if cfg.assets.vgg16_weights_path is None:
+            raise ValueError(
+                "loss.vgg_weight > 0 needs assets.vgg16_weights_path "
+                "(a torchvision vgg16 state_dict). Set loss.vgg_weight=0 "
+                "to train without the perceptual term.")
+        vgg_params = load_vgg16_from_torch(cfg.assets.vgg16_weights_path, device)
+    return FateAvatarLoss(loss_config(cfg), vgg_params=vgg_params)
+
+
+def loss_config(cfg: Config) -> FateAvatarLossConfig:
+    return FateAvatarLossConfig(
+        rgb_type=cfg.loss.rgb_type,
+        rgb_weight=cfg.loss.rgb_weight,
+        vgg_weight=cfg.loss.vgg_weight,
+        vgg_dtype=(None if cfg.loss.vgg_dtype in (None, "float32")
+                   else cfg.loss.vgg_dtype),
+        dssim_weight=cfg.loss.dssim_weight,
+        scale_weight=cfg.loss.scale_weight,
+        scale_threshold=cfg.loss.scale_threshold,
+        lpips_weight=cfg.loss.lpips_weight,
+        rot_weight=cfg.loss.rot_weight,
+        laplacian_weight=cfg.loss.laplacian_weight,
+        normal_weight=cfg.loss.normal_weight,
+        flame_weight=cfg.loss.flame_weight,
+    )
+
+
 def render_config(cfg: Config) -> RenderConfig:
-    """The instance path's settings from the config. ``render.impl``,
-    ``max_per_tile``, ``chunk`` (the dense-list blend) and ``autosize`` (read
-    by the trainer) do not apply to it."""
+    """The instance path's settings from the config, ``autosize`` included
+    (the Trainer reads it). ``render.impl``, ``max_per_tile`` and ``chunk``
+    (the dense-list blend) do not apply to it."""
     return RenderConfig(
         max_tiles_per_gaussian=cfg.render.max_tiles_per_gaussian,
         instance_budget=cfg.render.instance_budget,
         t_cutoff=cfg.render.t_cutoff,
         binning=cfg.render.binning,
+        autosize=cfg.render.autosize,
     )
+
+
+def maintenance_config(cfg: Config) -> MaintenanceConfig:
+    t = cfg.training
+    return MaintenanceConfig(
+        densify_interval=t.densify_interval,
+        prune_interval=t.prune_interval,
+        opacity_reset_interval=t.opacity_reset_interval,
+        increase_num=t.increase_num,
+        min_opacity=t.min_opacity,
+        max_points_num=t.max_points_num,
+    )
+
+
+def save_identity_info(workspace: str, dataset, cfg: Config) -> dict:
+    """Persist the identity metadata needed to rebuild a model without the
+    dataset (common.py:121-173: shape params, canonical expression, fov, a
+    camera)."""
+    info = {
+        "shape_params": np.asarray(dataset.shape_params).tolist(),
+        "mean_expression": np.asarray(dataset.mean_expression).tolist(),
+        "n_shape": dataset.n_shape,
+        "n_exp": dataset.n_exp,
+        "fovx": float(dataset.fovx),
+        "fovy": float(dataset.fovy),
+        "canonical_pose": cfg.dataset.canonical_pose,
+        "img_res": cfg.dataset.img_res,
+        "world_mat0": np.asarray(dataset.world_mats[0]).tolist(),
+        "dataset_type": dataset.type_name,
+    }
+    os.makedirs(workspace, exist_ok=True)
+    with open(os.path.join(workspace, "identity_info.json"), "w") as f:
+        json.dump(info, f, indent=2)
+    return info
 
 
 def load_identity_info(workspace: str) -> dict:

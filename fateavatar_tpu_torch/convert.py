@@ -2,8 +2,9 @@
 
 Each function takes a dict of numpy arrays keyed by the field names of the
 JAX package's dataclass (``FlameModel``, ``FateAvatarModel``,
-``FateAvatarParams``, ``FateAvatarState``) and returns the port's object on
-``device``. Index fields become int64, masks bool, the rest float32. Fields
+``FateAvatarParams``, ``FateAvatarState``, ``MultiAdamState``,
+``TrainState``) and returns the port's object on ``device``. Index fields
+become int64, masks bool, the Adam step count int32, the rest float32. Fields
 the port does not carry yet (FLAME's landmark embedding) are ignored.
 """
 
@@ -21,6 +22,8 @@ from fateavatar_tpu_torch.models.fateavatar import (
     FateAvatarParams,
     FateAvatarState,
 )
+from fateavatar_tpu_torch.train.optim import MultiAdamState
+from fateavatar_tpu_torch.train.step import TrainState
 
 _INDEX_FIELDS = {"faces", "uvfaces", "face_index"}
 _MASK_FIELDS = {"alive"}
@@ -66,3 +69,30 @@ def fateavatar_params(d: dict, device="cuda") -> FateAvatarParams:
 
 def fateavatar_state(d: dict, device="cuda") -> FateAvatarState:
     return _build(FateAvatarState, d, device)
+
+
+def multi_adam_state(d: dict, device="cuda") -> MultiAdamState:
+    """``d["mu"]`` / ``d["nu"]`` are FateAvatarParams dicts."""
+    return MultiAdamState(
+        mu=fateavatar_params(d["mu"], device),
+        nu=fateavatar_params(d["nu"], device),
+        count=torch.as_tensor(np.asarray(d["count"]), dtype=torch.int32, device=device))
+
+
+def vgg_params(layers, device="cuda") -> list:
+    """The JAX package's VGG16 weights, a list of (w [O,I,3,3], b [O])."""
+    return [(torch.as_tensor(np.asarray(w), dtype=torch.float32, device=device),
+             torch.as_tensor(np.asarray(b), dtype=torch.float32, device=device))
+            for w, b in layers]
+
+
+def train_state(d: dict, device="cuda", seed: int = 0) -> TrainState:
+    """A whole TrainState: params, state, opt_state and step. JAX's PRNG key
+    has no torch counterpart; the densify generator is seeded with
+    ``seed``."""
+    return TrainState(
+        params=fateavatar_params(d["params"], device),
+        state=fateavatar_state(d["state"], device),
+        opt_state=multi_adam_state(d["opt_state"], device),
+        step=int(np.asarray(d["step"])),
+        generator=torch.Generator(device=device).manual_seed(seed))

@@ -22,27 +22,20 @@
 // need. Invalid / sentinel rows (valid = 0) are staged with opacity 0, which
 // the 1/255 test skips.
 //
-// The arithmetic up to alpha uses explicitly rounded operations (no FMA
-// contraction) in the order of the plain PyTorch version, so both compute
-// the same bits for power and alpha and never disagree on the 1/255 and
-// power > 0 tests; they differ only in the order of the transmittance
+// The arithmetic up to alpha and the transmittance step (blend_common.cuh,
+// shared with the backward kernel) uses explicitly rounded operations (no
+// FMA contraction) in the order of the plain PyTorch version, so both
+// compute the same bits for power and alpha and never disagree on the 1/255
+// and power > 0 tests; they differ only in the order of the transmittance
 // product.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "blend_common.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int BLOCK = TILE * TILE;  // threads per block = pixels per tile
-constexpr int NCH = 9;              // staged channels: mean xy, conic, rgb, opacity
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1.0e-4f;
+using namespace blend;
 
-__device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
+constexpr int NCH = 9;              // staged channels: mean xy, conic, rgb, opacity
 
 __global__ void __launch_bounds__(BLOCK)
 blend_instances_fwd_kernel(const float* __restrict__ inst, int64_t m,
@@ -77,22 +70,16 @@ blend_instances_fwd_kernel(const float* __restrict__ inst, int64_t m,
     __syncthreads();
     const int n = static_cast<int>(clamp64(e - base, 0, BLOCK));
     for (int k = 0; k < n && !done; ++k) {
-      const float dx = __fsub_rn(sh[0][k], px);
-      const float dy = __fsub_rn(sh[1][k], py);
-      const float quad = __fadd_rn(__fmul_rn(__fmul_rn(sh[2][k], dx), dx),
-                                   __fmul_rn(__fmul_rn(sh[4][k], dy), dy));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, quad),
-                                    __fmul_rn(__fmul_rn(sh[3][k], dx), dy));
-      if (!(power <= 0.0f)) continue;
-      const float raw = __fmul_rn(sh[8][k], expf(power));
-      const float alpha = raw > ALPHA_MAX ? ALPHA_MAX : raw;
-      if (!(alpha >= ALPHA_MIN)) continue;
-      const float test_t = __fmul_rn(T, __fsub_rn(1.0f, alpha));
+      Splat sp;
+      if (!splat_at(sh[0][k], sh[1][k], sh[2][k], sh[3][k], sh[4][k], sh[8][k],
+                    px, py, sp))
+        continue;
+      const float test_t = next_transmittance(T, sp.alpha);
       if (test_t < T_EPS) {
         done = true;
         continue;
       }
-      const float w = __fmul_rn(alpha, T);
+      const float w = __fmul_rn(sp.alpha, T);
       acc_r = __fadd_rn(acc_r, __fmul_rn(w, sh[5][k]));
       acc_g = __fadd_rn(acc_g, __fmul_rn(w, sh[6][k]));
       acc_b = __fadd_rn(acc_b, __fmul_rn(w, sh[7][k]));

@@ -255,14 +255,17 @@ def fateavatar_forward(
     camera: Camera,
     bg_color: Optional[torch.Tensor] = None,
     render_cfg: RenderConfig = RenderConfig(),
+    means2d_probe: Optional[torch.Tensor] = None,
 ):
     """One frame forward (fateavatar.py:196-295). Returns the output dict:
     rgb_image [H,W,3], scale, raw_rot, viewspace_points, visibility_filter,
-    radii, overflow, verts, verts_orig, faces, alive."""
+    radii, overflow, verts, verts_orig, faces, alive. ``means2d_probe`` is
+    passed to :func:`render` (the densification signal of training)."""
     bg = model.bg_color if bg_color is None else bg_color
     gaussians, verts, verts_orig = build_gaussians(
         model, params, state, expression, flame_pose)
-    out = render(camera, gaussians, bg, config=render_cfg)
+    out = render(camera, gaussians, bg, config=render_cfg,
+                 means2d_probe=means2d_probe)
     return {
         "rgb_image": out["render"],
         "scale": torch.exp(params.scaling),

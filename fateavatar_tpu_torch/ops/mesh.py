@@ -1,7 +1,8 @@
 """Triangle-mesh geometry ops used by ``init_fateavatar`` and
 ``build_gaussians``.
 
-Port of the corresponding part of ``fateavatar_tpu/ops/mesh.py``.
+Port of the corresponding part of ``fateavatar_tpu/ops/mesh.py`` (and its
+``laplacian_smoothing``, the regularizer of training).
 """
 
 from __future__ import annotations
@@ -82,3 +83,21 @@ def reweight_uvcoords_by_barycoords(
                       device=uvcoords.device)
     uv_h = torch.cat([uvcoords, ones], dim=-1)
     return reweight_verts_by_barycoords(uv_h, uvfaces, face_index, bary_coords)
+
+
+def laplacian_smoothing(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Uniform-graph Laplacian residual L @ verts, where L has -1 on the
+    diagonal and 1/deg(i) for each neighbour (pytorch3d
+    ``Meshes.laplacian_packed`` as train/loss.py:173 applies it). Every edge
+    of every face counts, so an edge shared by two faces counts twice, as in
+    the JAX package. Returns [..., V, 3] residuals."""
+    edges = torch.cat([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], dim=0)
+    src = torch.cat([edges[:, 0], edges[:, 1]])
+    dst = torch.cat([edges[:, 1], edges[:, 0]])
+    nv = verts.shape[-2]
+    deg = torch.zeros((nv,), dtype=verts.dtype, device=verts.device).index_add_(
+        0, src, torch.ones_like(src, dtype=verts.dtype))
+    nbr_sum = torch.zeros_like(verts).index_add_(
+        verts.dim() - 2, src, verts.index_select(verts.dim() - 2, dst))
+    inv_deg = torch.where(deg > 0, 1.0 / torch.clamp_min(deg, 1.0), 0.0)
+    return nbr_sum * inv_deg[:, None] - verts

@@ -1,7 +1,8 @@
-"""Instance-range tile blend: the CUDA kernel's wrapper and its plain
-PyTorch version.
+"""Instance-range tile blend: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
-Port of ``fateavatar_tpu/render/blend_instances.py`` (forward). The blend
+Port of ``fateavatar_tpu/render/blend_instances.py`` (forward and
+backward). The blend
 walks the FLAT depth-sorted instance array with per-tile [start, end)
 ranges — the data layout of ``renderCUDA`` (rasterizer_impl.cu point_list +
 ranges). Instance data lives channel-major as [16, M]:
@@ -9,10 +10,14 @@ ranges). Instance data lives channel-major as [16, M]:
   0 mean_x, 1 mean_y, 2 conic_a, 3 conic_b, 4 conic_c,
   5 color_r, 6 color_g, 7 color_b, 8 opacity, 9 valid, 10..15 zero pad.
 
-On a CUDA tensor :func:`blend_instances` launches the hand-written kernel in
-``csrc/blend_instances.cu``; on a CPU tensor it runs
-:func:`blend_instances_reference`. The backward kernel arrives with the
-training slice.
+:func:`blend_instances` is differentiable (``_BlendInstances``, the
+counterpart of the JAX package's ``custom_vjp``). On a CUDA tensor its
+forward launches the hand-written kernel in ``csrc/blend_instances.cu`` and
+its backward the one in ``csrc/blend_instances_bwd.cu``
+(:func:`blend_instances_bwd`); on a CPU tensor both run their plain
+versions, :func:`blend_instances_reference` and
+:func:`blend_instances_backward_reference`. Nothing falls back: a CUDA
+tensor gets the kernel or an error.
 """
 
 from __future__ import annotations
@@ -58,13 +63,21 @@ def _tile_pixel_coords(grid, device):
     return px.reshape(-1, P), py.reshape(-1, P)
 
 
+def _clamp_straight_through(raw):
+    """min(raw, 0.99) whose gradient passes straight through the clamp, as
+    renderCUDA's backward does (backward.cu:499,538,554). The value is
+    exactly 0.99 where clamped, so forward results are unchanged."""
+    return torch.where(raw > ALPHA_MAX, ALPHA_MAX + (raw - raw.detach()), raw)
+
+
 def _blend_windows(inst_data, tile_starts, bg, grid):
     """The plain blend: every tile's range in CHUNK-instance windows (all
     tiles at once), carrying transmittance and colour between windows, as
     ``blend_tiles_xla``'s scan does (blend_tiles.py:112-142). Peak memory is
     a few [T, CHUNK, P] tensors. Returns (img [T,3,P], t_final [T,P],
-    evaluated [T,P]): ``evaluated`` counts the instances each pixel reaches
-    before it terminates, the pairs a sequential per-pixel loop computes."""
+    evaluated [T,P], blended [T,P]): ``evaluated`` counts the instances each
+    pixel reaches before it terminates, the pairs a sequential per-pixel
+    loop computes; ``blended`` those of them it blends."""
     ty, tx = grid
     T = ty * tx
     dev = inst_data.device
@@ -77,6 +90,7 @@ def _blend_windows(inst_data, tile_starts, bg, grid):
     q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
     acc = torch.zeros((T, 3, P), dtype=torch.float32, device=dev)
     evaluated = torch.zeros((T, P), dtype=torch.int64, device=dev)
+    blended = torch.zeros((T, P), dtype=torch.int64, device=dev)
     lane = torch.arange(CHUNK, device=dev)
     longest = int((e - s).max()) if T else 0
     for i in range((longest + CHUNK - 1) // CHUNK):
@@ -87,7 +101,7 @@ def _blend_windows(inst_data, tile_starts, bg, grid):
         dy = data[1] - py
         power = -0.5 * (data[2] * dx * dx + data[4] * dy * dy) - data[3] * dx * dy
         raw = data[8] * torch.exp(torch.clamp_max(power, 0.0))
-        alpha = torch.clamp_max(raw, ALPHA_MAX)
+        alpha = _clamp_straight_through(raw)
         keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & (data[9] > 0) & in_range
         alpha = torch.where(keep, alpha, 0.0)
         # CUDA termination (forward.cu:346-351): q, the transmittance with
@@ -97,6 +111,7 @@ def _blend_windows(inst_data, tile_starts, bg, grid):
         q_excl = torch.cat([q_carry[:, None, :], q_incl[:, :-1]], dim=1)
         evaluated += ((q_excl >= T_EPS) & in_range).sum(dim=1)
         alpha = torch.where(q_incl >= T_EPS, alpha, 0.0)
+        blended += (alpha > 0).sum(dim=1)
         t_incl = torch.cumprod(1.0 - alpha, dim=1)
         t_excl = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
         w = alpha * t_excl * t_carry[:, None, :]              # [T, W, P]
@@ -104,39 +119,171 @@ def _blend_windows(inst_data, tile_starts, bg, grid):
         t_carry = t_carry * t_incl[:, -1]
         q_carry = q_incl[:, -1]
     img = acc + t_carry[:, None, :] * bg[None, :, None]
-    return img, t_carry, evaluated
+    return img, t_carry, evaluated, blended
 
 
 def blend_instances_reference(inst_data, tile_starts, bg, grid):
-    """Plain PyTorch version of the kernel: (img_tiles [T,3,P], t_final
-    [T,P]). The CPU path, and the oracle the kernel is held against."""
+    """Plain PyTorch version of the forward kernel: (img_tiles [T,3,P],
+    t_final [T,P]). The CPU path, and the oracle the kernel is held against.
+    Differentiable by autograd (with the straight-through clamp): an
+    independent check of the backward."""
     _check_inputs(inst_data, tile_starts, bg, grid)
-    img, t_final, _ = _blend_windows(inst_data, tile_starts, bg, grid)
+    img, t_final, _, _ = _blend_windows(inst_data, tile_starts, bg, grid)
     return img, t_final
 
 
-def evaluated_pairs(inst_data, tile_starts, grid) -> int:
-    """(instance, pixel) pairs a sequential front-to-back loop with T<1e-4
-    termination evaluates on these inputs: the data-dependent work of one
-    blend, for its bound."""
+def pair_counts(inst_data, tile_starts, grid):
+    """(evaluated, blended): the (instance, pixel) pairs a sequential
+    front-to-back loop with T<1e-4 termination evaluates on these inputs,
+    and those of them it blends (alpha >= 1/255, before termination) — the
+    data-dependent work of one blend, for its bound."""
     bg = torch.zeros(3, dtype=torch.float32, device=inst_data.device)
     _check_inputs(inst_data, tile_starts, bg, grid)
-    return int(_blend_windows(inst_data, tile_starts, bg, grid)[2].sum())
+    with torch.no_grad():
+        _, _, evaluated, blended = _blend_windows(inst_data, tile_starts, bg, grid)
+    return int(evaluated.sum()), int(blended.sum())
 
 
-def blend_instances(inst_data, tile_starts, bg, grid):
-    """Instance-range blend. inst_data [16, M] float32 (see module
-    docstring), tile_starts [T+1] int32 (compact, unaligned ranges), bg [3]
-    float32, grid (tiles_y, tiles_x). Returns (img_tiles [T,3,P], t_final
-    [T,P]).
+def _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
+                           g_tfin, grid):
+    _check_inputs(inst_data, tile_starts, bg, grid)
+    T = grid[0] * grid[1]
+    for name, x, shape in (("img", img, (T, 3, P)), ("t_final", t_final, (T, P)),
+                           ("g_img", g_img, (T, 3, P)), ("g_tfin", g_tfin, (T, P))):
+        if x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be float32 {list(shape)}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != inst_data.device:
+            raise ValueError(f"{name} must be on {inst_data.device}")
+
+
+def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
+                                       g_img, g_tfin, grid):
+    """Plain PyTorch version of the backward kernel: g_inst [16, M], the
+    gradient of rows 0-8 of ``inst_data`` (rows 9-15 and every column outside
+    the tiles' ranges are zero), given the forward's outputs and their
+    cotangents. The math of ``_bwd_kernel`` (blend_instances.py:183-316 of
+    the JAX package): the window loop of :func:`_blend_windows`, all tiles at
+    once, with the same cumulative products, so it agrees with the plain
+    forward on which instances are kept and where each pixel terminates.
+    ``bg`` enters only through ``img``; its own gradient is
+    ``einsum("tdp,tp->d", g_img, t_final)``."""
+    _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
+                           g_tfin, grid)
+    ty, tx = grid
+    T = ty * tx
+    dev = inst_data.device
+    m = inst_data.shape[1]
+    px, py = _tile_pixel_coords(grid, dev)
+    px, py = px[:, None, :], py[:, None, :]                   # [T, 1, P]
+    s = tile_starts[:-1].long()
+    e = tile_starts[1:].long()
+    gdotimg = (g_img[:, 0] * img[:, 0] + g_img[:, 1] * img[:, 1]
+               + g_img[:, 2] * img[:, 2])[:, None, :]          # [T, 1, P]
+    gt_tn = (g_tfin * t_final)[:, None, :]
+    g = g_img[:, :, None, :]                                   # [T, 3, 1, P]
+    t_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
+    q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
+    pu_carry = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    # one extra column takes the writes of slots outside every range
+    g_inst = torch.zeros((ROW, m + 1), dtype=torch.float32, device=dev)
+    lane = torch.arange(CHUNK, device=dev)
+    longest = int((e - s).max()) if T else 0
+    for i in range((longest + CHUNK - 1) // CHUNK):
+        pos = s[:, None] + i * CHUNK + lane                   # [T, W]
+        in_range = pos < e[:, None]
+        data = inst_data[:, pos.clamp(0, m - 1)][..., None]   # [16, T, W, 1]
+        dx = data[0] - px
+        dy = data[1] - py
+        ca, cb, cc = data[2], data[3], data[4]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        exp_power = torch.exp(torch.clamp_max(power, 0.0))
+        raw = data[8] * exp_power
+        alpha = torch.clamp_max(raw, ALPHA_MAX)
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & (data[9] > 0) & in_range[..., None]
+        alpha = torch.where(keep, alpha, 0.0)
+        # the forward's termination: the crossing instance and every later
+        # one are dropped (backward.cu:486-488)
+        q_incl = q_carry[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
+        alive = q_incl >= T_EPS
+        keep = keep & alive
+        alpha = torch.where(alive, alpha, 0.0)
+        om = 1.0 - alpha
+        t_incl = torch.cumprod(om, dim=1)
+        t_excl = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
+        t_j = t_excl * t_carry[:, None, :]                    # [T, W, P]
+        w = alpha * t_j
+        gdotc = (g[:, 0] * data[5] + g[:, 1] * data[6]) + g[:, 2] * data[7]
+        pu = pu_carry[:, None, :] + torch.cumsum(w * gdotc, dim=1)
+        inv_om = 1.0 / om
+        dalpha = t_j * gdotc - (gdotimg - pu) * inv_om - gt_tn * inv_om
+        dalpha = torch.where(keep, dalpha, 0.0)
+        # straight through the 0.99 clamp: the unclamped raw = op * G
+        g_power = dalpha * raw
+        rows = torch.stack([
+            g_power * (-ca * dx - cb * dy),
+            g_power * (-cc * dy - cb * dx),
+            g_power * (-0.5 * dx * dx),
+            g_power * (-dx * dy),
+            g_power * (-0.5 * dy * dy),
+            w * g[:, 0],
+            w * g[:, 1],
+            w * g[:, 2],
+            dalpha * exp_power,
+        ]).sum(dim=-1)                                        # [9, T, W]
+        col = torch.where(in_range, pos, m).reshape(-1)
+        g_inst[:9].index_put_((torch.arange(9, device=dev)[:, None], col[None, :]),
+                              rows.reshape(9, -1))
+        t_carry = t_carry * t_incl[:, -1]
+        q_carry = q_incl[:, -1]
+        pu_carry = pu[:, -1]
+    return g_inst[:, :m].contiguous()
+
+
+def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
+                        grid, out=None):
+    """Backward of the instance blend: g_inst [16, M] (see
+    :func:`blend_instances_backward_reference`).
 
     A CUDA tensor launches the kernel (and counts the launch in
-    ``blend_instances.launches``); a CPU tensor runs the plain version."""
-    _check_inputs(inst_data, tile_starts, bg, grid)
-    if inst_data.requires_grad or bg.requires_grad:
-        raise NotImplementedError(
-            "blend_instances has no backward yet (it arrives with the "
-            "training slice); call it on tensors that do not require grad")
+    ``blend_instances_bwd.launches``), writing every element of ``out``
+    (allocated when None); a CPU tensor runs the plain version."""
+    _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
+                           g_tfin, grid)
+    if inst_data.device.type == "cpu":
+        return blend_instances_backward_reference(
+            inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, grid)
+    if inst_data.device.type != "cuda":
+        raise ValueError(f"blend_instances_bwd runs on cuda or cpu, not {inst_data.device}")
+    ins = (inst_data, tile_starts, img, t_final, g_img, g_tfin)
+    if not all(x.is_contiguous() for x in ins):
+        raise ValueError("blend_instances_bwd needs contiguous inputs")
+    m = inst_data.shape[1]
+    if out is None:
+        out = torch.empty((ROW, m), dtype=torch.float32, device=inst_data.device)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (ROW, m)
+          or out.device != inst_data.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{ROW}, {m}] "
+                         f"tensor on {inst_data.device}")
+    ty, tx = grid
+    fn = _kernel("blend_instances_bwd")
+    with torch.cuda.device(inst_data.device):
+        stream = torch.cuda.current_stream(inst_data.device).cuda_stream
+        err = fn(inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
+                 t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(),
+                 out.data_ptr(), ty * tx, tx, stream)
+    if err != 0:
+        raise RuntimeError(f"blend_instances_bwd kernel launch failed: CUDA error {err}")
+    blend_instances_bwd.launches += 1
+    return out
+
+
+blend_instances_bwd.launches = 0
+
+
+def _blend_forward(inst_data, tile_starts, bg, grid):
+    """The forward on one device: the kernel on CUDA, the plain version on
+    the CPU."""
     if inst_data.device.type == "cpu":
         return blend_instances_reference(inst_data, tile_starts, bg, grid)
     if inst_data.device.type != "cuda":
@@ -148,7 +295,7 @@ def blend_instances(inst_data, tile_starts, bg, grid):
     T = ty * tx
     img = torch.empty((T, 3, P), dtype=torch.float32, device=inst_data.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=inst_data.device)
-    fn = _kernel()
+    fn = _kernel("blend_instances_fwd")
     with torch.cuda.device(inst_data.device):
         stream = torch.cuda.current_stream(inst_data.device).cuda_stream
         err = fn(inst_data.data_ptr(), inst_data.shape[1], tile_starts.data_ptr(),
@@ -159,15 +306,68 @@ def blend_instances(inst_data, tile_starts, bg, grid):
     return img, t_final
 
 
+class _BlendInstances(torch.autograd.Function):
+    """The blend with its backward (``_vjp_fwd`` / ``_vjp_bwd`` of the JAX
+    package). ``plain`` runs both directions through the plain versions on
+    any device (the comparisons of chip_smoke.py); otherwise the device
+    picks kernel or plain version."""
+
+    @staticmethod
+    def forward(ctx, inst_data, tile_starts, bg, grid, plain):
+        fwd = blend_instances_reference if plain else _blend_forward
+        img, t_final = fwd(inst_data, tile_starts, bg, grid)
+        ctx.save_for_backward(inst_data, tile_starts, bg, img, t_final)
+        ctx.grid, ctx.plain = grid, plain
+        return img, t_final
+
+    @staticmethod
+    def backward(ctx, g_img, g_tfin):
+        inst_data, tile_starts, bg, img, t_final = ctx.saved_tensors
+        g_img, g_tfin = g_img.contiguous(), g_tfin.contiguous()
+        bwd = blend_instances_backward_reference if ctx.plain else blend_instances_bwd
+        g_inst = bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, ctx.grid)
+        g_bg = torch.einsum("tdp,tp->d", g_img, t_final)
+        return g_inst, None, g_bg, None, None
+
+
+def blend_instances(inst_data, tile_starts, bg, grid):
+    """Instance-range blend. inst_data [16, M] float32 (see module
+    docstring), tile_starts [T+1] int32 (compact, unaligned ranges), bg [3]
+    float32, grid (tiles_y, tiles_x). Returns (img_tiles [T,3,P], t_final
+    [T,P]), differentiable in ``inst_data`` and ``bg``.
+
+    A CUDA tensor launches the forward kernel (counted in
+    ``blend_instances.launches``) and, in the backward, the backward kernel
+    (``blend_instances_bwd.launches``); a CPU tensor runs the plain
+    versions."""
+    _check_inputs(inst_data, tile_starts, bg, grid)
+    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, False)
+
+
 blend_instances.launches = 0
 
 
+def blend_instances_plain(inst_data, tile_starts, bg, grid):
+    """:func:`blend_instances` with both directions through the plain
+    versions on any device: the yardstick the kernels are held against on
+    the card."""
+    _check_inputs(inst_data, tile_starts, bg, grid)
+    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, True)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    """The kernel's C entry point, with its ctypes signature."""
-    fn = cuda_build.load("blend_instances").blend_instances_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+def _kernel(name):
+    """A kernel's C entry point, with its ctypes signature."""
+    if name == "blend_instances_fwd":
+        fn = cuda_build.load("blend_instances").blend_instances_fwd
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    else:
+        fn = cuda_build.load("blend_instances_bwd").blend_instances_bwd
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

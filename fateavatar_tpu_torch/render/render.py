@@ -3,8 +3,16 @@ volume_rendering/render_3dgs.py:7-81.
 
 Port of ``fateavatar_tpu/render/render.py`` for ``kernel="instances"``:
 per-Gaussian preprocess -> instance binning (twotier / onesort, compact
-layout) -> the packed instance gather -> the instance blend (the CUDA kernel
-on the card, its plain version on the CPU).
+layout) -> the packed instance gather -> the instance blend (the CUDA kernels
+on the card, their plain versions on the CPU).
+
+Differentiable: the blend's backward returns per-instance gradients, and the
+packed gather's transpose (a 9-channel ``index_add_``, the counterpart of
+``_take_packed_slim``) sums them onto the Gaussians. The ``means2d_probe``
+input reproduces the reference's ``screenspace_points`` retain_grad trick
+(render_3dgs.py:22-27): pass a zeros [2, N] tensor that requires grad and
+take its gradient to get the screen-space position gradients that drive
+densification.
 """
 
 from __future__ import annotations
@@ -38,6 +46,46 @@ class RenderConfig:
     # > 0 would be the chunk-granular early exit of the Pallas kernel; only
     # the exact blend (0.0, the yaml default) is ported
     t_cutoff: float = 0.0
+    # consumed by the Trainer at startup: measure the dataset's occupancy
+    # and replace budget / R / tail_k with sized values (render/autosize.py)
+    autosize: bool = False
+
+
+class _TakePackedSlim(torch.autograd.Function):
+    """The packed instance gather with a 9-channel scatter-add transpose
+    (``_take_packed_slim`` of the JAX package, render.py:131-152).
+
+    Forward: rows of [N+1, 16] (the channel layout of blend_instances: 9
+    differentiable channels, valid = 1, zero pad; row N a sentinel with
+    valid = 0 that unused slots point at), gathered and transposed to
+    [16, M]. Backward: ``index_add_`` of the 9 channels' per-instance
+    gradients onto the Gaussians. The unused slots (a third or more of M)
+    all point at the sentinel; PyTorch's own index backward serializes
+    their duplicates (21.6 ms of a full-width step on the H100, PERF.md),
+    so their zero gradients are spread over 1,024 scratch rows instead."""
+
+    SPREAD = 1024
+
+    @staticmethod
+    def forward(ctx, soa9, ids):
+        n = soa9.shape[0]
+        packed = torch.zeros((n + 1, 16), dtype=soa9.dtype, device=soa9.device)
+        packed[:n, :9] = soa9
+        packed[:n, 9] = 1.0
+        ctx.save_for_backward(ids)
+        ctx.n = n
+        return packed[ids].T.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        n = ctx.n
+        spread = _TakePackedSlim.SPREAD
+        lane = torch.arange(ids.shape[0], device=ids.device) % spread
+        rows = torch.where(ids == n, n + lane, ids)
+        g9 = torch.zeros((n + spread, 9), dtype=g.dtype, device=g.device)
+        g9.index_add_(0, rows, g[:9].T)
+        return g9[:n], None
 
 
 def render(
@@ -46,6 +94,7 @@ def render(
     bg_color: torch.Tensor,
     scaling_modifier: float = 1.0,
     config: RenderConfig = RenderConfig(),
+    means2d_probe: torch.Tensor | None = None,
 ):
     """Rasterize ``gaussians`` into an image.
 
@@ -53,6 +102,8 @@ def render(
     ``visibility_filter`` [N] bool, ``radii`` [N] int32, ``t_final`` [H, W]
     transmittance, ``overflow`` int32 scalar (instances dropped by the static
     caps; 0 in healthy configs), ``tile_counts`` [T] int32.
+    ``means2d_probe``: optional [2, N] (or [N, 2]) tensor added to the
+    screen-space means; its gradient is d(loss)/d(mean2d).
     """
     if config.kernel != "instances":
         raise NotImplementedError(
@@ -69,6 +120,14 @@ def render(
         scale_modifier=scaling_modifier, alive=gaussians.alive,
     )
     mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v = prep.soa
+    if means2d_probe is not None:
+        # [2, N] (lane-major, as the JAX package prefers) or [N, 2]
+        if means2d_probe.dim() == 2 and means2d_probe.shape[0] == 2:
+            mx = mx + means2d_probe[0]
+            my = my + means2d_probe[1]
+        else:
+            mx = mx + means2d_probe[..., 0]
+            my = my + means2d_probe[..., 1]
 
     ilists = binning.build_instance_lists(
         mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
@@ -80,19 +139,14 @@ def render(
         tail_k=config.tail_k,
     )
     n = mx.shape[0]
-    # [N+1, 16] rows (channel layout of blend_instances), the last row a
-    # sentinel with valid = 0 that unused instance slots point at
-    packed = torch.zeros((n + 1, 16), dtype=torch.float32, device=mx.device)
-    packed[:n, :10] = torch.stack([
-        mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v, torch.ones_like(mx),
-    ], dim=1)
     ids = torch.where(ilists.instances >= 0, ilists.instances, n)
     # pad as the JAX package does, so M matches it (its kernel's last
     # CHUNK-aligned window must stay in bounds)
     m_real = ids.shape[0]
     m_pad = ((m_real + CHUNK) // CHUNK + 1) * CHUNK
-    ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)])
-    inst_data = packed[ids.long()].T.contiguous()                 # [16, M]
+    ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)]).long()
+    soa9 = torch.stack([mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v], dim=1)
+    inst_data = _TakePackedSlim.apply(soa9, ids)                  # [16, M]
     img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts,
                                          bg_color, grid)
     image = tiles_to_image(img_tiles, grid, camera.width, camera.height)

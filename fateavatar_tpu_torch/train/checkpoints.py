@@ -3,7 +3,9 @@
 Counterpart of ``fateavatar_tpu/train/checkpoints.py`` (Orbax there). A
 checkpoint is one file ``ckpt_<step>.pt`` holding a tree of dicts, tensors
 and numbers — for an avatar ``{params, state, epoch, global_step}`` with
-params and state as field-name dicts. Splat arrays have static capacity, so
+params and state as field-name dicts; the Trainer's adds the Adam moments
+and count, the step counter and the densify generator's state, so a resumed
+run continues where training stopped. Splat arrays have static capacity, so
 no per-model surgery is needed. The last ``max_keep`` files are kept, like
 the reference (max_keep_ckpt=2).
 """

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
 ``nvcc`` for Hopper (``sm_90a``) at first use into ``_build/`` beside the
-package (listed in ``.gitignore``), named by a hash of the source and the
-flags, so an edited source is rebuilt and an unchanged one is not. The
+package (listed in ``.gitignore``), named by a hash of the source, the shared
+headers and the flags, so an edited source is rebuilt and an unchanged one is
+not. The
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
 library as ``<name>_<hash>.log``.
 """
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to."""
+    """Where ``csrc/<name>.cu`` builds to. The name hashes the source, the
+    shared headers ``csrc/*.cuh`` and the flags."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{tag}.so"
 

@@ -1,5 +1,5 @@
-"""Card-only tests of the port's CUDA kernels: each kernel against its plain
-PyTorch version on the card. They skip on a host without CUDA. They import
+"""Card-only tests of the port's CUDA kernels: each kernel (the instance
+blend's forward and backward) against its plain PyTorch version on the card. They skip on a host without CUDA. They import
 nothing of JAX, so on a machine with a card and no JAX they run as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -41,9 +41,77 @@ def test_blend_kernel_matches_plain_version(name):
         assert bool((tfin_k[empty] == 1.0).all())
 
 
+def _cotangents(grid, seed=5):
+    t = grid[0] * grid[1]
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.normal(size=(t, 3, 256)).astype(np.float32)).cuda(),
+            torch.from_numpy(rng.normal(size=(t, 256)).astype(np.float32)).cuda())
+
+
+def _close_rows(got, ref, rtol):
+    """Each gradient row within ``rtol`` of that row's largest magnitude."""
+    scale = ref[:9].abs().amax(dim=1, keepdim=True) + 1e-6
+    return bool(((got[:9] - ref[:9]).abs() <= rtol * scale).all())
+
+
+# Backward tolerance, relative to each gradient row's largest magnitude:
+# the kernel sums each instance's 256 pixel terms in another order than the
+# plain version (~1e-6 relative), and the two transmittance products can
+# flip the instance that crosses T = 1e-4 at a pixel; that instance's term
+# there carries T_j <= 1e-4 / (1 - 0.99), so 1e-3 covers one such flip.
+BWD_RTOL = 1e-3
+
+
 @pytest.mark.cuda
 def test_blend_kernel_raises_on_cuda_grad():
-    args = _cuda_inputs("empty")
-    with pytest.raises(NotImplementedError):
-        tblend.blend_instances(args[0].clone().requires_grad_(), *args[1:])
-    assert np.isfinite(tblend.blend_instances(*args)[0].cpu().numpy()).all()
+    """The grad path on the card: autograd through blend_instances runs the
+    forward and the backward kernel once each, and its gradients equal those
+    of the plain versions (blend_instances_plain) within BWD_RTOL."""
+    inst, starts, bg, grid = _cuda_inputs("empty")
+    g_img, g_tfin = _cotangents(grid)
+
+    def grads(blend):
+        x, b = inst.clone().requires_grad_(), bg.clone().requires_grad_()
+        img, tfin = blend(x, starts, b, grid)
+        return torch.autograd.grad((img * g_img).sum() + (tfin * g_tfin).sum(), (x, b))
+
+    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+    gk, gbk = grads(tblend.blend_instances)
+    torch.cuda.synchronize()
+    assert tblend.blend_instances.launches == f0 + 1
+    assert tblend.blend_instances_bwd.launches == b0 + 1
+    gp, gbp = grads(tblend.blend_instances_plain)
+    assert _close_rows(gk, gp, BWD_RTOL)
+    assert (gbk - gbp).abs().max().item() <= 1e-3 * gbp.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["empty", "long", "saturated"])
+def test_blend_bwd_kernel_matches_plain_version(name):
+    inst, starts, bg, grid = _cuda_inputs(name)
+    img, tfin = tblend.blend_instances(inst, starts, bg, grid)
+    g_img, g_tfin = _cotangents(grid)
+    args = (inst, starts, bg, img, tfin, g_img, g_tfin, grid)
+    before = tblend.blend_instances_bwd.launches
+    gk = tblend.blend_instances_bwd(*args)
+    torch.cuda.synchronize()
+    assert tblend.blend_instances_bwd.launches == before + 1
+    gp = tblend.blend_instances_backward_reference(*args)
+    assert bool(torch.isfinite(gk).all())
+    assert _close_rows(gk, gp, BWD_RTOL)
+    assert bool((gk[9:] == 0).all())
+    assert bool((gk[:, int(starts[-1]):] == 0).all()), "columns past the ranges"
+
+
+@pytest.mark.cuda
+def test_blend_bwd_kernel_writes_every_element():
+    """A NaN-filled output buffer handed to the C entry point comes back
+    finite and bit-equal to a clean call: no element is left unwritten."""
+    inst, starts, bg, grid = _cuda_inputs("long")
+    img, tfin = tblend.blend_instances(inst, starts, bg, grid)
+    args = (inst, starts, bg, img, tfin, *_cotangents(grid), grid)
+    clean = tblend.blend_instances_bwd(*args)
+    dirty = tblend.blend_instances_bwd(*args, out=torch.full_like(clean, float("nan")))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)

@@ -4,6 +4,7 @@ avatar, and checkpoint -> ``Loader`` -> ``Reenactor`` through the config
 helpers of ``cli/common``."""
 
 import dataclasses
+import json
 import os
 import pickle
 
@@ -196,3 +197,74 @@ def test_checkpoint_loader_reenactor_round_trip(tmp_path):
         u8 = torch.clamp(torch.round(direct * 255.0), 0, 255).to(torch.uint8).numpy()
         np.testing.assert_array_equal(frame, u8)
         assert frame.std() > 1.0
+
+
+def test_forward_gradients_match_jax(avatar):
+    """Gradients of fateavatar_forward's image (against seeded cotangents)
+    w.r.t. every parameter and the screen-space probe, against JAX through
+    the Pallas instance kernel (interpret), twotier binning at R = 64.
+    Tolerance 1e-4 of each field's largest element and in relative L2 norm
+    (FLAME's einsums, the scatter-adds and the blend sum in another order)."""
+    _, model, params, state = avatar
+    rng = np.random.default_rng(12)
+    expr = (rng.normal(size=6) * 0.5).astype(np.float32)
+    pose = (rng.normal(size=15) * 0.05).astype(np.float32)
+    cot = rng.normal(size=(RES, RES, 3)).astype(np.float32)
+    jcam = jmake_camera(np.eye(3), np.array([0.0, 0.0, 0.4]), 0.8, 0.8, RES, RES)
+    jcfg = JRenderConfig(impl="pallas_interpret", kernel="instances",
+                         binning="twotier", max_tiles_per_gaussian=64)
+
+    def jloss(p, probe):
+        out = jfa.fateavatar_forward(model, p, state, expr, pose, jcam,
+                                     render_cfg=jcfg, means2d_probe=probe)
+        return (out["rgb_image"] * cot).sum()
+
+    jg, jprobe = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        params, np.zeros((2, CAP), np.float32))
+    m, p, s = _port_avatar(model, params, state)
+    leaves = {f.name: getattr(p, f.name).clone().requires_grad_()
+              for f in dataclasses.fields(p)}
+    probe = torch.zeros((2, CAP), requires_grad=True)
+    cam = make_camera(np.eye(3), [0.0, 0.0, 0.4], 0.8, 0.8, RES, RES, device="cpu")
+    out = tfa.fateavatar_forward(
+        m, dataclasses.replace(p, **leaves), s, torch.from_numpy(expr),
+        torch.from_numpy(pose), cam, means2d_probe=probe,
+        render_cfg=RenderConfig(binning="twotier", max_tiles_per_gaussian=64))
+    grads = torch.autograd.grad((out["rgb_image"] * torch.from_numpy(cot)).sum(),
+                                [*leaves.values(), probe], allow_unused=True)
+    refs = [np.asarray(getattr(jg, k)) for k in leaves] + [np.asarray(jprobe)]
+    for name, got, ref in zip([*leaves, "probe"], grads, refs):
+        got = np.zeros_like(ref) if got is None else got.numpy()
+        if name == "features_rest":     # SH degree 0 reads no rest coefficient
+            np.testing.assert_array_equal(got, 0.0)
+            continue
+        assert np.abs(ref).max() > 0, name
+        np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max(), err_msg=name)
+        assert np.linalg.norm(got - ref) <= 1e-4 * np.linalg.norm(ref), name
+
+
+def test_training_config_helpers(tmp_path):
+    """cli/common's training helpers read configs/fateavatar.yaml: the
+    loss refuses vgg_weight > 0 without weights (as the JAX package does),
+    autosize reaches the render settings, the maintenance intervals and
+    the identity info round-trip."""
+    from fateavatar_tpu_torch.train.datasets import SyntheticDataset
+
+    cfg = load_config(os.path.join(REPO, "configs", "fateavatar.yaml"),
+                      [f"workspace={tmp_path}"])
+    with pytest.raises(ValueError):
+        common.construct_loss(cfg, device="cpu")
+    lcfg = common.loss_config(cfg)
+    assert (lcfg.rgb_weight, lcfg.vgg_weight, lcfg.scale_weight,
+            lcfg.scale_threshold, lcfg.laplacian_weight) == (1.0, 0.1, 0.1, 9.0, 1e5)
+    no_vgg = load_config(os.path.join(REPO, "configs", "fateavatar.yaml"),
+                         ["loss.vgg_weight=0"])
+    assert common.construct_loss(no_vgg, device="cpu").vgg_params is None
+    assert common.render_config(cfg).autosize
+    mc = common.maintenance_config(cfg)
+    assert (mc.densify_interval, mc.prune_interval, mc.opacity_reset_interval,
+            mc.increase_num, mc.max_points_num) == (3000, 2000, 60000, 1000, 200_000)
+    ds = SyntheticDataset(num_frames=2, img_res=(16, 16))
+    info = common.save_identity_info(str(tmp_path), ds, cfg)
+    assert common.load_identity_info(str(tmp_path)) == json.loads(json.dumps(info))
+    assert info["n_exp"] == ds.n_exp and info["dataset_type"] == "synthetic"

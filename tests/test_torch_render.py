@@ -1,12 +1,15 @@
 """The PyTorch port's rasterizer against the JAX package, on the CPU:
-instance binning (bit-exact), the plain instance blend against the Pallas
-kernel in interpret mode, and ``render()`` against the recorded golden
-scenes. The CUDA kernel itself is held against its plain version on the
-card by tests/test_torch_cuda.py."""
+instance binning (bit-exact), the plain instance blend and its backward
+against the Pallas kernels in interpret mode, and ``render()`` and its
+gradients against the recorded golden scenes and JAX. The CUDA kernels
+themselves are held against their plain versions on the card by
+tests/test_torch_cuda.py."""
 
+import dataclasses
 import os
 
-import jax  # noqa: F401  (JAX on the CPU, set up by conftest)
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,8 @@ from golden_scenes import SCENES
 from torch_blend_cases import blend_case
 from fateavatar_tpu.render import binning as jbinning
 from fateavatar_tpu.render.blend_instances import blend_instances_pallas
+from fateavatar_tpu.render.render import RenderConfig as JRenderConfig
+from fateavatar_tpu.render.render import render as jrender
 
 from fateavatar_tpu_torch.ops.camera import Camera
 from fateavatar_tpu_torch.render import binning as tbinning
@@ -74,6 +79,30 @@ def test_build_instance_lists_matches_jax_exactly(case):
     assert out.instances.dtype == out.tile_starts.dtype == torch.int32
 
 
+def test_autosize_matches_jax():
+    """occupancy_stats on a screen-space scene and size_caps /
+    the pow2 rule of autosize_render_config, exactly as the JAX package
+    computes them."""
+    from fateavatar_tpu.render import autosize as jautosize
+    from fateavatar_tpu_torch.render import autosize as tautosize
+
+    grid = (5, 6)
+    mx, my, depth, radius = _binning_inputs(400, seed=3, grid=grid)
+    ref = jautosize.occupancy_stats((mx, my), depth, radius, grid, r0=4)
+    got = tautosize.occupancy_stats((t(mx), t(my)), t(depth), t(radius, torch.int32),
+                                    grid, r0=4)
+    assert [int(x) for x in got] == [int(x) for x in ref]
+    assert int(ref[2]) > 0
+    for total, max_t, big in ((1000, 7, 12), (90000, 31, 700)):
+        jc = jautosize.size_caps(total, max_t, 4096, 30, JRenderConfig(binning="twotier"),
+                                 big_count=big)
+        tc = tautosize.size_caps(total, max_t, 4096, 30, RenderConfig(binning="twotier"),
+                                 big_count=big)
+        assert (tc.instance_budget, tc.max_tiles_per_gaussian, tc.tail_k) == (
+            jc.instance_budget, jc.max_tiles_per_gaussian, jc.tail_k)
+    assert [tautosize._pow2ceil(x) for x in (1, 3, 64, 65)] == [1, 4, 64, 128]
+
+
 def test_unported_binning_raises():
     args = (t([1.0]), t([1.0]), t([1.0]), t([2], torch.int32), (1, 1))
     with pytest.raises(NotImplementedError):
@@ -102,20 +131,86 @@ def test_plain_blend_matches_pallas_interpret(name):
 
 def test_evaluated_pairs_counts_until_termination():
     inst, starts, bg, grid = blend_case("saturated")
-    pairs = tblend.evaluated_pairs(t(inst), t(starts, torch.int32), grid)
+    pairs, blended = tblend.pair_counts(t(inst), t(starts, torch.int32), grid)
     upper = int(np.sum(np.diff(starts))) * 256
-    assert 0 < pairs < upper
+    assert 0 < blended < pairs < upper
 
 
 def test_blend_refuses_grad_and_bad_inputs():
+    """The grad path on the CPU: autograd through blend_instances runs the
+    plain backward (no launch is counted) and reaches the instance data and
+    bg; malformed inputs still raise ValueError."""
     inst, starts, bg, grid = blend_case("empty")
-    with pytest.raises(NotImplementedError):
-        tblend.blend_instances(t(inst).requires_grad_(), t(starts, torch.int32),
-                               t(bg), grid)
+    x, b = t(inst).requires_grad_(), t(bg).requires_grad_()
+    before = tblend.blend_instances_bwd.launches
+    img, tfin = tblend.blend_instances(x, t(starts, torch.int32), b, grid)
+    gx, gb = torch.autograd.grad(img.sum() + tfin.sum(), (x, b))
+    assert tblend.blend_instances_bwd.launches == before
+    assert torch.isfinite(gx).all() and gx[:9].abs().max() > 0 and gb.abs().max() > 0
     with pytest.raises(ValueError):
         tblend.blend_instances(t(inst), t(starts, torch.int64), t(bg), grid)
     with pytest.raises(ValueError):
         tblend.blend_instances(t(inst[:9]), t(starts, torch.int32), t(bg), grid)
+
+
+def _cotangents(grid, seed=5):
+    n = grid[0] * grid[1]
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(n, 3, 256)).astype(np.float32),
+            rng.normal(size=(n, 256)).astype(np.float32))
+
+
+def _assert_rows_close(got, ref, rtol):
+    """Gradient rows 0-8 each within ``rtol`` of the row's largest element;
+    rows 9-15 and the columns past the last range exactly 0."""
+    for row in range(9):
+        np.testing.assert_allclose(got[row], ref[row],
+                                   atol=rtol * np.abs(ref[row]).max() + 1e-7,
+                                   err_msg=f"row {row}")
+    np.testing.assert_array_equal(got[9:], 0.0)
+
+
+@pytest.mark.parametrize("name", ["empty", "long", "saturated"])
+def test_plain_backward_matches_pallas_interpret(name):
+    """blend_instances_backward_reference against jax.vjp of the Pallas
+    kernel (interpret mode), g_bg against _vjp_bwd's einsum. Tolerance 5e-5
+    of each row's largest element: the two sum each instance's 256 pixel
+    terms and the prefix pu in another order and take the transmittance
+    product another way (measured <= 7e-6)."""
+    inst, starts, bg, grid = blend_case(name)
+    g_img, g_tfin = _cotangents(grid)
+    (img_j, tfin_j), vjp = jax.vjp(
+        lambda a, b: blend_instances_pallas(a, starts, b, grid, True), inst, bg)
+    g_inst_j, g_bg_j = vjp((g_img, g_tfin))
+    ts = t(starts, torch.int32)
+    img, tfin = tblend.blend_instances_reference(t(inst), ts, t(bg), grid)
+    got = tblend.blend_instances_backward_reference(
+        t(inst), ts, t(bg), img, tfin, t(g_img), t(g_tfin), grid).numpy()
+    _assert_rows_close(got, np.asarray(g_inst_j), 5e-5)
+    np.testing.assert_array_equal(got[:, starts[-1]:], 0.0)
+    g_bg = torch.einsum("tdp,tp->d", t(g_img), tfin).numpy()
+    np.testing.assert_allclose(g_bg, np.asarray(g_bg_j), rtol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["empty", "long", "saturated"])
+def test_plain_backward_matches_autograd(name):
+    """An independent check: torch.autograd through the plain forward
+    (straight-through 0.99 clamp) gives the same g_inst and g_bg as the
+    hand-derived backward. Tolerance 5e-5 of each row's largest element
+    (autograd sums the cumulative products' gradients in another order)."""
+    inst, starts, bg, grid = blend_case(name)
+    g_img, g_tfin = _cotangents(grid)
+    x, b = t(inst).requires_grad_(), t(bg).requires_grad_()
+    ts = t(starts, torch.int32)
+    img, tfin = tblend.blend_instances_reference(x, ts, b, grid)
+    ga, gba = torch.autograd.grad((img * t(g_img)).sum() + (tfin * t(g_tfin)).sum(), (x, b))
+    y, c = t(inst).requires_grad_(), t(bg).requires_grad_()
+    img2, tfin2 = tblend.blend_instances(y, ts, c, grid)
+    gk, gbk = torch.autograd.grad((img2 * t(g_img)).sum() + (tfin2 * t(g_tfin)).sum(), (y, c))
+    _assert_rows_close(gk.numpy(), ga.numpy(), 5e-5)
+    np.testing.assert_allclose(gbk.numpy(), gba.numpy(), rtol=1e-5)
+    if name == "saturated":   # the 0.99 clamp is active and passed straight through
+        assert (inst[8] > 0.99).any()
 
 
 def _port_scene(name):
@@ -150,3 +245,49 @@ def test_render_refuses_unported_options():
     for cfg in (RenderConfig(kernel="tiles"), RenderConfig(t_cutoff=1e-4)):
         with pytest.raises(NotImplementedError):
             render(cam, g, bg, config=cfg)
+
+
+GRAD_FIELDS = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_render_gradients_match_jax(name):
+    """Gradients of render() (image and transmittance against seeded
+    cotangents) w.r.t. every Gaussian attribute and the screen-space probe,
+    on each golden scene, against JAX through the Pallas instance kernel
+    (interpret), twotier binning. Tolerance 1e-4 of each field's largest
+    element: the blend backward matches to ~1e-6 relative, and the
+    gather's scatter-add and preprocess's backward sum in another order."""
+    cam, g, bg = SCENES[name]()
+    n = g.xyz.shape[0]
+    rng = np.random.default_rng(9)
+    g_img = rng.normal(size=(cam.height, cam.width, 3)).astype(np.float32)
+    g_t = rng.normal(size=(cam.height, cam.width)).astype(np.float32)
+    jcfg = JRenderConfig(impl="pallas_interpret", kernel="instances", binning="twotier",
+                         instance_budget=n * 36, tail_r0=4, tail_k=n)
+
+    def jloss(xyz, scaling, rotation, opacity, features_dc, features_rest, probe):
+        gs = g.replace(xyz=xyz, scaling=scaling, rotation=rotation, opacity=opacity,
+                       features_dc=features_dc, features_rest=features_rest)
+        out = jrender(cam, gs, bg, config=jcfg, means2d_probe=probe)
+        return jnp.sum(out["render"] * g_img) + jnp.sum(out["t_final"] * g_t)
+
+    jargs = [getattr(g, f) for f in GRAD_FIELDS] + [jnp.zeros((2, n), jnp.float32)]
+    jgrads = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(*jargs)
+
+    tcam, tg, tbg, _ = _port_scene(name)
+    leaves = {f: getattr(tg, f).clone().requires_grad_() for f in GRAD_FIELDS}
+    probe = torch.zeros((2, n), requires_grad=True)
+    gs = dataclasses.replace(tg, **leaves)
+    cfg = RenderConfig(instance_budget=n * 36, binning="twotier", tail_r0=4, tail_k=n)
+    out = render(tcam, gs, tbg, config=cfg, means2d_probe=probe)
+    loss = (out["render"] * t(g_img)).sum() + (out["t_final"] * t(g_t)).sum()
+    tgrads = torch.autograd.grad(loss, [*leaves.values(), probe], allow_unused=True)
+    for f, got, ref in zip(GRAD_FIELDS + ("probe",), tgrads, jgrads):
+        ref = np.asarray(ref).reshape(-1)
+        if ref.size == 0:      # SH degree 0 keeps no rest coefficient
+            continue
+        got = np.zeros_like(ref) if got is None else got.numpy().reshape(-1)
+        assert np.abs(ref).max() > 0, f
+        np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max() + 1e-9,
+                                   err_msg=f)
