@@ -4,21 +4,30 @@
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 It builds every CUDA kernel of the port from ``fateavatar_tpu_torch/csrc``
-(the instance blend's forward and backward, one nvcc each, in parallel),
-holds each against its plain PyTorch version on the card, and drives the
-port's two main paths at the full width of ``configs/fateavatar.yaml``
-(65,536 splats at a 200,000 capacity, 512x512, twotier binning R = 64) from
-seeded synthetic assets (a FLAME pickle at FLAME's 5,023 vertices, a
-matching UV template, random VGG16 weights):
+(the instance blend's and the dense-list blend's forward and backward, one
+nvcc each, in parallel), holds each against its plain PyTorch version on
+the card, and drives the port's main paths at the full width of
+``configs/fateavatar.yaml`` (65,536 splats at a 200,000 capacity, 512x512,
+twotier binning setting R = 64) from seeded synthetic assets (a FLAME
+pickle at FLAME's 5,023 vertices, a matching UV template, random VGG16
+weights), each through both routes of ``RenderConfig.kernel``:
 
 * serving: ``cli/common`` -> ``Loader`` -> ``Reenactor.reenact`` over 16
-  frames of a checkpointed, perturbed avatar;
+  frames of a checkpointed, perturbed avatar, through the instance blend,
+  then through the dense-list blend (``kernel="tiles"``);
 * training: the ``Trainer`` (per-step mode, autosize, the yaml's loss and
   learning rates, densify / prune intervals shortened so both fire) over a
   ``SyntheticDataset`` of 512x512 frames for one epoch, then ``evaluate``,
   ``save_checkpoint``, and a fresh Trainer that ``load_checkpoint``s and
-  trains on; and one train step's gradients with the kernels against the
-  same step with both blends swapped for their plain versions.
+  trains on; one train step's gradients with the kernels against the same
+  step with both blends swapped for their plain versions; then the same
+  epoch and step checks with ``kernel="tiles"``, and one step's gradients
+  through the tiles route against the instances route.
+
+The tiles route's ``max_per_tile`` (K, the yaml's 1,024) is set per phase
+from a probe of the phase's frames, 1.25x their longest tile rounded up to
+a multiple of ``chunk``, and printed: the yaml's K overflows on the
+synthetic avatar, and any overflow fails the run.
 
 It prints, one per line: the kernels' ptxas reports, each check with its
 numbers, every override of the config, the timings (each beside the card's
@@ -37,6 +46,7 @@ import sys
 import tempfile
 import time
 from contextlib import contextmanager
+from types import SimpleNamespace
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -85,6 +95,11 @@ N_RESUME = 4
 EXPR_SCALE = 0.05 / 0.3
 # the yaml's 3000 / 2000 intervals never fire in one epoch
 MAINT_OVERRIDES = {"densify_interval": 10, "prune_interval": 15}
+# the tiles route's K: this much above the longest tile a probe of the
+# phase's frames measures (training grows the avatar by densify)
+TILE_K_HEADROOM = 1.25
+# the dense-list backward writes its whole [9, T*K] gradient (36 B a slot)
+TILE_BWD_BYTES_PER_SLOT = 36
 
 KERNELS = {
     # kernel name -> its fixed fields in the {"kernels": [...]} line
@@ -97,6 +112,16 @@ KERNELS = {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances_bwd.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:183",
+    },
+    "blend_tiles_fwd": {
+        "route": "cuda",
+        "source": "fateavatar_tpu_torch/csrc/blend_tiles.cu",
+        "replaces": "fateavatar_tpu/render/blend_tiles.py:199",
+    },
+    "blend_tiles_bwd": {
+        "route": "cuda",
+        "source": "fateavatar_tpu_torch/csrc/blend_tiles_bwd.cu",
+        "replaces": "fateavatar_tpu/render/blend_tiles.py:261",
     },
 }
 
@@ -128,17 +153,18 @@ def cuda_ms(fn, reps, warmup=3):
 
 
 @contextmanager
-def swapped_blend(fn):
-    """Route render()'s blend through ``fn`` (a plain version, or a
-    recorder) for the comparisons; restored on exit."""
+def swapped_blend(fn, name="blend_instances"):
+    """Route render()'s blend ``name`` (``blend_instances`` or
+    ``blend_tiles``) through ``fn`` (a plain version, or a recorder) for the
+    comparisons; restored on exit."""
     from fateavatar_tpu_torch.render import render as render_mod
 
-    orig = render_mod.blend_instances
-    render_mod.blend_instances = fn
+    orig = getattr(render_mod, name)
+    setattr(render_mod, name, fn)
     try:
         yield
     finally:
-        render_mod.blend_instances = orig
+        setattr(render_mod, name, orig)
 
 
 def edge_case_inputs(gen, device):
@@ -178,18 +204,19 @@ def edge_case_inputs(gen, device):
     return inst, starts, bg, (4, 4)
 
 
-def check_blend(label, inputs, results):
-    """Kernel vs plain version on the same inputs. Tolerance 2e-4: the two
-    take the transmittance product in another order, which can flip which
-    instance crosses T = 1e-4 at a pixel and move that pixel by at most
+def check_blend(label, inputs, results, kernel=None, plain=None):
+    """Kernel vs plain version on the same inputs (the instance blend unless
+    ``kernel`` / ``plain`` are given). Tolerance 2e-4: the two take the
+    transmittance product in another order, which can flip which instance
+    crosses T = 1e-4 at a pixel and move that pixel by at most
     alpha * T <= 1e-4; every other quantity is computed to the same bits."""
     import torch
 
     from fateavatar_tpu_torch.render import blend_instances as bi
 
-    img_k, tfin_k = bi.blend_instances(*inputs)
+    img_k, tfin_k = (kernel or bi.blend_instances)(*inputs)
     torch.cuda.synchronize()
-    img_p, tfin_p = bi.blend_instances_reference(*inputs)
+    img_p, tfin_p = (plain or bi.blend_instances_reference)(*inputs)
     d_img = (img_k - img_p).abs()
     d_t = (tfin_k - tfin_p).abs()
     err = max(d_img.max().item(), d_t.max().item())
@@ -203,30 +230,151 @@ def check_blend(label, inputs, results):
     return tfin_k
 
 
-def check_blend_bwd(label, args, results):
-    """Backward kernel vs plain version on the same inputs, each gradient
-    row within BWD_RTOL of its largest element; rows 9-15 and every column
-    past the last range must be 0."""
+def check_blend_bwd(label, args, results, kernel=None, plain=None, zero=None):
+    """Backward kernel vs plain version on the same inputs (the instance
+    blend's unless ``kernel`` / ``plain`` are given), each gradient row
+    within BWD_RTOL of its largest element; the elements ``zero(g)`` selects
+    (by default rows 9-15 and every column past the last range) must be 0."""
     import torch
 
     from fateavatar_tpu_torch.render import blend_instances as bi
 
-    g_k = bi.blend_instances_bwd(*args)
+    g_k = (kernel or bi.blend_instances_bwd)(*args)
     torch.cuda.synchronize()
-    g_p = bi.blend_instances_backward_reference(*args)
+    g_p = (plain or bi.blend_instances_backward_reference)(*args)
     d = (g_k - g_p).abs()
     scale = g_p[:9].abs().amax(dim=1, keepdim=True) + 1e-12
     rel = (d[:9] / scale).max().item()
     err = d.max().item()
-    total = int(args[1][-1])
     log(f"[kernel] {label}: backward max|diff| {err:.3e}, largest relative to its "
         f"row {rel:.3e}, row scales {[round(x, 6) for x in scale[:, 0].tolist()]}")
     check(bool(torch.isfinite(g_k).all()), f"{label}: non-finite backward output")
     check(rel <= BWD_RTOL, f"{label}: backward kernel vs plain {rel:.3e} > {BWD_RTOL}")
-    check(bool((g_k[9:] == 0).all()), f"{label}: rows 9-15 must be 0")
-    check(bool((g_k[:, total:] == 0).all()), f"{label}: columns past the ranges must be 0")
+    if zero is None:
+        total = int(args[1][-1])
+        check(bool((g_k[9:] == 0).all()), f"{label}: rows 9-15 must be 0")
+        check(bool((g_k[:, total:] == 0).all()), f"{label}: columns past the ranges must be 0")
+    else:
+        check(bool((zero(g_k) == 0).all()), f"{label}: slots past the lists must be 0")
     results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
     return g_k
+
+
+def past_lists(counts, k):
+    """Selects the [9, T*K] gradient's slots past each tile's list."""
+    import torch
+
+    slot = torch.arange(k, device=counts.device)[None, :]
+    mask = (slot >= counts.clamp(max=k)[:, None]).reshape(-1)
+    return lambda g: g[:, mask]
+
+
+def tile_kernel_cases(rows):
+    """Kernels 3 and 4 against their plain versions on the hand-built
+    dense-list cases of tests/torch_tile_cases.py (a (3, 4) grid; empty
+    tiles, counts above K, saturated tiles, a faint list spanning > 60
+    windows), and a NaN-prefilled output of kernel 4."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_tile_cases import TILE_CASES, tile_case
+
+    from fateavatar_tpu_torch.render import blend_tiles as bt
+
+    dev = "cuda"
+    rng = np.random.default_rng(0)
+    for name in sorted(TILE_CASES):
+        data, valid, counts, bg, grid = (torch.from_numpy(x).to(dev) if isinstance(x, np.ndarray)
+                                         else x for x in tile_case(name))
+        k = data.shape[1] // counts.shape[0]
+        fwd = (data, valid, counts, bg, grid)
+        tfin = check_blend(f"tile case {name} (K {k}, counts {counts.tolist()})", fwd,
+                           rows["blend_tiles_fwd"], bt.blend_tiles, bt.blend_tiles_reference)
+        check(bool((tfin[counts == 0] == 1.0).all()), f"{name}: empty tiles keep T = 1")
+        if name == "saturated":
+            check(int((tfin < 1e-3).sum()) > 0, "saturated tiles must terminate")
+        img = bt.blend_tiles(*fwd)[0]
+        g_img = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32)).to(dev)
+        g_tfin = torch.from_numpy(rng.normal(size=tfin.shape).astype(np.float32)).to(dev)
+        args = (data, valid, counts, bg, img, tfin, g_img, g_tfin, grid)
+        g_clean = check_blend_bwd(f"tile case {name}", args, rows["blend_tiles_bwd"],
+                                  bt.blend_tiles_bwd, bt.blend_tiles_backward_reference,
+                                  past_lists(counts, k))
+        if name == "long":
+            g_dirty = bt.blend_tiles_bwd(*args, out=torch.full_like(g_clean, float("nan")))
+            torch.cuda.synchronize()
+            check(torch.equal(g_dirty, g_clean),
+                  "tile backward: a NaN-filled output buffer must come back equal")
+            log("[kernel] tile case long: NaN-prefilled output buffer comes back finite "
+                "and bit-equal to a clean call")
+
+
+def longest_tile(model, params, state, views, rcfg):
+    """The most instances any tile holds over ``views`` ((expression, pose,
+    camera) on the device), binned as the tiles route bins them: the
+    pre-truncation counts of build_tile_lists under ``rcfg``'s R and
+    budget."""
+    import torch
+
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians
+    from fateavatar_tpu_torch.render import binning
+    from fateavatar_tpu_torch.render.preprocess import preprocess
+
+    longest = 0
+    with torch.no_grad():
+        for e, p, cam in views:
+            g = build_gaussians(model, params, state, e, p)[0]
+            prep = preprocess(cam, g.xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                              g.get_features, g.sh_degree, alive=g.alive)
+            lists = binning.build_tile_lists(
+                prep.soa[0], prep.soa[1], prep.depth, prep.radius,
+                binning.tile_grid(cam.width, cam.height), max_per_tile=rcfg.chunk,
+                max_tiles_per_gaussian=rcfg.max_tiles_per_gaussian,
+                instance_budget=rcfg.instance_budget)
+            longest = max(longest, int(lists.counts.max()))
+    return longest
+
+
+def tile_k(longest, chunk):
+    """K = TILE_K_HEADROOM x the longest tile, a multiple of ``chunk``."""
+    return max(chunk, -(-int(TILE_K_HEADROOM * longest) // chunk) * chunk)
+
+
+def tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, which, card, reps,
+                        bwd_args=None):
+    """ms per launch of kernel 3 (``which`` fwd) or 4 (bwd) and of its plain
+    version on captured full-width inputs, with the bound."""
+    from fateavatar_tpu_torch.render import blend_tiles as bt
+
+    T = grid[0] * grid[1]
+    k = data.shape[1] // T
+    n_slots = int(counts.clamp(max=k).sum())
+    evaluated, blended = bt.pair_counts(data, valid, counts, grid)
+    n_pix = T * 256
+    if which == "fwd":
+        ms = cuda_ms(lambda: bt.blend_tiles(data, valid, counts, bg, grid, chunk), reps=reps)
+        plain_ms = cuda_ms(lambda: bt.blend_tiles_reference(data, valid, counts, bg, grid,
+                                                            chunk), reps=2, warmup=1)
+        bytes_moved = (BYTES_PER_INSTANCE * n_slots + 4 * T + 12 + BYTES_PER_PIXEL * n_pix)
+        ops = OPS_PER_PAIR * evaluated
+    else:
+        ms = cuda_ms(lambda: bt.blend_tiles_bwd(*bwd_args), reps=reps)
+        plain_ms = cuda_ms(lambda: bt.blend_tiles_backward_reference(*bwd_args), reps=2,
+                           warmup=1)
+        bytes_moved = (BYTES_PER_INSTANCE * n_slots + 4 * T + BWD_BYTES_PER_PIXEL * n_pix
+                       + TILE_BWD_BYTES_PER_SLOT * data.shape[1])
+        ops = BWD_OPS_PER_EVALUATED * evaluated + BWD_OPS_PER_BLENDED * blended
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_OPS_PER_S * 1e3
+    row.update(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    log(f"[kernel] {row['name']}: {ms:.4f} ms/launch (CUDA events, {reps} launches), "
+        f"plain version {plain_ms:.3f} ms; T {T} K {k}, occupied slots {n_slots} "
+        f"({n_slots / (T * k):.2%} of T*K), evaluated pairs {evaluated}, blended "
+        f"{blended}; bound {row['bound_ms']:.5f} ms ({t_bytes:.5f} ms for {bytes_moved} B "
+        f"at 3.35 TB/s, {t_ops:.5f} ms for {ops} ops at 67 TFLOP/s fp32) -> "
+        f"{row['bound_ms'] / ms:.1%} of bound [{card}]")
 
 
 def write_assets(ws, seed):
@@ -258,29 +406,18 @@ def write_assets(ws, seed):
     return pkl, obj
 
 
-def train_phase(ws, gen, rows, card):
-    """The training slice at full width: Trainer epoch, eval, checkpoint,
-    resume, kernel 2 on a captured training frame, the whole step against
-    the plain blends, and the step's timings."""
-    import numpy as np
+def train_setup(ws):
+    """What both training phases share: the yaml at full width with the
+    seeded assets, its FLAME, model, datasets, loss and optimizer."""
     import torch
 
     from fateavatar_tpu_torch.cli import common
-    from fateavatar_tpu_torch.models import maintenance
-    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
-    from fateavatar_tpu_torch.render import blend_instances as bi
     from fateavatar_tpu_torch.train.datasets import SyntheticDataset
     from fateavatar_tpu_torch.train.losses import FateAvatarLoss, vgg16_random_params
-    from fateavatar_tpu_torch.train.optim import (
-        apply_updates, fateavatar_optimizers, zero_moment_rows)
-    from fateavatar_tpu_torch.train.step import make_train_step
-    from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.train.optim import fateavatar_optimizers
     from fateavatar_tpu_torch.utils.config import config_to_dict, load_config
 
     dev = "cuda"
-    bwd_row = rows["blend_instances_bwd"]
-    fwd_row = rows["blend_instances_fwd"]
-    t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     tws = os.path.join(ws, "train")
     cfg = load_config(os.path.join(root, "configs", "fateavatar.yaml"), [
@@ -303,26 +440,20 @@ def train_phase(ws, gen, rows, card):
     # of assets.vgg16_weights_path (the repository ships none)
     vgg = vgg16_random_params(torch.Generator(device=dev).manual_seed(0), device=dev)
     loss_cfg = common.loss_config(cfg)
-    loss_fn = FateAvatarLoss(loss_cfg, vgg_params=vgg)
-    optimizer = fateavatar_optimizers(config_to_dict(cfg.training))
     maint = dataclasses.replace(common.maintenance_config(cfg), **MAINT_OVERRIDES)
-    log(f"[train] config overrides: {MAINT_OVERRIDES} (yaml: densify_interval "
-        f"{cfg.training.densify_interval}, prune_interval {cfg.training.prune_interval}); "
-        f"VGG16 weights random (seed 0) in place of assets.vgg16_weights_path; "
-        f"SyntheticDataset expression codes scaled by {EXPR_SCALE:.4f} (std 0.05); "
-        f"{N_TRAIN} train / {N_TEST} test frames of {h}x{w}")
-    log(f"[train] loss {dataclasses.asdict(loss_cfg)}; lr {optimizer.lr_tree}; "
-        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
-        f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+    return SimpleNamespace(
+        cfg=cfg, tws=tws, h=h, w=w, dataset=dataset, train_ds=train_ds, test_ds=test_ds,
+        model=model, params=params, state=state, vgg=vgg, loss_cfg=loss_cfg,
+        loss_fn=FateAvatarLoss(loss_cfg, vgg_params=vgg),
+        optimizer=fateavatar_optimizers(config_to_dict(cfg.training)), maint=maint)
 
-    trainer = Trainer(cfg.name, model, params, state, loss_fn, optimizer, train_ds,
-                      test_ds, workspace=tws, maint_cfg=maint,
-                      render_cfg=common.render_config(cfg), seed=cfg.seed)
-    rcfg = trainer.render_cfg
-    log(f"[train] render config after autosize: budget {rcfg.instance_budget} "
-        f"R {rcfg.max_tiles_per_gaussian} tail_k {rcfg.tail_k} binning {rcfg.binning}")
 
-    # watch the maintenance steps (this instrumentation syncs only there)
+def watch_maintenance(trainer, maint):
+    """Wraps ``trainer.train_step`` to record each densify (alive before and
+    after, slots written, their largest Adam moment) and prune; syncs only
+    at those steps. Returns the event list and the unwrapped step."""
+    from fateavatar_tpu_torch.models import maintenance
+
     events = []
     step_fn = trainer.train_step
 
@@ -343,6 +474,98 @@ def train_phase(ws, gen, rows, card):
         return ts2, aux
 
     trainer.train_step = watched
+    return events, step_fn
+
+
+def check_epoch(tag, trainer, events, maint):
+    """The epoch's losses finite and falling, densify adding increase_num
+    splats with zero Adam moments, prune firing, nothing dropped."""
+    import numpy as np
+
+    losses = trainer.epoch_losses
+    for ev in events:
+        log(f"[{tag}] {ev[0]} at step {ev[1]}: alive {ev[2]} -> {ev[3]}"
+            + (f", {ev[4]} slots written, their largest Adam moment {ev[5]:.1e}"
+               if ev[0] == "densify" else ""))
+    check(len(losses) == N_TRAIN and all(np.isfinite(losses)), "finite loss every step")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"mean loss of the last 5 steps {last:.5f} below the first 5 {first:.5f}")
+    dens = [ev for ev in events if ev[0] == "densify"]
+    check(len(dens) >= 1 and all(ev[3] == ev[2] + maint.increase_num and ev[4] == maint.increase_num
+                                 for ev in dens), "densify adds increase_num splats")
+    check(all(ev[5] == 0.0 for ev in dens), "densified rows start with zero Adam moments")
+    check(any(ev[0] == "prune" for ev in events), "prune fired")
+    overflow = trainer.last_epoch_stats["overflow"]
+    check(overflow == 0, f"overflow {overflow} in the training epoch")
+
+
+def rel_errors(ga, pa, gb, pb):
+    """Per parameter field and the probe: (name, relative L2, largest
+    difference over the largest element) of gradients a against b."""
+    out = []
+    for f in [fl.name for fl in dataclasses.fields(ga)] + ["probe"]:
+        a, b = (pa, pb) if f == "probe" else (getattr(ga, f), getattr(gb, f))
+        if b.numel() == 0 or float(b.abs().max()) == 0.0:
+            check(float(a.abs().max()) == 0.0, f"step gradient {f}: one side 0")
+            continue
+        out.append((f, float((a - b).norm() / b.norm()),
+                    float((a - b).abs().max() / b.abs().max())))
+    return out
+
+
+def check_step_grads(tag, label, a, b):
+    """Step gradients a (grads, probe, out, losses) within STEP_RTOL_L2 /
+    STEP_RTOL_MAX of b."""
+    worst = rel_errors(a[0], a[1], b[0], b[1])
+    for f, l2, mx in worst:
+        check(l2 <= STEP_RTOL_L2 and mx <= STEP_RTOL_MAX,
+              f"step gradient {f}: {label} rel L2 {l2:.2e}, max {mx:.2e}")
+    log(f"[{tag}] one step, {label}: loss {a[3]['loss'].item():.7f} vs "
+        f"{b[3]['loss'].item():.7f}; per field (rel L2, max rel): "
+        + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in worst))
+
+
+def train_phase(s, gen, rows, card):
+    """The training slice at full width: Trainer epoch, eval, checkpoint,
+    resume, kernel 2 on a captured training frame, the whole step against
+    the plain blends, and the step's timings. Returns the Trainer."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import common
+    from fateavatar_tpu_torch.models import maintenance
+    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train.losses import FateAvatarLoss
+    from fateavatar_tpu_torch.train.optim import apply_updates, zero_moment_rows
+    from fateavatar_tpu_torch.train.step import make_train_step
+    from fateavatar_tpu_torch.train.trainer import Trainer
+
+    dev = "cuda"
+    bwd_row = rows["blend_instances_bwd"]
+    fwd_row = rows["blend_instances_fwd"]
+    t_phase = time.perf_counter()
+    cfg, tws, h, w = s.cfg, s.tws, s.h, s.w
+    train_ds, test_ds, dataset = s.train_ds, s.test_ds, s.dataset
+    model, params, state = s.model, s.params, s.state
+    vgg, loss_cfg, loss_fn, optimizer, maint = s.vgg, s.loss_cfg, s.loss_fn, s.optimizer, s.maint
+    log(f"[train] config overrides: {MAINT_OVERRIDES} (yaml: densify_interval "
+        f"{cfg.training.densify_interval}, prune_interval {cfg.training.prune_interval}); "
+        f"VGG16 weights random (seed 0) in place of assets.vgg16_weights_path; "
+        f"SyntheticDataset expression codes scaled by {EXPR_SCALE:.4f} (std 0.05); "
+        f"{N_TRAIN} train / {N_TEST} test frames of {h}x{w}")
+    log(f"[train] loss {dataclasses.asdict(loss_cfg)}; lr {optimizer.lr_tree}; "
+        f"cudnn.allow_tf32 {torch.backends.cudnn.allow_tf32}, "
+        f"matmul.allow_tf32 {torch.backends.cuda.matmul.allow_tf32}")
+
+    trainer = Trainer(cfg.name, model, params, state, loss_fn, optimizer, train_ds,
+                      test_ds, workspace=tws, maint_cfg=maint,
+                      render_cfg=common.render_config(cfg), seed=cfg.seed)
+    rcfg = trainer.render_cfg
+    log(f"[train] render config after autosize: budget {rcfg.instance_budget} "
+        f"R {rcfg.max_tiles_per_gaussian} tail_k {rcfg.tail_k} binning {rcfg.binning}")
+
+    events, step_fn = watch_maintenance(trainer, maint)
     torch.cuda.synchronize()
     # ---- the training path: counts to 0 just before, read just after
     bi.blend_instances.launches = 0
@@ -358,23 +581,10 @@ def train_phase(ws, gen, rows, card):
         rows[name]["launches"] = n
         log(f"[train] {name} launches in the training epoch: {n} ({N_TRAIN} steps)")
         check(n == N_TRAIN, f"{name}: one launch per training step")
-    losses = trainer.epoch_losses
-    stats = trainer.last_epoch_stats
     log(f"[train] epoch of {N_TRAIN} steps in {epoch_s:.3f} s (host clock, incl. "
-        f"maintenance and the checkpoint); per-step loss {[round(x, 5) for x in losses]}")
-    for ev in events:
-        log(f"[train] {ev[0]} at step {ev[1]}: alive {ev[2]} -> {ev[3]}"
-            + (f", {ev[4]} slots written, their largest Adam moment {ev[5]:.1e}"
-               if ev[0] == "densify" else ""))
-    check(len(losses) == N_TRAIN and all(np.isfinite(losses)), "finite loss every step")
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    check(last < first, f"mean loss of the last 5 steps {last:.5f} below the first 5 {first:.5f}")
-    dens = [ev for ev in events if ev[0] == "densify"]
-    check(len(dens) >= 1 and all(ev[3] == ev[2] + maint.increase_num and ev[4] == maint.increase_num
-                                 for ev in dens), "densify adds increase_num splats")
-    check(all(ev[5] == 0.0 for ev in dens), "densified rows start with zero Adam moments")
-    check(any(ev[0] == "prune" for ev in events), "prune fired")
-    check(stats["overflow"] == 0, f"overflow {stats['overflow']} in the training epoch")
+        f"maintenance and the checkpoint); per-step loss "
+        f"{[round(x, 5) for x in trainer.epoch_losses]}")
+    check_epoch("train", trainer, events, maint)
 
     # ---- evaluation (its forwards counted apart)
     bi.blend_instances.launches = 0
@@ -460,25 +670,8 @@ def train_phase(ws, gen, rows, card):
             gp, pp, _, lp = cmp_step.grads(trainer.ts, frame)
     torch.cuda.synchronize()
 
-    def rel_errors(ga, pa, gb, pb):
-        out = []
-        for f in [fl.name for fl in dataclasses.fields(ga)] + ["probe"]:
-            a, b = (pa, pb) if f == "probe" else (getattr(ga, f), getattr(gb, f))
-            if b.numel() == 0 or float(b.abs().max()) == 0.0:
-                check(float(a.abs().max()) == 0.0, f"step gradient {f}: one side 0")
-                continue
-            out.append((f, float((a - b).norm() / b.norm()),
-                        float((a - b).abs().max() / b.abs().max())))
-        return out
-
     noise = rel_errors(gk2, pk2, gk, pk)
-    worst = rel_errors(gk, pk, gp, pp)
-    for f, l2, mx in worst:
-        check(l2 <= STEP_RTOL_L2 and mx <= STEP_RTOL_MAX,
-              f"step gradient {f}: kernels vs plain rel L2 {l2:.2e}, max {mx:.2e}")
-    log(f"[train] one step, kernels vs plain blends: loss {lk['loss'].item():.7f} vs "
-        f"{lp['loss'].item():.7f}; per field (rel L2, max rel): "
-        + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in worst))
+    check_step_grads("train", "kernels vs plain blends", (gk, pk, None, lk), (gp, pp, None, lp))
     log("[train] the same step twice with the kernels (run-to-run noise of the "
         "atomic scatter-adds): " + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in noise))
 
@@ -580,26 +773,281 @@ def train_phase(ws, gen, rows, card):
         + f"; blend_instances_bwd {dev_split[5]:.3f} of the backward's "
         f"{dev_split[2]:.3f} ({dev_split[5] / dev_split[2]:.1%}) [{card}]")
 
+    box = {"ts": ts}
+
+    def step(i):
+        box["ts"], _ = timing_step(box["ts"], frames[13 + i])
+
+    profile_top("3 train steps", step, 3, "step", card)
+    log(f"[train] phase total {time.perf_counter() - t_phase:.1f} s")
+    return trainer
+
+
+def profile_top(label, fn, n, unit, card):
+    """Wall and device-busy time of ``n`` calls of ``fn`` under
+    torch.profiler, and the 10 kernels that took the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for f in frames[13:16]:
-            ts, _ = timing_step(ts, f)
+        for i in range(n):
+            fn(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy_us = sum(e.self_device_time_total for e in kernels)
     n_launch = sum(e.count for e in kernels)
-    check(busy_us > 0, "the profiler saw device time in the training steps")
-    log(f"[profile] 3 train steps: wall {wall_us / 3e3:.3f} ms/step, device busy "
-        f"{busy_us / 3e3:.3f} ms/step ({busy_us / wall_us:.1%}; idle "
-        f"{1 - busy_us / wall_us:.1%}), {n_launch / 3:.0f} kernels/step (under the "
+    check(busy_us > 0, f"the profiler saw device time in {label}")
+    log(f"[profile] {label}: wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
+        f"{busy_us / n / 1e3:.3f} ms/{unit} ({busy_us / wall_us:.1%}; idle "
+        f"{1 - busy_us / wall_us:.1%}), {n_launch / n:.0f} kernels/{unit} (under the "
         f"profiler) [{card}]")
     for e in kernels[:10]:
-        log(f"[profile]   {e.self_device_time_total / 3e3:8.4f} ms/step "
-            f"x{e.count // 3:<4d} {e.key[:90]}")
-    log(f"[train] phase total {time.perf_counter() - t_phase:.1f} s")
+        log(f"[profile]   {e.self_device_time_total / n / 1e3:8.4f} ms/{unit} "
+            f"x{e.count // n:<4d} {e.key[:90]}")
+
+
+def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, rows, card):
+    """The serving path through kernel="tiles": the same checkpoint served
+    through Reenactor.reenact with the dense-list blend, frame by frame
+    overflow, two frames against the plain tile blend, frame 0 against the
+    instances route, and kernel 3 on the captured full-width inputs."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.render import blend_tiles as bt
+    from fateavatar_tpu_torch.train.loader import Reenactor
+
+    dev = "cuda"
+    row = rows["blend_tiles_fwd"]
+    t_phase = time.perf_counter()
+    instances = Reenactor(model, params, state, ws, render_cfg=rcfg)
+    views = [(torch.from_numpy(e).to(dev), torch.from_numpy(p).to(dev), cam)
+             for e, p in zip(exprs, poses)]
+    longest = longest_tile(model, instances.params, state, views, rcfg)
+    k = tile_k(longest, rcfg.chunk)
+    tcfg = dataclasses.replace(rcfg, kernel="tiles", max_per_tile=k)
+    log(f"[tiles-serve] config override: max_per_tile {k} (yaml {rcfg.max_per_tile}): "
+        f"the longest tile over the {N_FRAMES} frames holds {longest} instances, x "
+        f"{TILE_K_HEADROOM} rounded up to a multiple of chunk {rcfg.chunk}; binning "
+        f"{tcfg.binning} (build_tile_lists), R {tcfg.max_tiles_per_gaussian}, budget "
+        f"{tcfg.instance_budget} (0 = 6N)")
+    reenactor = Reenactor(model, params, state, ws, render_cfg=tcfg)
+    reenactor.reenact(exprs[:2], poses[:2], delta, cam)      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # ---- the main path: counts to 0 just before, read just after
+    bi.blend_instances.launches = 0
+    bt.blend_tiles.launches = 0
+    t0 = time.perf_counter()
+    frames = reenactor.reenact(exprs, poses, delta, cam)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    n = bt.blend_tiles.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    row["launches"] = n
+    log(f"[tiles-serve] blend_tiles_fwd launches in the serving path: {n}, "
+        f"blend_instances_fwd {bi.blend_instances.launches}")
+    check(n == N_FRAMES and bi.blend_instances.launches == 0,
+          "one dense-list blend launch per frame and no instance blend")
+    check(len(frames) == N_FRAMES
+          and all(f.shape == (cam.height, cam.width, 3) for f in frames),
+          "16 frames of 512x512x3")
+    spread = float(np.std(np.stack(frames).astype(np.float32)))
+    check(spread > 5.0, f"frames must not be flat (pixel std {spread:.2f})")
+    log(f"[tiles-serve] {N_FRAMES} frames in {serve_s * 1e3:.3f} ms: "
+        f"{serve_s * 1e3 / N_FRAMES:.3f} ms/frame (host clock, uint8 frames on the "
+        f"host), peak device memory {peak_gib:.3f} GiB, pixel std {spread:.2f} [{card}]")
+
+    lat, overflow = [], []
+    for e, p, c in views:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fateavatar_forward(model, reenactor.params, state, e, p, c, render_cfg=tcfg)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        overflow.append(int(out["overflow"]))
+        check(bool(torch.isfinite(out["rgb_image"]).all()), "finite frame")
+    log(f"[tiles-serve] per-frame forward ms (host clock, synchronized): median "
+        f"{float(np.median(lat)):.3f} min {min(lat):.3f} max {max(lat):.3f}; overflow per "
+        f"frame {overflow}")
+    check(not any(overflow), "no instance dropped by the binning caps")
+
+    for i in (0, N_FRAMES - 1):
+        img_k = reenactor.render_frame(exprs[i], poses[i], cam)
+        with swapped_blend(bt.blend_tiles_reference, "blend_tiles"):
+            img_p = reenactor.render_frame(exprs[i], poses[i], cam)
+        err = (img_k - img_p).abs().max().item()
+        log(f"[tiles-serve] frame {i}: kernel vs plain tile blend pipeline max|diff| {err:.3e}")
+        check(err <= TOL, f"frame {i} tile kernel vs plain {err:.3e} > {TOL}")
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+    img_t = reenactor.render_frame(exprs[0], poses[0], cam)
+    img_i = instances.render_frame(exprs[0], poses[0], cam)
+    err = (img_t - img_i).abs().max().item()
+    log(f"[tiles-serve] frame 0: kernel=\"tiles\" vs kernel=\"instances\" max|diff| "
+        f"{err:.3e} (pixels differing: {int(((img_t - img_i).abs() > 0).sum())})")
+    check(err <= TOL, f"frame 0 tiles vs instances {err:.3e} > {TOL}")
+
+    # ---- kernel 3 on the real inputs of one full-width frame
+    captured = []
+
+    def record(*args):
+        captured.append(args)
+        return bt.blend_tiles(*args)
+
+    with swapped_blend(record, "blend_tiles"):
+        reenactor.render_frame(exprs[0], poses[0], cam)
+    data, valid, counts, bg, grid, chunk = captured[0]
+    log(f"[kernel] tiles frame 0: T*K {data.shape[1]} per-tile max {int(counts.max())} "
+        f"mean {counts.float().mean().item():.1f}")
+    check_blend("tiles frame 0 (serving inputs)", (data, valid, counts, bg, grid), row,
+                bt.blend_tiles, bt.blend_tiles_reference)
+    tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, "fwd", card, reps=50)
+
+    e0, p0 = views[0][0], views[0][1]
+    f_ms = cuda_ms(lambda: fateavatar_forward(model, reenactor.params, state, e0, p0, cam,
+                                              render_cfg=tcfg), reps=20)
+    log(f"[tiles-serve] forward {f_ms:.3f} ms (CUDA events, back to back), of which "
+        f"kernel 3 {row['ms']:.3f} [{card}]")
+    profile_top("4 tiles forwards", lambda i: fateavatar_forward(
+        model, reenactor.params, state, e0, p0, cam, render_cfg=tcfg), 4, "frame", card)
+    log(f"[tiles-serve] phase total {time.perf_counter() - t_phase:.1f} s")
+
+
+def tiles_train_phase(s, trainer_i, rows, card):
+    """The training path through kernel="tiles": a Trainer epoch from the
+    same initial avatar, kernel 4 on a captured training frame, one step's
+    gradients against the plain tile blends and against the instances
+    route, and the step's timings."""
+    import torch
+
+    from fateavatar_tpu_torch.cli import common
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.render import blend_tiles as bt
+    from fateavatar_tpu_torch.train.losses import FateAvatarLoss
+    from fateavatar_tpu_torch.train.step import make_train_step
+    from fateavatar_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    base = common.render_config(s.cfg)
+    frames = [trainer_i._make_frame(s.train_ds.sample(i)) for i in range(N_TRAIN)]
+    longest = longest_tile(s.model, s.params, s.state,
+                           [(f.expression, f.flame_pose, f.camera) for f in frames], base)
+    k = tile_k(longest, base.chunk)
+    log(f"[tiles-train] config override: max_per_tile {k} (yaml {base.max_per_tile}): "
+        f"the longest tile over the {N_TRAIN} training frames at the initial avatar holds "
+        f"{longest} instances, x {TILE_K_HEADROOM} rounded up to a multiple of chunk "
+        f"{base.chunk}; the other overrides as the instances phase")
+    trainer = Trainer(s.cfg.name, s.model, s.params, s.state, s.loss_fn, s.optimizer,
+                      s.train_ds, s.test_ds, workspace=os.path.join(s.tws, "tiles"),
+                      maint_cfg=s.maint, seed=s.cfg.seed,
+                      render_cfg=dataclasses.replace(base, kernel="tiles", max_per_tile=k))
+    rcfg = trainer.render_cfg
+    log(f"[tiles-train] render config after autosize: kernel {rcfg.kernel} K "
+        f"{rcfg.max_per_tile} budget {rcfg.instance_budget} R {rcfg.max_tiles_per_gaussian}")
+    events, step_fn = watch_maintenance(trainer, s.maint)
+    torch.cuda.synchronize()
+    # ---- the training path: counts to 0 just before, read just after
+    counters = (bi.blend_instances, bi.blend_instances_bwd, bt.blend_tiles, bt.blend_tiles_bwd)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    trainer.train_step = step_fn
+    launches = {"blend_tiles_fwd": bt.blend_tiles.launches,
+                "blend_tiles_bwd": bt.blend_tiles_bwd.launches}
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+        log(f"[tiles-train] {name} launches in the training epoch: {n} ({N_TRAIN} steps)")
+        check(n == N_TRAIN, f"{name}: one launch per training step")
+    check(bi.blend_instances.launches == bi.blend_instances_bwd.launches == 0,
+          "the tiles route launches no instance blend")
+    log(f"[tiles-train] epoch of {N_TRAIN} steps in {epoch_s:.3f} s (host clock, incl. "
+        f"maintenance and the checkpoint); per-step loss "
+        f"{[round(x, 5) for x in trainer.epoch_losses]}")
+    check_epoch("tiles-train", trainer, events, s.maint)
+
+    # ---- kernel 4 on a captured full-width training frame
+    frame = frames[0]
+    captured = []
+
+    def record(*args):
+        img, tfin = bt.blend_tiles(*args)
+        captured.append((args, img.detach(), tfin.detach()))
+        img.register_hook(lambda g: captured.append(g))
+        return img, tfin
+
+    with swapped_blend(record, "blend_tiles"):
+        trainer.train_step.grads(trainer.ts, frame)
+    (data, valid, counts, bg, grid, chunk), img, tfin = captured[0]
+    data = data.detach()
+    kk = data.shape[1] // counts.shape[0]
+    bwd_args = (data, valid, counts, bg, img, tfin, captured[1].contiguous(),
+                torch.zeros_like(tfin), grid)
+    log(f"[kernel] tiles training frame: T*K {data.shape[1]} per-tile max "
+        f"{int(counts.max())} mean {counts.float().mean().item():.1f}")
+    check_blend("tiles training frame (forward)", (data, valid, counts, bg, grid),
+                rows["blend_tiles_fwd"], bt.blend_tiles, bt.blend_tiles_reference)
+    check_blend_bwd("tiles training frame", bwd_args, rows["blend_tiles_bwd"],
+                    bt.blend_tiles_bwd, bt.blend_tiles_backward_reference,
+                    past_lists(counts, kk))
+    tile_kernel_timings(data, valid, counts, bg, grid, chunk, rows["blend_tiles_bwd"], "bwd",
+                        card, reps=20, bwd_args=bwd_args)
+
+    # ---- one whole step: tile kernels vs plain tile blends, and the tiles
+    # route vs the instances route (the instances Trainer's autosized
+    # config), same state and frame; float32 VGG, deterministic cuDNN
+    cmp_loss = FateAvatarLoss(dataclasses.replace(s.loss_cfg, vgg_dtype=None),
+                              vgg_params=s.vgg)
+    cmp_t = make_train_step(s.model, cmp_loss, s.optimizer, s.maint, rcfg)
+    cmp_i = make_train_step(s.model, cmp_loss, s.optimizer, s.maint, trainer_i.render_cfg)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        gk = cmp_t.grads(trainer.ts, frame)
+        with swapped_blend(bt.blend_tiles_plain, "blend_tiles"):
+            gp = cmp_t.grads(trainer.ts, frame)
+        gi = cmp_i.grads(trainer.ts, frame)
+    torch.cuda.synchronize()
+    check(int(gk[2]["overflow"]) == int(gi[2]["overflow"]) == 0,
+          "nothing dropped on the compared frame")
+    check_step_grads("tiles-train", "tile kernels vs plain tile blends", gk, gp)
+    check_step_grads("tiles-train", "kernel=\"tiles\" vs kernel=\"instances\"", gk, gi)
+
+    # ---- timings of the step at full width
+    never = 10**9
+    timing_step = make_train_step(s.model, s.loss_fn, s.optimizer, dataclasses.replace(
+        s.maint, densify_interval=never, prune_interval=never,
+        opacity_reset_interval=never), rcfg)
+    ts = trainer.ts
+    for f in frames[:3]:
+        timing_step(ts, f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for f in frames[3:13]:
+        ts, _ = timing_step(ts, f)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[tiles-train] ms/step {step_ms:.3f} (host clock, synchronized, 10 steady steps, "
+        f"maintenance excluded), peak device memory {peak_gib:.3f} GiB (resident before "
+        f"the steps {base_mem / 2**30:.3f} GiB) [{card}]")
+    box = {"ts": ts}
+
+    def step(i):
+        box["ts"], _ = timing_step(box["ts"], frames[13 + i])
+
+    profile_top("3 tiles train steps", step, 3, "step", card)
+    log(f"[tiles-train] phase total {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -632,7 +1080,8 @@ def main():
 
     # ---- build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    libs = cuda_build.build_all(["blend_instances", "blend_instances_bwd"])
+    libs = cuda_build.build_all(["blend_instances", "blend_instances_bwd", "blend_tiles",
+                                 "blend_tiles_bwd"])
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
@@ -662,6 +1111,7 @@ def main():
           "a NaN-filled output buffer must come back equal to a clean call")
     log("[kernel] edge cases: NaN-prefilled output buffer comes back finite and "
         "bit-equal to a clean call")
+    tile_kernel_cases(rows)
 
     # ---- serve phase: seeded workspace, checkpoint, reenactment
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
@@ -816,31 +1266,14 @@ def main():
             f"kernel {ms:.3f}, preprocess + binning + gather {r_ms - ms:.3f})")
 
         # device busy share and kernel time by name over 4 forwards
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        profile_top("4 forwards", lambda i: fateavatar_forward(
+            model, params_r, state, e0, p0, cam, render_cfg=rcfg), 4, "frame", card)
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(4):
-                fateavatar_forward(model, params_r, state, e0, p0, cam, render_cfg=rcfg)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = sorted((e for e in prof.key_averages()
-                          if e.device_type == DeviceType.CUDA),
-                         key=lambda e: -e.self_device_time_total)
-        busy_us = sum(e.self_device_time_total for e in kernels)
-        n_launch = sum(e.count for e in kernels)
-        check(busy_us > 0, "the profiler saw device time")
-        log(f"[profile] 4 forwards: wall {wall_us / 4e3:.3f} ms/frame, device busy "
-            f"{busy_us / 4e3:.3f} ms/frame ({busy_us / wall_us:.1%}; idle "
-            f"{1 - busy_us / wall_us:.1%}), {n_launch / 4:.0f} kernels/frame "
-            f"(under the profiler)")
-        for e in kernels[:8]:
-            log(f"[profile]   {e.self_device_time_total / 4e3:8.4f} ms/frame "
-                f"x{e.count // 4:<4d} {e.key[:90]}")
-
-        train_phase(ws, gen, rows, card)
+        tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta,
+                          rows, card)
+        setup = train_setup(ws)
+        trainer = train_phase(setup, gen, rows, card)
+        tiles_train_phase(setup, trainer, rows, card)
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -100,11 +100,17 @@ def loss_config(cfg: Config) -> FateAvatarLossConfig:
 
 
 def render_config(cfg: Config) -> RenderConfig:
-    """The instance path's settings from the config, ``autosize`` included
-    (the Trainer reads it). ``render.impl``, ``max_per_tile`` and ``chunk``
-    (the dense-list blend) do not apply to it."""
+    """The render settings of the config, as the JAX package's
+    ``render_config`` reads them, ``autosize`` included (the Trainer reads
+    it). ``max_per_tile`` and ``chunk`` are read by the ``kernel="tiles"``
+    route, which a caller selects with ``dataclasses.replace`` (the yaml has
+    no ``kernel`` key, as in the JAX package). ``render.impl`` is not read:
+    in the port the tensors' device chooses between the CUDA kernels and
+    their plain versions."""
     return RenderConfig(
+        max_per_tile=cfg.render.max_per_tile,
         max_tiles_per_gaussian=cfg.render.max_tiles_per_gaussian,
+        chunk=cfg.render.chunk,
         instance_budget=cfg.render.instance_budget,
         t_cutoff=cfg.render.t_cutoff,
         binning=cfg.render.binning,

@@ -13,21 +13,21 @@
 // (instance, pixel) pair the pixel reaches costs ~20 fp32 operations plus
 // one exp. A frame has ~10^2 pairs per byte, so the kernel is bound by
 // arithmetic and the special-function unit, not by memory.
-// What the design does about it: instance channels are staged in shared
-// memory in batches of 256 (coalesced per channel row of the [16, M] array)
-// so each is read from device memory once per tile and then broadcast to the
-// tile's 256 pixel threads; a pixel stops evaluating once its T fell below
-// 1e-4, and the whole block leaves its range as soon as every pixel has
-// (__syncthreads_count), so saturated regions cost no more pairs than they
-// need. Invalid / sentinel rows (valid = 0) are staged with opacity 0, which
-// the 1/255 test skips.
+// What the design does about it (blend_common.cuh::forward_tile, shared
+// with the dense-list kernel blend_tiles.cu): instance channels are staged
+// in shared memory in batches of 256 (coalesced per channel row of the
+// [16, M] array) so each is read from device memory once per tile and then
+// broadcast to the tile's 256 pixel threads; a pixel stops evaluating once
+// its T fell below 1e-4, and the whole block leaves its range as soon as
+// every pixel has (__syncthreads_count), so saturated regions cost no more
+// pairs than they need. Invalid / sentinel rows (valid = 0) are staged with
+// opacity 0, which the 1/255 test skips.
 //
-// The arithmetic up to alpha and the transmittance step (blend_common.cuh,
-// shared with the backward kernel) uses explicitly rounded operations (no
-// FMA contraction) in the order of the plain PyTorch version, so both
-// compute the same bits for power and alpha and never disagree on the 1/255
-// and power > 0 tests; they differ only in the order of the transmittance
-// product.
+// The arithmetic up to alpha and the transmittance step uses explicitly
+// rounded operations (no FMA contraction) in the order of the plain PyTorch
+// version, so both compute the same bits for power and alpha and never
+// disagree on the 1/255 and power > 0 tests; they differ only in the order
+// of the transmittance product.
 
 #include "blend_common.cuh"
 
@@ -35,64 +35,19 @@ namespace {
 
 using namespace blend;
 
-constexpr int NCH = 9;              // staged channels: mean xy, conic, rgb, opacity
-
 __global__ void __launch_bounds__(BLOCK)
 blend_instances_fwd_kernel(const float* __restrict__ inst, int64_t m,
                            const int* __restrict__ tile_starts,
                            const float* __restrict__ bg,
                            float* __restrict__ img, float* __restrict__ tfin,
                            int grid_x) {
-  __shared__ float sh[NCH][BLOCK];
   const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  // integer pixel coordinates, no +0.5 (blend_instances.py::_pixels)
-  const float px = static_cast<float>((t % grid_x) * TILE + tid % TILE);
-  const float py = static_cast<float>((t / grid_x) * TILE + tid / TILE);
   // clamp the range into the array so no input can make the block read
   // out of bounds
   const int64_t s = clamp64(tile_starts[t], 0, m);
   const int64_t e = clamp64(tile_starts[t + 1], s, m);
-
-  float T = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  bool done = false;
-
-  for (int64_t base = s; base < e; base += BLOCK) {
-    // also the barrier that protects sh from the previous batch's readers
-    if (__syncthreads_count(done) == BLOCK) break;
-    const int64_t j = base + tid;
-    if (j < e) {
-#pragma unroll
-      for (int c = 0; c < 8; ++c) sh[c][tid] = inst[c * m + j];
-      sh[8][tid] = inst[9 * m + j] > 0.0f ? inst[8 * m + j] : 0.0f;
-    }
-    __syncthreads();
-    const int n = static_cast<int>(clamp64(e - base, 0, BLOCK));
-    for (int k = 0; k < n && !done; ++k) {
-      Splat sp;
-      if (!splat_at(sh[0][k], sh[1][k], sh[2][k], sh[3][k], sh[4][k], sh[8][k],
-                    px, py, sp))
-        continue;
-      const float test_t = next_transmittance(T, sp.alpha);
-      if (test_t < T_EPS) {
-        done = true;
-        continue;
-      }
-      const float w = __fmul_rn(sp.alpha, T);
-      acc_r = __fadd_rn(acc_r, __fmul_rn(w, sh[5][k]));
-      acc_g = __fadd_rn(acc_g, __fmul_rn(w, sh[6][k]));
-      acc_b = __fadd_rn(acc_b, __fmul_rn(w, sh[7][k]));
-      T = test_t;
-    }
-  }
-
-  constexpr int P = BLOCK;
-  float* out = img + static_cast<int64_t>(t) * 3 * P;
-  out[tid] = __fadd_rn(acc_r, __fmul_rn(T, bg[0]));
-  out[P + tid] = __fadd_rn(acc_g, __fmul_rn(T, bg[1]));
-  out[2 * P + tid] = __fadd_rn(acc_b, __fmul_rn(T, bg[2]));
-  tfin[static_cast<int64_t>(t) * P + tid] = T;
+  // row 9 of the [16, M] array is the valid flag
+  forward_tile(inst, inst + 9 * m, m, s, e, t, grid_x, bg, img, tfin);
 }
 
 }  // namespace

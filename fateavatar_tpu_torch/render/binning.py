@@ -1,12 +1,18 @@
-"""Flat instance binning for the instance-range blend.
+"""Tile binning for the two blends.
 
-Port of ``fateavatar_tpu/render/binning.py::build_instance_lists`` for the
-``compact`` layout with ``sort_mode`` ``onesort`` and ``twotier``: the
-CUDA pipeline's InclusiveSum -> duplicateWithKeys -> RadixSort ->
-identifyTileRanges (rasterizer_impl.cu:70-336) as a few sorts and scans at
-static sizes. Results are bit-exact with the JAX package: the same depth
-order (stable, ties by index), the same candidate walk, the same budget and
-``overflow`` accounting.
+Port of ``fateavatar_tpu/render/binning.py``: the CUDA pipeline's
+InclusiveSum -> duplicateWithKeys -> RadixSort -> identifyTileRanges
+(rasterizer_impl.cu:70-336) as a few sorts and scans at static sizes.
+
+* :func:`build_instance_lists` — the flat instance array of the instance
+  blend, ``compact`` layout, ``sort_mode`` ``onesort`` and ``twotier``;
+* :func:`build_tile_lists` and :func:`build_tile_lists_scan` — the dense
+  ``[T, K]`` per-tile lists of the ``kernel="tiles"`` blend (one stable
+  sort, or the sort-free counting scan).
+
+Results are bit-exact with the JAX package: the same depth order (stable,
+ties by index), the same candidate walk, the same budget and ``overflow``
+accounting.
 """
 
 from __future__ import annotations
@@ -17,6 +23,15 @@ import numpy as np
 import torch
 
 TILE = 16  # pixels per tile edge (config.h:15-17 BLOCK_X/BLOCK_Y)
+
+
+class TileLists(NamedTuple):
+    """Dense depth-ordered per-tile lists, at most K = ``max_per_tile``
+    entries a tile."""
+
+    ids: torch.Tensor          # [num_tiles, K] int32 gaussian index, -1 = empty
+    counts: torch.Tensor       # [num_tiles] int32 instances before the K cap
+    overflow: torch.Tensor     # [] int32 instances dropped (K, R, budget caps)
 
 
 class InstanceLists(NamedTuple):
@@ -49,6 +64,13 @@ def gaussian_rect(mx, my, radius, grid: tuple):
             cell((my - radius) / TILE, ty),
             cell((mx + radius + TILE - 1) / TILE, tx),
             cell((my + radius + TILE - 1) / TILE, ty))
+
+
+def _depth_order(depth, visible):
+    """Depth order, invisible gaussians last; stable, so bit-equal depths
+    keep index order (CUDA's stable radix sort over (tile | depth))."""
+    return torch.argsort(torch.where(visible, depth, torch.full_like(depth, float("inf"))),
+                         stable=True)
 
 
 def _rect_walk(r, rect_w, rmin_x, rmin_y, tx):
@@ -97,10 +119,7 @@ def build_instance_lists(
     M = instance_budget or min(4 * n, n * R)
 
     visible = radius > 0
-    # depth order, dead gaussians last; stable so bit-equal depths keep
-    # index order (CUDA's stable radix sort over (tile | depth))
-    inf = torch.full_like(depth, float("inf"))
-    order = torch.argsort(torch.where(visible, depth, inf), stable=True)
+    order = _depth_order(depth, visible)
     mx_s = mean_x[order]
     my_s = mean_y[order]
     # the JAX package carries radius through a float32 row gather
@@ -196,3 +215,164 @@ def build_instance_lists(
         tile_starts=tile_starts,
         overflow=dropped.to(torch.int32),
     )
+
+
+def build_tile_lists(
+    mean_x: torch.Tensor,
+    mean_y: torch.Tensor,
+    depth: torch.Tensor,
+    radius: torch.Tensor,
+    grid: tuple,
+    max_per_tile: int = 1024,
+    max_tiles_per_gaussian: int = 32,
+    instance_budget: int = 0,
+) -> TileLists:
+    """[T, K] depth-ordered per-tile lists of gaussian indices
+    (binning.py:91-187 of the JAX package).
+
+    Every visible gaussian expands up to R = ``max_tiles_per_gaussian``
+    candidates over its rect (row-major); the first M = ``instance_budget``
+    (0 = min(6N, N*R)) valid candidates, in depth order, are kept and
+    stable-sorted by tile, and each tile's first K = ``max_per_tile`` land in
+    its row. ``counts`` are the kept instances per tile before the K cap;
+    ``overflow`` adds up the R, budget and K drops."""
+    dev = mean_x.device
+    n = mean_x.shape[0]
+    ty, tx = grid
+    num_tiles = ty * tx
+    R, K = max_tiles_per_gaussian, max_per_tile
+    M = instance_budget or min(6 * n, n * R)
+
+    visible = radius > 0
+    order = _depth_order(depth, visible)
+    visible_s = visible[order]
+    rmin_x, rmin_y, rmax_x, rmax_y = gaussian_rect(
+        mean_x[order], mean_y[order], radius[order], grid)
+    # a rect clipped to zero width emits no candidate; the max(., 1) is
+    # division safety for the walk only
+    rect_w = torch.clamp_min(rmax_x - rmin_x, 1)
+    touched = (rmax_x - rmin_x) * (rmax_y - rmin_y)
+    r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+    valid = visible_s[:, None] & (r < touched[:, None])
+    cand = ((rmin_y[:, None] + torch.div(r, rect_w[:, None], rounding_mode="floor")) * tx
+            + rmin_x[:, None] + torch.remainder(r, rect_w[:, None]))
+    tile_id = torch.where(valid, cand, num_tiles).reshape(-1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    dropped = torch.sum(torch.where(visible_s, torch.clamp_min(touched - R, 0), zero))
+
+    # compact the valid candidates into the static budget, in (depth, r) order
+    flat_valid = valid.reshape(-1)
+    pos = torch.cumsum(flat_valid, 0) - 1
+    dest = torch.where(flat_valid & (pos < M), pos, M)
+    comp_tiles = torch.full((M + 1,), num_tiles, dtype=torch.int32, device=dev)
+    comp_tiles[dest] = tile_id.to(torch.int32)       # slot M takes the rest
+    comp_gauss = torch.zeros((M + 1,), dtype=torch.int32, device=dev)
+    comp_gauss[dest] = order.to(torch.int32)[:, None].expand(n, R).reshape(-1)
+    dropped = dropped + torch.clamp_min(torch.sum(flat_valid) - M, 0)
+
+    # stable sort by tile keeps depth order within a tile; rank in tile
+    sort_tiles, perm = torch.sort(comp_tiles[:M], stable=True)
+    sort_gauss = comp_gauss[:M][perm]
+    tile_start = torch.searchsorted(
+        sort_tiles, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev))
+    rank = (torch.arange(M, device=dev)
+            - tile_start[torch.clamp(sort_tiles, 0, num_tiles - 1).long()])
+    keep = (sort_tiles < num_tiles) & (rank < K)
+    flat_out = torch.where(keep, sort_tiles.long() * K + rank, num_tiles * K)
+    lists = torch.full((num_tiles * K + 1,), -1, dtype=torch.int32, device=dev)
+    lists[flat_out] = torch.where(keep, sort_gauss, -1)
+    counts = tile_start[1:] - tile_start[:-1]
+    overflow = torch.sum(torch.clamp_min(counts - K, 0)) + dropped
+    return TileLists(ids=lists[:-1].reshape(num_tiles, K),
+                     counts=counts.to(torch.int32),
+                     overflow=overflow.to(torch.int32))
+
+
+def build_tile_lists_scan(
+    mean_x: torch.Tensor,
+    mean_y: torch.Tensor,
+    depth: torch.Tensor,
+    radius: torch.Tensor,
+    grid: tuple,
+    max_per_tile: int = 1024,
+    max_tiles_per_gaussian: int = 32,
+    block: int = 4096,
+) -> TileLists:
+    """Sort-free tile binning (binning.py:681-779 of the JAX package): the
+    depth-ordered gaussians in blocks of ``block``, a per-tile running
+    count as the carry, and each instance's rank in its tile as
+
+        rank(g, tile) = carry[tile] + (earlier in-block gaussians covering tile)
+
+    from a cumulative sum over a [T, block] coverage mask. Equal to
+    :func:`build_tile_lists` while nothing is dropped.
+
+    Kept as the JAX package computes it, where it departs from
+    :func:`build_tile_lists`: ``counts`` count every covered tile, also those
+    past a gaussian's R candidates (their slots stay -1); a rect clipped to
+    zero width counts as one column wide, so its candidates write into the
+    slot the next gaussian covering that tile takes. Where two writes land
+    on one slot the later one in (block, gaussian, candidate) order wins, as
+    in XLA's scatter."""
+    dev = mean_x.device
+    n = mean_x.shape[0]
+    ty, tx = grid
+    num_tiles = ty * tx
+    R, K = max_tiles_per_gaussian, max_per_tile
+    pad = (-n) % block
+    nb = (n + pad) // block
+
+    visible = radius > 0
+    order = _depth_order(depth, visible)
+
+    def padded(x, value=0):
+        return torch.cat([x, x.new_full((pad,), value)])
+
+    rmin_x, rmin_y, rmax_x, rmax_y = gaussian_rect(
+        padded(mean_x[order]), padded(mean_y[order]),
+        padded(torch.where(visible, radius, 0)[order]), grid)
+    gid = padded(order.to(torch.int32), -1)
+    vis_s = padded(visible[order], False)
+    rect_w = torch.clamp_min(rmax_x - rmin_x, 1)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    touched = torch.where(vis_s, rect_w * (rmax_y - rmin_y), zero)
+    dropped = torch.sum(torch.clamp_min(touched - R, 0))
+
+    t_lin = torch.arange(num_tiles, dtype=torch.int32, device=dev)
+    t_x, t_y = (t_lin % tx)[:, None], torch.div(t_lin, tx, rounding_mode="floor")[:, None]
+    r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+    g_local = torch.arange(block, device=dev)[:, None]
+    carry = torch.zeros((num_tiles,), dtype=torch.int64, device=dev)
+    flats = []
+    for b in range(nb):
+        sl = slice(b * block, (b + 1) * block)
+        x0, y0, x1, y1, w, nt = (v[sl] for v in (rmin_x, rmin_y, rmax_x, rmax_y,
+                                                  rect_w, touched))
+        cover = ((t_x >= x0) & (t_x < x1) & (t_y >= y0) & (t_y < y1)
+                 & (nt > 0)).to(torch.int64)                       # [T, B]
+        incl = torch.cumsum(cover, dim=1)
+        excl = incl - cover
+        valid = (r < nt[:, None]) & (gid[sl] >= 0)[:, None]     # [B, R]
+        cand = ((y0[:, None] + torch.div(r, w[:, None], rounding_mode="floor")) * tx
+                + x0[:, None] + torch.remainder(r, w[:, None]))
+        # a zero-width rect at the right edge walks one past the last
+        # tile; XLA clamps such gather indices, and the write drops
+        ci = torch.clamp(torch.where(valid, cand, 0), 0, num_tiles - 1).long()
+        rank = carry[ci] + excl[ci, g_local]
+        write = valid & (rank < K)
+        flats.append(torch.where(write, torch.where(valid, cand, 0).long() * K + rank,
+                                 num_tiles * K).reshape(-1))
+        carry = carry + incl[:, -1]
+
+    flat = torch.cat(flats)
+    flat = torch.where(flat < num_tiles * K, flat, num_tiles * K)
+    # the last write of each slot wins: the largest position among its writes
+    position = torch.arange(flat.shape[0], device=dev)
+    winner = torch.full((num_tiles * K + 1,), -1, dtype=torch.int64, device=dev)
+    winner.scatter_reduce_(0, flat, position, reduce="amax")
+    gid_flat = gid[:, None].expand(n + pad, R).reshape(-1)
+    ids = torch.where(winner >= 0, gid_flat[winner.clamp_min(0)], -1)[:-1]
+    overflow = torch.sum(torch.clamp_min(carry - K, 0)) + dropped
+    return TileLists(ids=ids.to(torch.int32).reshape(num_tiles, K),
+                     counts=carry.to(torch.int32),
+                     overflow=overflow.to(torch.int32))

@@ -23,7 +23,6 @@ tensor gets the kernel or an error.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -36,6 +35,11 @@ T_EPS = 1.0e-4  # renderCUDA's termination threshold (forward.cu:347)
 P = TILE * TILE
 ROW = 16
 CHUNK = 128     # instances per window of the plain version
+
+# the C entry points' signatures (csrc/blend_instances*.cu)
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = (_PTR, ctypes.c_int64, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR)
+_BWD_ARGS = (_PTR, ctypes.c_int64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR)
 
 
 def _check_inputs(inst_data, tile_starts, bg, grid):
@@ -70,39 +74,47 @@ def _clamp_straight_through(raw):
     return torch.where(raw > ALPHA_MAX, ALPHA_MAX + (raw - raw.detach()), raw)
 
 
-def _blend_windows(inst_data, tile_starts, bg, grid):
-    """The plain blend: every tile's range in CHUNK-instance windows (all
-    tiles at once), carrying transmittance and colour between windows, as
-    ``blend_tiles_xla``'s scan does (blend_tiles.py:112-142). Peak memory is
-    a few [T, CHUNK, P] tensors. Returns (img [T,3,P], t_final [T,P],
+def _window(rows, valid, s, e, i, chunk):
+    """Window ``i`` of every tile's column range [s[t], e[t]): its columns'
+    channels 0-8 as [9, T, W, 1] and (valid and in range) as [T, W, 1]."""
+    m = rows.shape[1]
+    pos = s[:, None] + i * chunk + torch.arange(chunk, device=rows.device)  # [T, W]
+    in_range = pos < e[:, None]
+    col = pos.clamp(0, m - 1)
+    ok = (valid[col] > 0) & in_range
+    return pos, in_range, rows[:9, col][..., None], ok[..., None]
+
+
+def blend_windows(rows, valid, s, e, bg, grid, chunk):
+    """The plain blend: tile t walks the columns [s[t], e[t]) of ``rows``
+    ([>= 9, M]: mean xy, conic abc, rgb, opacity) in ``chunk``-column
+    windows (all tiles at once), carrying transmittance and colour between
+    windows, as ``blend_tiles_xla``'s scan does (blend_tiles.py:112-142). A
+    column blends only where ``valid`` [M] > 0. Peak memory is a few
+    [T, chunk, P] tensors. Returns (img [T,3,P], t_final [T,P],
     evaluated [T,P], blended [T,P]): ``evaluated`` counts the instances each
     pixel reaches before it terminates, the pairs a sequential per-pixel
     loop computes; ``blended`` those of them it blends."""
     ty, tx = grid
     T = ty * tx
-    dev = inst_data.device
-    m = inst_data.shape[1]
+    dev = rows.device
     px, py = _tile_pixel_coords(grid, dev)
     px, py = px[:, None, :], py[:, None, :]                   # [T, 1, P]
-    s = tile_starts[:-1].long()
-    e = tile_starts[1:].long()
     t_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
     q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
     acc = torch.zeros((T, 3, P), dtype=torch.float32, device=dev)
     evaluated = torch.zeros((T, P), dtype=torch.int64, device=dev)
     blended = torch.zeros((T, P), dtype=torch.int64, device=dev)
-    lane = torch.arange(CHUNK, device=dev)
     longest = int((e - s).max()) if T else 0
-    for i in range((longest + CHUNK - 1) // CHUNK):
-        pos = s[:, None] + i * CHUNK + lane                   # [T, W]
-        in_range = (pos < e[:, None])[..., None]              # [T, W, 1]
-        data = inst_data[:, pos.clamp(0, m - 1)][..., None]   # [16, T, W, 1]
+    for i in range((longest + chunk - 1) // chunk):
+        _, in_range, data, ok = _window(rows, valid, s, e, i, chunk)
+        in_range = in_range[..., None]                        # [T, W, 1]
         dx = data[0] - px
         dy = data[1] - py
         power = -0.5 * (data[2] * dx * dx + data[4] * dy * dy) - data[3] * dx * dy
         raw = data[8] * torch.exp(torch.clamp_max(power, 0.0))
         alpha = _clamp_straight_through(raw)
-        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & (data[9] > 0) & in_range
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & ok
         alpha = torch.where(keep, alpha, 0.0)
         # CUDA termination (forward.cu:346-351): q, the transmittance with
         # every alpha applied, is monotone; an instance counts while q
@@ -128,20 +140,32 @@ def blend_instances_reference(inst_data, tile_starts, bg, grid):
     Differentiable by autograd (with the straight-through clamp): an
     independent check of the backward."""
     _check_inputs(inst_data, tile_starts, bg, grid)
-    img, t_final, _, _ = _blend_windows(inst_data, tile_starts, bg, grid)
+    img, t_final, _, _ = blend_windows(inst_data, inst_data[9], *_ranges(tile_starts),
+                                        bg, grid, CHUNK)
     return img, t_final
 
 
-def pair_counts(inst_data, tile_starts, grid):
+def _ranges(tile_starts):
+    return tile_starts[:-1].long(), tile_starts[1:].long()
+
+
+def window_pair_counts(rows, valid, s, e, grid, chunk=CHUNK):
     """(evaluated, blended): the (instance, pixel) pairs a sequential
-    front-to-back loop with T<1e-4 termination evaluates on these inputs,
-    and those of them it blends (alpha >= 1/255, before termination) — the
-    data-dependent work of one blend, for its bound."""
-    bg = torch.zeros(3, dtype=torch.float32, device=inst_data.device)
-    _check_inputs(inst_data, tile_starts, bg, grid)
+    front-to-back loop with T<1e-4 termination evaluates when tile t walks
+    the columns [s[t], e[t]), and those of them it blends (alpha >= 1/255,
+    before termination) — the data-dependent work of one blend, for its
+    bound."""
+    bg = torch.zeros(3, dtype=torch.float32, device=rows.device)
     with torch.no_grad():
-        _, _, evaluated, blended = _blend_windows(inst_data, tile_starts, bg, grid)
+        _, _, evaluated, blended = blend_windows(rows, valid, s, e, bg, grid, chunk)
     return int(evaluated.sum()), int(blended.sum())
+
+
+def pair_counts(inst_data, tile_starts, grid):
+    """:func:`window_pair_counts` of the instance blend's inputs."""
+    _check_inputs(inst_data, tile_starts,
+                  torch.zeros(3, dtype=torch.float32, device=inst_data.device), grid)
+    return window_pair_counts(inst_data, inst_data[9], *_ranges(tile_starts), grid)
 
 
 def _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
@@ -163,21 +187,30 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
     gradient of rows 0-8 of ``inst_data`` (rows 9-15 and every column outside
     the tiles' ranges are zero), given the forward's outputs and their
     cotangents. The math of ``_bwd_kernel`` (blend_instances.py:183-316 of
-    the JAX package): the window loop of :func:`_blend_windows`, all tiles at
+    the JAX package): the window loop of :func:`blend_windows`, all tiles at
     once, with the same cumulative products, so it agrees with the plain
     forward on which instances are kept and where each pixel terminates.
     ``bg`` enters only through ``img``; its own gradient is
     ``einsum("tdp,tp->d", g_img, t_final)``."""
     _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
                            g_tfin, grid)
+    return backward_windows(inst_data, inst_data[9], *_ranges(tile_starts), img,
+                            t_final, g_img, g_tfin, grid, CHUNK, ROW)
+
+
+def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
+                     chunk, n_out):
+    """The plain backward of :func:`blend_windows`' blend: the gradient of
+    channels 0-8 of ``rows`` as [n_out, M] (rows 9 and up, and every column
+    outside the tiles' ranges, zero). Walks the same ``chunk``-column
+    windows with the same cumulative products as the forward, so it agrees
+    with it on which instances are kept and where each pixel terminates."""
     ty, tx = grid
     T = ty * tx
-    dev = inst_data.device
-    m = inst_data.shape[1]
+    dev = rows.device
+    m = rows.shape[1]
     px, py = _tile_pixel_coords(grid, dev)
     px, py = px[:, None, :], py[:, None, :]                   # [T, 1, P]
-    s = tile_starts[:-1].long()
-    e = tile_starts[1:].long()
     gdotimg = (g_img[:, 0] * img[:, 0] + g_img[:, 1] * img[:, 1]
                + g_img[:, 2] * img[:, 2])[:, None, :]          # [T, 1, P]
     gt_tn = (g_tfin * t_final)[:, None, :]
@@ -186,13 +219,10 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
     q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
     pu_carry = torch.zeros((T, P), dtype=torch.float32, device=dev)
     # one extra column takes the writes of slots outside every range
-    g_inst = torch.zeros((ROW, m + 1), dtype=torch.float32, device=dev)
-    lane = torch.arange(CHUNK, device=dev)
+    g_out = torch.zeros((n_out, m + 1), dtype=torch.float32, device=dev)
     longest = int((e - s).max()) if T else 0
-    for i in range((longest + CHUNK - 1) // CHUNK):
-        pos = s[:, None] + i * CHUNK + lane                   # [T, W]
-        in_range = pos < e[:, None]
-        data = inst_data[:, pos.clamp(0, m - 1)][..., None]   # [16, T, W, 1]
+    for i in range((longest + chunk - 1) // chunk):
+        pos, in_range, data, ok = _window(rows, valid, s, e, i, chunk)
         dx = data[0] - px
         dy = data[1] - py
         ca, cb, cc = data[2], data[3], data[4]
@@ -200,7 +230,7 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
         exp_power = torch.exp(torch.clamp_max(power, 0.0))
         raw = data[8] * exp_power
         alpha = torch.clamp_max(raw, ALPHA_MAX)
-        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & (data[9] > 0) & in_range[..., None]
+        keep = (power <= 0.0) & (alpha >= ALPHA_MIN) & ok
         alpha = torch.where(keep, alpha, 0.0)
         # the forward's termination: the crossing instance and every later
         # one are dropped (backward.cu:486-488)
@@ -220,7 +250,7 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
         dalpha = torch.where(keep, dalpha, 0.0)
         # straight through the 0.99 clamp: the unclamped raw = op * G
         g_power = dalpha * raw
-        rows = torch.stack([
+        partials = torch.stack([
             g_power * (-ca * dx - cb * dy),
             g_power * (-cc * dy - cb * dx),
             g_power * (-0.5 * dx * dx),
@@ -232,12 +262,12 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
             dalpha * exp_power,
         ]).sum(dim=-1)                                        # [9, T, W]
         col = torch.where(in_range, pos, m).reshape(-1)
-        g_inst[:9].index_put_((torch.arange(9, device=dev)[:, None], col[None, :]),
-                              rows.reshape(9, -1))
+        g_out[:9].index_put_((torch.arange(9, device=dev)[:, None], col[None, :]),
+                             partials.reshape(9, -1))
         t_carry = t_carry * t_incl[:, -1]
         q_carry = q_incl[:, -1]
         pu_carry = pu[:, -1]
-    return g_inst[:, :m].contiguous()
+    return g_out[:, :m].contiguous()
 
 
 def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
@@ -266,14 +296,10 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
         raise ValueError(f"out must be a contiguous float32 [{ROW}, {m}] "
                          f"tensor on {inst_data.device}")
     ty, tx = grid
-    fn = _kernel("blend_instances_bwd")
-    with torch.cuda.device(inst_data.device):
-        stream = torch.cuda.current_stream(inst_data.device).cuda_stream
-        err = fn(inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
-                 t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(),
-                 out.data_ptr(), ty * tx, tx, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_instances_bwd kernel launch failed: CUDA error {err}")
+    cuda_build.launch("blend_instances_bwd", "blend_instances_bwd", _BWD_ARGS, (
+        inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
+        t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(), out.data_ptr(),
+        ty * tx, tx), inst_data.device)
     blend_instances_bwd.launches += 1
     return out
 
@@ -295,13 +321,9 @@ def _blend_forward(inst_data, tile_starts, bg, grid):
     T = ty * tx
     img = torch.empty((T, 3, P), dtype=torch.float32, device=inst_data.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=inst_data.device)
-    fn = _kernel("blend_instances_fwd")
-    with torch.cuda.device(inst_data.device):
-        stream = torch.cuda.current_stream(inst_data.device).cuda_stream
-        err = fn(inst_data.data_ptr(), inst_data.shape[1], tile_starts.data_ptr(),
-                 bg.data_ptr(), img.data_ptr(), t_final.data_ptr(), T, tx, stream)
-    if err != 0:
-        raise RuntimeError(f"blend_instances_fwd kernel launch failed: CUDA error {err}")
+    cuda_build.launch("blend_instances", "blend_instances_fwd", _FWD_ARGS, (
+        inst_data.data_ptr(), inst_data.shape[1], tile_starts.data_ptr(), bg.data_ptr(),
+        img.data_ptr(), t_final.data_ptr(), T, tx), inst_data.device)
     blend_instances.launches += 1
     return img, t_final
 
@@ -353,21 +375,3 @@ def blend_instances_plain(inst_data, tile_starts, bg, grid):
     the card."""
     _check_inputs(inst_data, tile_starts, bg, grid)
     return _BlendInstances.apply(inst_data, tile_starts, bg, grid, True)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel(name):
-    """A kernel's C entry point, with its ctypes signature."""
-    if name == "blend_instances_fwd":
-        fn = cuda_build.load("blend_instances").blend_instances_fwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    else:
-        fn = cuda_build.load("blend_instances_bwd").blend_instances_bwd
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn

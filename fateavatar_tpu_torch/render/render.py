@@ -1,18 +1,26 @@
 """The ``render()`` facade — the contract of the reference's
 volume_rendering/render_3dgs.py:7-81.
 
-Port of ``fateavatar_tpu/render/render.py`` for ``kernel="instances"``:
-per-Gaussian preprocess -> instance binning (twotier / onesort, compact
-layout) -> the packed instance gather -> the instance blend (the CUDA kernels
-on the card, their plain versions on the CPU).
+Port of ``fateavatar_tpu/render/render.py``: per-Gaussian preprocess, then
+one of the two routes the JAX package's ``RenderConfig.kernel`` selects:
 
-Differentiable: the blend's backward returns per-instance gradients, and the
-packed gather's transpose (a 9-channel ``index_add_``, the counterpart of
-``_take_packed_slim``) sums them onto the Gaussians. The ``means2d_probe``
-input reproduces the reference's ``screenspace_points`` retain_grad trick
-(render_3dgs.py:22-27): pass a zeros [2, N] tensor that requires grad and
-take its gradient to get the screen-space position gradients that drive
-densification.
+* ``"instances"``: instance binning (twotier / onesort, compact layout) ->
+  the packed instance gather -> the instance blend;
+* ``"tiles"``: dense [T, K] per-tile lists (``build_tile_lists``, or
+  ``build_tile_lists_scan`` for ``binning="scan"``) -> the dense gather ->
+  the dense-list blend.
+
+Each blend runs its CUDA kernels on the card and their plain versions on
+the CPU: the tensor's device chooses, which is why the JAX package's
+``impl`` setting has no counterpart here.
+
+Differentiable: the blends' backwards return per-slot gradients, and the
+gathers' transposes (9-channel ``index_add_``s, the counterparts of
+``_take_packed_slim`` and of XLA's gather transpose) sum them onto the
+Gaussians. The ``means2d_probe`` input reproduces the reference's
+``screenspace_points`` retain_grad trick (render_3dgs.py:22-27): pass a
+zeros [2, N] tensor that requires grad and take its gradient to get the
+screen-space position gradients that drive densification.
 """
 
 from __future__ import annotations
@@ -24,24 +32,30 @@ import torch
 from fateavatar_tpu_torch.ops.camera import Camera
 from fateavatar_tpu_torch.render import binning
 from fateavatar_tpu_torch.render.blend_instances import CHUNK, blend_instances
-from fateavatar_tpu_torch.render.blend_tiles import tiles_to_image
+from fateavatar_tpu_torch.render.blend_tiles import blend_tiles, tiles_to_image
 from fateavatar_tpu_torch.render.preprocess import preprocess
 from fateavatar_tpu_torch.render.splats import Gaussians
 
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """The render settings the instance path reads (a subset of the JAX
+    """The render settings the two routes read (a subset of the JAX
     package's ``RenderConfig``, same names and defaults)."""
 
+    max_per_tile: int = 1024      # 'tiles': K, the slots of each tile's list
     max_tiles_per_gaussian: int = 16
-    instance_budget: int = 0      # 0 = min(4N, N*R)
-    # 'onesort' (one stable sort of all N*R candidates) or 'twotier' (R0
-    # candidates each, R for the tail_k largest footprints)
+    # 0 = min(4N, N*R) on the 'instances' route, min(6N, N*R) on 'tiles'
+    instance_budget: int = 0
+    chunk: int = 64               # 'tiles': slots per window of the plain blend
+    # 'instances': 'onesort' (one stable sort of all N*R candidates) or
+    # 'twotier' (R0 candidates each, R for the tail_k largest footprints);
+    # 'tiles': 'scan' (the sort-free counting binning), any other value
+    # the one stable sort of build_tile_lists
     binning: str = "onesort"
     tail_r0: int = 4
     tail_k: int = 0               # 0 = max(256, N // 16)
     layout: str = "compact"
+    # 'instances' (flat per-tile ranges) or 'tiles' (dense [T, K] lists)
     kernel: str = "instances"
     # > 0 would be the chunk-granular early exit of the Pallas kernel; only
     # the exact blend (0.0, the yaml default) is ported
@@ -88,6 +102,38 @@ class _TakePackedSlim(torch.autograd.Function):
         return g9[:n], None
 
 
+class _TakeDense(torch.autograd.Function):
+    """The dense per-tile gather of the ``"tiles"`` route and its transpose
+    (render.py:399-411 of the JAX package, whose gather XLA transposes to a
+    scatter-add).
+
+    Forward: columns ``ids`` (-1 = empty slot) of the [9, N] channels, as
+    [9, T*K]; an empty slot reads gaussian 0, as in the JAX package, and the
+    blend skips it. Backward: ``index_add_`` of the slots' gradients onto
+    the gaussians. Most of T*K is empty slots, whose gradient the blend's
+    backward writes as zero; they are spread over scratch columns, since
+    duplicates of one index serialize the adds."""
+
+    SPREAD = 1 << 16
+
+    @staticmethod
+    def forward(ctx, soa9, ids):
+        ctx.save_for_backward(ids)
+        ctx.n = soa9.shape[1]
+        return soa9.index_select(1, ids.clamp_min(0))
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, = ctx.saved_tensors
+        n = ctx.n
+        spread = _TakeDense.SPREAD
+        lane = torch.arange(ids.shape[0], device=ids.device) % spread
+        cols = torch.where(ids >= 0, ids, n + lane)
+        g9 = torch.zeros((g.shape[0], n + spread), dtype=g.dtype, device=g.device)
+        g9.index_add_(1, cols, g)
+        return g9[:, :n], None
+
+
 def render(
     camera: Camera,
     gaussians: Gaussians,
@@ -105,9 +151,9 @@ def render(
     ``means2d_probe``: optional [2, N] (or [N, 2]) tensor added to the
     screen-space means; its gradient is d(loss)/d(mean2d).
     """
-    if config.kernel != "instances":
+    if config.kernel not in ("instances", "tiles"):
         raise NotImplementedError(
-            f"kernel {config.kernel!r} is not ported; use 'instances'")
+            f"kernel {config.kernel!r} is not ported; use 'instances' or 'tiles'")
     if config.t_cutoff != 0.0:
         raise NotImplementedError(
             "t_cutoff > 0 (the chunk-granular early exit) is not ported; "
@@ -128,27 +174,47 @@ def render(
         else:
             mx = mx + means2d_probe[..., 0]
             my = my + means2d_probe[..., 1]
+    channels = (mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v)
 
-    ilists = binning.build_instance_lists(
-        mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
-        max_tiles_per_gaussian=config.max_tiles_per_gaussian,
-        instance_budget=config.instance_budget,
-        sort_mode=config.binning,
-        layout=config.layout,
-        tail_r0=config.tail_r0,
-        tail_k=config.tail_k,
-    )
-    n = mx.shape[0]
-    ids = torch.where(ilists.instances >= 0, ilists.instances, n)
-    # pad as the JAX package does, so M matches it (its kernel's last
-    # CHUNK-aligned window must stay in bounds)
-    m_real = ids.shape[0]
-    m_pad = ((m_real + CHUNK) // CHUNK + 1) * CHUNK
-    ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)]).long()
-    soa9 = torch.stack([mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v], dim=1)
-    inst_data = _TakePackedSlim.apply(soa9, ids)                  # [16, M]
-    img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts,
-                                         bg_color, grid)
+    if config.kernel == "tiles":
+        if config.binning == "scan":
+            lists = binning.build_tile_lists_scan(
+                mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
+                max_per_tile=config.max_per_tile,
+                max_tiles_per_gaussian=config.max_tiles_per_gaussian)
+        else:
+            lists = binning.build_tile_lists(
+                mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
+                max_per_tile=config.max_per_tile,
+                max_tiles_per_gaussian=config.max_tiles_per_gaussian,
+                instance_budget=config.instance_budget)
+        ids = lists.ids.reshape(-1).long()
+        data = _TakeDense.apply(torch.stack(channels), ids)       # [9, T*K]
+        img_tiles, t_final = blend_tiles(data, (ids >= 0).to(torch.float32),
+                                         lists.counts, bg_color, grid, config.chunk)
+        overflow, tile_counts = lists.overflow, lists.counts
+    else:
+        ilists = binning.build_instance_lists(
+            mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
+            max_tiles_per_gaussian=config.max_tiles_per_gaussian,
+            instance_budget=config.instance_budget,
+            sort_mode=config.binning,
+            layout=config.layout,
+            tail_r0=config.tail_r0,
+            tail_k=config.tail_k,
+        )
+        n = mx.shape[0]
+        ids = torch.where(ilists.instances >= 0, ilists.instances, n)
+        # pad as the JAX package does, so M matches it (its kernel's last
+        # CHUNK-aligned window must stay in bounds)
+        m_real = ids.shape[0]
+        m_pad = ((m_real + CHUNK) // CHUNK + 1) * CHUNK
+        ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)]).long()
+        inst_data = _TakePackedSlim.apply(torch.stack(channels, dim=1), ids)  # [16, M]
+        img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts,
+                                             bg_color, grid)
+        overflow = ilists.overflow
+        tile_counts = ilists.tile_starts[1:] - ilists.tile_starts[:-1]
     image = tiles_to_image(img_tiles, grid, camera.width, camera.height)
     t_img = tiles_to_image(
         t_final[:, None, :].expand(-1, 3, -1), grid,
@@ -160,6 +226,6 @@ def render(
         "visibility_filter": prep.visible,
         "radii": prep.radius,
         "t_final": t_img,
-        "overflow": ilists.overflow,
-        "tile_counts": ilists.tile_starts[1:] - ilists.tile_starts[:-1],
+        "overflow": overflow,
+        "tile_counts": tile_counts,
     }

@@ -1,12 +1,12 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled with
-``nvcc`` for Hopper (``sm_90a``) at first use into ``_build/`` beside the
-package (listed in ``.gitignore``), named by a hash of the source, the shared
-headers and the flags, so an edited source is rebuilt and an unchanged one is
-not. The
-``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
-library as ``<name>_<hash>.log``.
+Each ``csrc/<name>.cu`` exposes a plain C interface, called through
+:func:`launch`. It is compiled with ``nvcc`` for Hopper (``sm_90a``) at
+first use into ``_build/`` beside the package (listed in ``.gitignore``),
+named by a hash of the source, the shared headers and the flags, so an
+edited source is rebuilt and an unchanged one is not. The ``-Xptxas -v``
+report (registers, shared memory, spills) is kept beside the library as
+``<name>_<hash>.log``.
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -77,3 +79,23 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``'s library, once per
     process."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, symbol: str, argtypes: tuple):
+    fn = getattr(load(name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(name: str, symbol: str, argtypes: tuple, args: tuple, device) -> None:
+    """Calls the C function ``symbol`` of ``csrc/<name>.cu``'s library, with
+    the ctypes signature ``argtypes`` (the last one the stream), on
+    ``device``'s current stream; raises when it returns a CUDA error (a
+    refused launch)."""
+    fn = _entry(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: CUDA error {err}")

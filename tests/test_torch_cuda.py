@@ -1,5 +1,6 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
-blend's forward and backward) against its plain PyTorch version on the card. They skip on a host without CUDA. They import
+blend's and the dense-list blend's forward and backward) against its plain
+PyTorch version on the card. They skip on a host without CUDA. They import
 nothing of JAX, so on a machine with a card and no JAX they run as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 from torch_blend_cases import blend_case
+from torch_tile_cases import TILE_CASES, tile_case
 
 from fateavatar_tpu_torch.render import blend_instances as tblend
+from fateavatar_tpu_torch.render import blend_tiles as ttiles
 
 
 def _cuda_inputs(name):
@@ -112,6 +115,86 @@ def test_blend_bwd_kernel_writes_every_element():
     args = (inst, starts, bg, img, tfin, *_cotangents(grid), grid)
     clean = tblend.blend_instances_bwd(*args)
     dirty = tblend.blend_instances_bwd(*args, out=torch.full_like(clean, float("nan")))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(dirty).all())
+    assert torch.equal(dirty, clean)
+
+
+def _cuda_tile_inputs(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    data, valid, counts, bg, grid = tile_case(name)
+    return (*(torch.from_numpy(x).cuda() for x in (data, valid, counts, bg)), grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_tile_kernel_matches_plain_version(name):
+    """Kernel 3 against blend_tiles_reference, 2e-4 (a termination flip, as
+    for the instance kernel); empty tiles keep T = 1."""
+    args = _cuda_tile_inputs(name)
+    before = ttiles.blend_tiles.launches
+    img_k, tfin_k = ttiles.blend_tiles(*args)
+    torch.cuda.synchronize()
+    assert ttiles.blend_tiles.launches == before + 1
+    img_p, tfin_p = ttiles.blend_tiles_reference(*args)
+    assert (img_k - img_p).abs().max().item() <= 2e-4
+    assert (tfin_k - tfin_p).abs().max().item() <= 2e-4
+    assert bool((tfin_k[args[2] == 0] == 1.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILE_CASES))
+def test_tile_bwd_kernel_matches_plain_version(name):
+    """Kernel 4 against blend_tiles_backward_reference within BWD_RTOL of
+    each row's largest element; zero past every list."""
+    data, valid, counts, bg, grid = _cuda_tile_inputs(name)
+    img, tfin = ttiles.blend_tiles(data, valid, counts, bg, grid)
+    args = (data, valid, counts, bg, img, tfin, *_cotangents(grid), grid)
+    before = ttiles.blend_tiles_bwd.launches
+    gk = ttiles.blend_tiles_bwd(*args)
+    torch.cuda.synchronize()
+    assert ttiles.blend_tiles_bwd.launches == before + 1
+    gp = ttiles.blend_tiles_backward_reference(*args)
+    assert bool(torch.isfinite(gk).all())
+    assert _close_rows(gk, gp, BWD_RTOL)
+    k = data.shape[1] // counts.shape[0]
+    past = torch.arange(k, device="cuda")[None, :] >= counts.clamp(max=k)[:, None]
+    assert bool((gk[:, past.reshape(-1)] == 0).all()), "slots past the lists"
+
+
+@pytest.mark.cuda
+def test_tile_kernels_through_autograd():
+    """Autograd through blend_tiles launches kernel 3 and kernel 4 once each,
+    and its gradients equal those of the plain versions (blend_tiles_plain)
+    within BWD_RTOL."""
+    data, valid, counts, bg, grid = _cuda_tile_inputs("over_k")
+    g_img, g_tfin = _cotangents(grid)
+
+    def grads(blend):
+        x, b = data.clone().requires_grad_(), bg.clone().requires_grad_()
+        img, tfin = blend(x, valid, counts, b, grid)
+        return torch.autograd.grad((img * g_img).sum() + (tfin * g_tfin).sum(), (x, b))
+
+    f0, b0 = ttiles.blend_tiles.launches, ttiles.blend_tiles_bwd.launches
+    gk, gbk = grads(ttiles.blend_tiles)
+    torch.cuda.synchronize()
+    assert ttiles.blend_tiles.launches == f0 + 1
+    assert ttiles.blend_tiles_bwd.launches == b0 + 1
+    gp, gbp = grads(ttiles.blend_tiles_plain)
+    assert _close_rows(gk, gp, BWD_RTOL)
+    assert (gbk - gbp).abs().max().item() <= 1e-3 * gbp.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_tile_bwd_kernel_writes_every_element():
+    """A NaN-filled output buffer comes back finite and bit-equal to a
+    clean call: every slot of every list is written."""
+    data, valid, counts, bg, grid = _cuda_tile_inputs("long")
+    img, tfin = ttiles.blend_tiles(data, valid, counts, bg, grid)
+    args = (data, valid, counts, bg, img, tfin, *_cotangents(grid), grid)
+    clean = ttiles.blend_tiles_bwd(*args)
+    dirty = ttiles.blend_tiles_bwd(*args, out=torch.full_like(clean, float("nan")))
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dirty).all())
     assert torch.equal(dirty, clean)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
 from fateavatar_tpu.flame import synthetic_flame
 from fateavatar_tpu.models import fateavatar as jfa
 from fateavatar_tpu.ops.camera import make_camera as jmake_camera

@@ -16,6 +16,7 @@ import torch
 
 from golden_scenes import SCENES
 from torch_blend_cases import blend_case
+from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
 from fateavatar_tpu.render import binning as jbinning
 from fateavatar_tpu.render.blend_instances import blend_instances_pallas
 from fateavatar_tpu.render.render import RenderConfig as JRenderConfig
@@ -225,14 +226,12 @@ def _port_scene(name):
     return tcam, tg, t(bg), g.xyz.shape[0]
 
 
-@pytest.mark.parametrize("binning", ["onesort", "twotier"])
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_render_matches_goldens(name, binning):
-    """The port's render() reproduces every recorded golden scene at the
-    golden suite's own tolerance (atol 5e-5), radii exact."""
+def assert_matches_golden(name, config_of):
+    """render() under ``config_of(N)`` reproduces the recorded golden scene
+    ``name`` (N splats) at the golden suite's own tolerance (atol 5e-5),
+    radii exact, nothing dropped."""
     cam, g, bg, n = _port_scene(name)
-    cfg = RenderConfig(instance_budget=n * 36, binning=binning, tail_r0=4, tail_k=n)
-    out = render(cam, g, bg, config=cfg)
+    out = render(cam, g, bg, config=config_of(n))
     gold = np.load(os.path.join(GOLD_DIR, f"{name}.npz"))
     np.testing.assert_allclose(out["render"].numpy(), gold["render"], atol=5e-5)
     np.testing.assert_allclose(out["t_final"].numpy(), gold["t_final"], atol=5e-5)
@@ -240,9 +239,18 @@ def test_render_matches_goldens(name, binning):
     assert int(out["overflow"]) == 0
 
 
+@pytest.mark.parametrize("binning", ["onesort", "twotier"])
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_render_matches_goldens(name, binning):
+    """The port's render() reproduces every recorded golden scene at the
+    golden suite's own tolerance (atol 5e-5), radii exact."""
+    assert_matches_golden(name, lambda n: RenderConfig(
+        instance_budget=n * 36, binning=binning, tail_r0=4, tail_k=n))
+
+
 def test_render_refuses_unported_options():
     cam, g, bg, n = _port_scene("sh0_basic")
-    for cfg in (RenderConfig(kernel="tiles"), RenderConfig(t_cutoff=1e-4)):
+    for cfg in (RenderConfig(layout="aligned"), RenderConfig(t_cutoff=1e-4)):
         with pytest.raises(NotImplementedError):
             render(cam, g, bg, config=cfg)
 
@@ -250,21 +258,20 @@ def test_render_refuses_unported_options():
 GRAD_FIELDS = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
 
 
-@pytest.mark.parametrize("name", sorted(SCENES))
-def test_render_gradients_match_jax(name):
+def assert_gradients_match_jax(name, configs_of):
     """Gradients of render() (image and transmittance against seeded
     cotangents) w.r.t. every Gaussian attribute and the screen-space probe,
-    on each golden scene, against JAX through the Pallas instance kernel
-    (interpret), twotier binning. Tolerance 1e-4 of each field's largest
-    element: the blend backward matches to ~1e-6 relative, and the
-    gather's scatter-add and preprocess's backward sum in another order."""
+    on golden scene ``name`` of N splats: the port under ``cfg`` against
+    JAX's render() under ``jcfg``, ``(cfg, jcfg) = configs_of(N)``.
+    Tolerance 1e-4 of each field's largest element: the blend backward
+    matches to ~1e-6 relative, and the gather's scatter-add and
+    preprocess's backward sum in another order."""
     cam, g, bg = SCENES[name]()
     n = g.xyz.shape[0]
+    cfg, jcfg = configs_of(n)
     rng = np.random.default_rng(9)
     g_img = rng.normal(size=(cam.height, cam.width, 3)).astype(np.float32)
     g_t = rng.normal(size=(cam.height, cam.width)).astype(np.float32)
-    jcfg = JRenderConfig(impl="pallas_interpret", kernel="instances", binning="twotier",
-                         instance_budget=n * 36, tail_r0=4, tail_k=n)
 
     def jloss(xyz, scaling, rotation, opacity, features_dc, features_rest, probe):
         gs = g.replace(xyz=xyz, scaling=scaling, rotation=rotation, opacity=opacity,
@@ -279,7 +286,6 @@ def test_render_gradients_match_jax(name):
     leaves = {f: getattr(tg, f).clone().requires_grad_() for f in GRAD_FIELDS}
     probe = torch.zeros((2, n), requires_grad=True)
     gs = dataclasses.replace(tg, **leaves)
-    cfg = RenderConfig(instance_budget=n * 36, binning="twotier", tail_r0=4, tail_k=n)
     out = render(tcam, gs, tbg, config=cfg, means2d_probe=probe)
     loss = (out["render"] * t(g_img)).sum() + (out["t_final"] * t(g_t)).sum()
     tgrads = torch.autograd.grad(loss, [*leaves.values(), probe], allow_unused=True)
@@ -291,3 +297,14 @@ def test_render_gradients_match_jax(name):
         assert np.abs(ref).max() > 0, f
         np.testing.assert_allclose(got, ref, atol=1e-4 * np.abs(ref).max() + 1e-9,
                                    err_msg=f)
+
+
+@pytest.mark.parametrize("name", sorted(SCENES))
+def test_render_gradients_match_jax(name):
+    """render()'s gradients on each golden scene against JAX through the
+    Pallas instance kernel (interpret), twotier binning (see
+    assert_gradients_match_jax for the tolerance)."""
+    assert_gradients_match_jax(name, lambda n: (
+        RenderConfig(instance_budget=n * 36, binning="twotier", tail_r0=4, tail_k=n),
+        JRenderConfig(impl="pallas_interpret", kernel="instances", binning="twotier",
+                      instance_budget=n * 36, tail_r0=4, tail_k=n)))

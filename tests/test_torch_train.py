@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from test_torch_model import np_dict, perturb
+from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
 from fateavatar_tpu.flame import synthetic_flame
 from fateavatar_tpu.models import fateavatar as jfa
 from fateavatar_tpu.models import maintenance as jmaint
