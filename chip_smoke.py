@@ -24,6 +24,15 @@ weights), each through both routes of ``RenderConfig.kernel``:
   epoch and step checks with ``kernel="tiles"``, and one step's gradients
   through the tiles route against the instances route.
 
+Kernels 1 and 2 (the instance blend's segmented walk) are also held
+against their plain versions on the hand-built cases of
+``tests/torch_blend_cases.py`` (``boundary`` puts pixels' termination at
+and around segment boundaries), and two calls of each, on those cases and
+on the full-width frames, must return the same bits. Beside their times the
+script prints the pairs the segmented walk evaluates (pass A's every pair
+of the ranges, pass B's pairs before termination) and each of their
+launches' device time.
+
 The tiles route's ``max_per_tile`` (K, the yaml's 1,024) is set per phase
 from a probe of the phase's frames, 1.25x their longest tile rounded up to
 a multiple of ``chunk``, and printed: the yaml's K overflows on the
@@ -101,27 +110,39 @@ TILE_K_HEADROOM = 1.25
 # the dense-list backward writes its whole [9, T*K] gradient (36 B a slot)
 TILE_BWD_BYTES_PER_SLOT = 36
 
+SEGMENTED = ("segmented walk: one block per (tile, 256-column segment); pass A "
+             "products, entry transmittance folded in segment order, pass B exact walk")
+PER_TILE = "per-tile walk: one block walks a whole tile's range"
 KERNELS = {
-    # kernel name -> its fixed fields in the {"kernels": [...]} line
+    # kernel name -> its fixed fields in the {"kernels": [...]} line; "pr"
+    # is the PR that last designed it
     "blend_instances_fwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:92",
+        "design": SEGMENTED,
+        "pr": 4,
     },
     "blend_instances_bwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances_bwd.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:183",
+        "design": SEGMENTED,
+        "pr": 4,
     },
     "blend_tiles_fwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_tiles.cu",
         "replaces": "fateavatar_tpu/render/blend_tiles.py:199",
+        "design": PER_TILE,
+        "pr": 3,
     },
     "blend_tiles_bwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_tiles_bwd.cu",
         "replaces": "fateavatar_tpu/render/blend_tiles.py:261",
+        "design": PER_TILE,
+        "pr": 3,
     },
 }
 
@@ -204,6 +225,18 @@ def edge_case_inputs(gen, device):
     return inst, starts, bg, (4, 4)
 
 
+def termination_flips(tfin_a, tfin_b):
+    """Pixels whose T_final differs between two blends by more than 1e-3 of
+    it: a termination flip (one instance more or fewer kept where T crosses
+    1e-4) moves T_final by a factor 1 - alpha <= 254/255, a different
+    rounding order by ~1e-6 of it. Returns (flips, the largest relative
+    difference among the other pixels)."""
+    rel = (tfin_a - tfin_b).abs() / tfin_b.abs().clamp_min(1e-30)
+    flip = rel > 1e-3
+    rest = rel[~flip]
+    return int(flip.sum()), rest.max().item() if rest.numel() else 0.0
+
+
 def check_blend(label, inputs, results, kernel=None, plain=None):
     """Kernel vs plain version on the same inputs (the instance blend unless
     ``kernel`` / ``plain`` are given). Tolerance 2e-4: the two take the
@@ -221,9 +254,11 @@ def check_blend(label, inputs, results, kernel=None, plain=None):
     d_t = (tfin_k - tfin_p).abs()
     err = max(d_img.max().item(), d_t.max().item())
     n_above = int((d_img.amax(dim=1) > 5e-5).sum() + (d_t > 5e-5).sum())
+    flips, rel = termination_flips(tfin_k, tfin_p)
     log(f"[kernel] {label}: max|img diff| {d_img.max().item():.3e} "
         f"max|t_final diff| {d_t.max().item():.3e} pixels>5e-5 {n_above} "
-        f"(of {tfin_k.numel()})")
+        f"(of {tfin_k.numel()}); termination flips {flips}, other pixels' T_final "
+        f"within {rel:.1e} relative")
     check(bool(torch.isfinite(img_k).all()), f"{label}: non-finite kernel output")
     check(err <= TOL, f"{label}: kernel vs plain {err:.3e} > {TOL}")
     results["max_abs_err"] = max(results.get("max_abs_err", 0.0), err)
@@ -260,6 +295,77 @@ def check_blend_bwd(label, args, results, kernel=None, plain=None, zero=None):
     return g_k
 
 
+def check_repeatable(label, fn):
+    """Two calls of ``fn`` (a kernel wrapper on fixed inputs) return the same
+    bits: no result of kernels 1-2 may depend on the order blocks run in."""
+    import torch
+
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), f"{label}: two calls differ")
+    log(f"[kernel] {label}: two calls bit-identical")
+
+
+def _tests_on_path():
+    tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+
+
+def instance_kernel_cases(rows):
+    """Kernels 1 and 2 against their plain versions on the hand-built
+    compact cases of tests/torch_blend_cases.py (a (3, 4) grid; empty
+    tiles, a faint range over > 30 windows, saturated tiles, and
+    ``boundary``: pixels crossing T = 1e-4 at and around the segmented
+    walk's segment boundaries, a long tile that stops in its first segment,
+    ranges of exactly one segment), each twice for bit-identical results."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from torch_blend_cases import BLEND_CASES, blend_case
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    rng = np.random.default_rng(1)
+    for name in BLEND_CASES:
+        inst, starts, bg, grid = blend_case(name)
+        fwd = (torch.from_numpy(inst).cuda(), torch.from_numpy(starts).cuda(),
+               torch.from_numpy(bg).cuda(), grid)
+        tfin = check_blend(f"blend case {name} (counts {np.diff(starts).tolist()})", fwd,
+                           rows["blend_instances_fwd"])
+        check(bool((tfin[fwd[1][1:] == fwd[1][:-1]] == 1.0).all()),
+              f"{name}: empty tiles keep T = 1")
+        img = bi.blend_instances(*fwd)[0]
+        g_img = torch.from_numpy(rng.normal(size=img.shape).astype(np.float32)).cuda()
+        g_tfin = torch.from_numpy(rng.normal(size=tfin.shape).astype(np.float32)).cuda()
+        args = (*fwd[:3], img, tfin, g_img, g_tfin, grid)
+        check_blend_bwd(f"blend case {name}", args, rows["blend_instances_bwd"])
+        check_repeatable(f"blend case {name} forward", lambda: bi.blend_instances(*fwd))
+        check_repeatable(f"blend case {name} backward", lambda: bi.blend_instances_bwd(*args))
+
+
+def segment_split(label, fn, card, n=10):
+    """Device ms of each launch of a kernel wrapper (its plan, pass A, pass
+    B and combine) over ``n`` calls under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    log(f"[kernel] {label} launches, device ms per call (torch.profiler, {n} calls): "
+        + ", ".join(f"{e.key.replace('(anonymous namespace)::', '').split('(')[0]} "
+                    f"{e.self_device_time_total / n / 1e3:.4f}" for e in ks) + f" [{card}]")
+
+
 def past_lists(counts, k):
     """Selects the [9, T*K] gradient's slots past each tile's list."""
     import torch
@@ -277,7 +383,7 @@ def tile_kernel_cases(rows):
     import numpy as np
     import torch
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    _tests_on_path()
     from torch_tile_cases import TILE_CASES, tile_case
 
     from fateavatar_tpu_torch.render import blend_tiles as bt
@@ -523,6 +629,7 @@ def check_step_grads(tag, label, a, b):
     log(f"[{tag}] one step, {label}: loss {a[3]['loss'].item():.7f} vs "
         f"{b[3]['loss'].item():.7f}; per field (rel L2, max rel): "
         + ", ".join(f"{f} {l2:.1e}/{mx:.1e}" for f, l2, mx in worst))
+    return worst
 
 
 def train_phase(s, gen, rows, card):
@@ -637,6 +744,7 @@ def train_phase(s, gen, rows, card):
         f"per-tile max {int(counts.max())} mean {counts.mean().item():.1f}")
     check_blend("training frame (forward)", (inst.detach(), starts, bg, grid), fwd_row)
     check_blend_bwd("training frame", bwd_args, bwd_row)
+    check_repeatable("training frame backward", lambda: bi.blend_instances_bwd(*bwd_args))
     ms = cuda_ms(lambda: bi.blend_instances_bwd(*bwd_args), reps=20)
     plain_ms = cuda_ms(lambda: bi.blend_instances_backward_reference(*bwd_args),
                        reps=2, warmup=1)
@@ -655,6 +763,12 @@ def train_phase(s, gen, rows, card):
         f"{blended}; bound {bwd_row['bound_ms']:.5f} ms ({t_bytes:.5f} ms for "
         f"{bytes_moved} B at 3.35 TB/s, {t_ops:.5f} ms for {ops} ops at 67 TFLOP/s "
         f"fp32) -> {bwd_row['bound_ms'] / ms:.1%} of bound [{card}]")
+    log(f"[kernel] blend_instances_bwd segmented walk, pairs derived from the inputs "
+        f"(not counted on the card): pass A evaluates every pair of the ranges "
+        f"({n_inst * 256}), pass B about the sequential walk's {evaluated} before "
+        f"termination; {n_inst * 256 + evaluated} in all, "
+        f"{(n_inst * 256 + evaluated) / evaluated:.2f}x the per-tile walk's")
+    segment_split("blend_instances_bwd", lambda: bi.blend_instances_bwd(*bwd_args), card)
 
     # ---- one whole step: kernels vs both blends plain, same state and frame.
     # The VGG stack runs in float32 with TF32 off and deterministic cuDNN
@@ -751,7 +865,7 @@ def train_phase(s, gen, rows, card):
                 ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
                 dev_ms[i] += sum(e.self_device_time_total for e in ks) / 1e3
                 dev_ms[5] += sum(e.self_device_time_total for e in ks
-                                 if "blend_instances_bwd_kernel" in e.key) / 1e3
+                                 if "blend_instances_bwd" in e.key) / 1e3
             torch.cuda.synchronize()
             host_ms[i] += (time.perf_counter() - t0) * 1e3
 
@@ -1009,17 +1123,38 @@ def tiles_train_phase(s, trainer_i, rows, card):
                               vgg_params=s.vgg)
     cmp_t = make_train_step(s.model, cmp_loss, s.optimizer, s.maint, rcfg)
     cmp_i = make_train_step(s.model, cmp_loss, s.optimizer, s.maint, trainer_i.render_cfg)
+    blends = {}
+
+    def kept(name, fn):
+        def run(*args):
+            img, tfin = fn(*args)
+            blends[name] = (img.detach(), tfin.detach())
+            return img, tfin
+        return run
+
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
                                     allow_tf32=False):
-        gk = cmp_t.grads(trainer.ts, frame)
+        with swapped_blend(kept("tiles", bt.blend_tiles), "blend_tiles"):
+            gk = cmp_t.grads(trainer.ts, frame)
         with swapped_blend(bt.blend_tiles_plain, "blend_tiles"):
             gp = cmp_t.grads(trainer.ts, frame)
-        gi = cmp_i.grads(trainer.ts, frame)
+        with swapped_blend(kept("instances", bi.blend_instances)):
+            gi = cmp_i.grads(trainer.ts, frame)
     torch.cuda.synchronize()
     check(int(gk[2]["overflow"]) == int(gi[2]["overflow"]) == 0,
           "nothing dropped on the compared frame")
     check_step_grads("tiles-train", "tile kernels vs plain tile blends", gk, gp)
-    check_step_grads("tiles-train", "kernel=\"tiles\" vs kernel=\"instances\"", gk, gi)
+    worst = check_step_grads("tiles-train", "kernel=\"tiles\" vs kernel=\"instances\"",
+                             gk, gi)
+    # what the routes' blends differ by on that frame: the per-tile walk
+    # (kernel 3) and the segmented walk (kernel 1) over the same sequences
+    (img_t, tfin_t), (img_i, tfin_i) = blends["tiles"], blends["instances"]
+    flips, rel = termination_flips(tfin_t, tfin_i)
+    field, l2, _ = max(worst, key=lambda x: x[1])
+    log(f"[tiles-train] the compared frame's blends, kernel 3 vs kernel 1: max|img diff| "
+        f"{(img_t - img_i).abs().max().item():.3e}; termination flips {flips} of "
+        f"{tfin_t.numel()} pixels, the others' T_final within {rel:.1e} relative; the "
+        f"step's largest gradient gap between the routes: {field} ({l2:.1e} rel L2)")
 
     # ---- timings of the step at full width
     never = 10**9
@@ -1085,7 +1220,7 @@ def main():
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 log(f"[ptxas] {name}: {line.strip()}")
     rows = {name: {"name": name, **spec} for name, spec in KERNELS.items()}
     blend_row = rows["blend_instances_fwd"]
@@ -1111,6 +1246,7 @@ def main():
           "a NaN-filled output buffer must come back equal to a clean call")
     log("[kernel] edge cases: NaN-prefilled output buffer comes back finite and "
         "bit-equal to a clean call")
+    instance_kernel_cases(rows)
     tile_kernel_cases(rows)
 
     # ---- serve phase: seeded workspace, checkpoint, reenactment
@@ -1231,6 +1367,7 @@ def main():
             f"tiles {grid} per-tile max {int(counts.max())} "
             f"mean {counts.mean().item():.1f}")
         check_blend("frame 0 (serving inputs)", inputs, blend_row)
+        check_repeatable("frame 0 forward", lambda: bi.blend_instances(*inputs))
 
         ms = cuda_ms(lambda: bi.blend_instances(*inputs), reps=50)
         plain_ms = cuda_ms(lambda: bi.blend_instances_reference(*inputs), reps=3,
@@ -1249,7 +1386,13 @@ def main():
             f"(of {n_inst * 256} without termination); bound "
             f"{blend_row['bound_ms']:.5f} ms ({t_bytes:.5f} ms for {bytes_moved} B "
             f"at 3.35 TB/s, {t_ops:.5f} ms for {OPS_PER_PAIR} ops/pair at 67 "
-            f"TFLOP/s fp32) -> {blend_row['bound_ms'] / ms:.1%} of bound")
+            f"TFLOP/s fp32) -> {blend_row['bound_ms'] / ms:.1%} of bound [{card}]")
+        log(f"[kernel] blend_instances_fwd segmented walk, pairs derived from the inputs "
+            f"(not counted on the card): pass A evaluates every pair of the ranges "
+            f"({n_inst * 256}), pass B about the sequential walk's {pairs} before "
+            f"termination; {n_inst * 256 + pairs} in all, "
+            f"{(n_inst * 256 + pairs) / pairs:.2f}x the per-tile walk's")
+        segment_split("blend_instances_fwd", lambda: bi.blend_instances(*inputs), card)
 
         # stage split of one frame (CUDA events, 20 reps each)
         e0 = torch.from_numpy(exprs[0]).to(dev)

@@ -1,16 +1,25 @@
-// The per-tile blend walks shared by the port's four blend kernels: the
-// instance blend (blend_instances.cu, blend_instances_bwd.cu) and the
-// dense-list blend (blend_tiles.cu, blend_tiles_bwd.cu). The two layouts
-// differ only in where a tile's columns lie, so each kernel finds its
-// tile's column range and calls forward_tile or backward_tile.
+// The blend walks shared by the port's four blend kernels: the instance
+// blend (blend_instances.cu, blend_instances_bwd.cu) and the dense-list
+// blend (blend_tiles.cu, blend_tiles_bwd.cu). Two walks live here:
 //
-// The backward recomputes the forward walk from the forward's outputs, so
+// * the per-tile walk, forward_tile / backward_tile: one block walks a
+//   whole tile's column range alone. The dense-list kernels (blend_tiles.cu,
+//   blend_tiles_bwd.cu) use it.
+// * the segmented walk (below the per-tile walk): a tile's range is cut
+//   into segments of SEG columns, each a block of its own, joined through
+//   each segment's transmittance product. The instance kernels
+//   (blend_instances.cu, blend_instances_bwd.cu) use it. Its pass B runs
+//   the per-tile walk's code (forward_walk, backward_tile) over one
+//   segment, entered with the segment's transmittance and prefix.
+//
+// A backward recomputes its forward's walk from the forward's outputs, so
 // both must make bit-identical decisions: which instance is skipped
 // (power > 0, alpha < 1/255), and where a pixel's transmittance crosses
 // 1e-4 and stops. Every operation up to alpha and the transmittance step is
 // explicitly rounded (no FMA contraction), in the order of the plain
 // PyTorch version, and all four kernels run it through splat_at and
-// next_transmittance.
+// next_transmittance; the segmented pair also shares the segment plan and
+// the entry transmittance of each segment (segment_entry).
 
 #pragma once
 
@@ -81,28 +90,24 @@ __device__ __forceinline__ void stage(float (&sh)[NG][W], int slot,
   sh[8][slot] = valid[j] > 0.0f ? data[8 * m + j] : 0.0f;
 }
 
-// Forward: the calling block (BLOCK threads, one per pixel of tile t)
-// blends the columns [s, e) of a channel-major array front to back. Row c
-// of the channels is data + c * m; column j blends only where valid[j] > 0.
-// Writes img[t] = sum_i c_i a_i T_i + T_final * bg ([3, 256]) and
-// tfin[t] = T_final ([256]).
+// Forward walk: the calling block (BLOCK threads, one per pixel at (px,
+// py)) blends the columns [s, e) of a channel-major array front to back
+// from the transmittance T, adding sum_i c_i a_i T_i to acc and leaving T
+// at the pixel's last kept instance. Row c of the channels is data + c * m;
+// column j blends only where valid[j] > 0. A pixel whose T is below 1e-4
+// on entry blends nothing.
 //
 // Columns are staged in shared memory in batches of BLOCK (coalesced per
 // channel row) and broadcast to the tile's pixels; a pixel stops once its T
 // fell below 1e-4, and the block leaves the range as soon as every pixel
 // has (__syncthreads_count).
-__device__ __forceinline__ void forward_tile(
+__device__ __forceinline__ void forward_walk(
     const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
-    int64_t s, int64_t e, int t, int grid_x, const float* __restrict__ bg,
-    float* __restrict__ img, float* __restrict__ tfin) {
+    int64_t s, int64_t e, float px, float py, float& T, float& acc_r, float& acc_g,
+    float& acc_b) {
   __shared__ float sh[NG][BLOCK];
   const int tid = threadIdx.x;
-  float px, py;
-  pixel_of(t, grid_x, px, py);
-
-  float T = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  bool done = false;
+  bool done = !(T >= T_EPS);
 
   for (int64_t base = s; base < e; base += BLOCK) {
     // also the barrier that protects sh from the previous batch's readers
@@ -127,6 +132,21 @@ __device__ __forceinline__ void forward_tile(
       T = test_t;
     }
   }
+}
+
+// Forward of a whole tile t: forward_walk over [s, e) from T = 1, then
+// img[t] = sum_i c_i a_i T_i + T_final * bg ([3, 256]) and tfin[t] =
+// T_final ([256]).
+__device__ __forceinline__ void forward_tile(
+    const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
+    int64_t s, int64_t e, int t, int grid_x, const float* __restrict__ bg,
+    float* __restrict__ img, float* __restrict__ tfin) {
+  const int tid = threadIdx.x;
+  float px, py;
+  pixel_of(t, grid_x, px, py);
+  float T = 1.0f;
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  forward_walk(data, valid, m, s, e, px, py, T, acc_r, acc_g, acc_b);
 
   float* out = img + static_cast<int64_t>(t) * 3 * BLOCK;
   out[tid] = __fadd_rn(acc_r, __fmul_rn(T, bg[0]));
@@ -139,9 +159,25 @@ constexpr int BATCH = 128;           // columns staged per round of the backward
 constexpr int NWARP = BLOCK / 32;
 constexpr unsigned FULL = 0xffffffffu;
 
+__device__ __forceinline__ float gdot(float g0, float g1, float g2, float cr, float cg,
+                                      float cb) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(g0, cr), __fmul_rn(g1, cg)), __fmul_rn(g2, cb));
+}
+
+// The cotangent g_img of the calling thread's pixel of tile t.
+__device__ __forceinline__ void pixel_cotangent(const float* __restrict__ gimg, int t,
+                                                float& g0, float& g1, float& g2) {
+  const int64_t p3 = static_cast<int64_t>(t) * 3 * BLOCK + threadIdx.x;
+  g0 = gimg[p3];
+  g1 = gimg[p3 + BLOCK];
+  g2 = gimg[p3 + 2 * BLOCK];
+}
+
 // Backward: given the forward's img and T_final of tile t and their
 // cotangents g_img, g_tfin, the calling block recomputes its pixels' walk
-// over the columns [s, e) and stores, for each column j, the gradient of
+// over the columns [s, e), entered with transmittance T and prefix pu (1
+// and 0 for a whole tile; the segmented walk passes a segment's q_in and
+// pu_in), and stores, for each column j, the gradient of
 // channels 0-8 in rows 0-8 of gout (row stride m) and zeros in rows
 // 9..NOUT-1:
 //
@@ -170,7 +206,7 @@ __device__ __forceinline__ void backward_tile(
     int64_t s, int64_t e, int64_t zero_end, int t, int grid_x,
     const float* __restrict__ img, const float* __restrict__ tfin,
     const float* __restrict__ gimg, const float* __restrict__ gtfin,
-    float* __restrict__ gout) {
+    float* __restrict__ gout, float T = 1.0f, float pu = 0.0f) {
   __shared__ float sh[NG][BATCH];
   __shared__ float part[NWARP][NG][BATCH];
   const int tid = threadIdx.x;
@@ -179,17 +215,14 @@ __device__ __forceinline__ void backward_tile(
   float px, py;
   pixel_of(t, grid_x, px, py);
 
+  float g0, g1, g2;
+  pixel_cotangent(gimg, t, g0, g1, g2);
   const int64_t p3 = static_cast<int64_t>(t) * 3 * BLOCK + tid;
-  const float g0 = gimg[p3], g1 = gimg[p3 + BLOCK], g2 = gimg[p3 + 2 * BLOCK];
-  const float gdotimg = __fadd_rn(__fadd_rn(__fmul_rn(g0, img[p3]),
-                                            __fmul_rn(g1, img[p3 + BLOCK])),
-                                  __fmul_rn(g2, img[p3 + 2 * BLOCK]));
+  const float gdotimg = gdot(g0, g1, g2, img[p3], img[p3 + BLOCK], img[p3 + 2 * BLOCK]);
   const int64_t p1 = static_cast<int64_t>(t) * BLOCK + tid;
   const float gt_tn = __fmul_rn(gtfin[p1], tfin[p1]);
 
-  float T = 1.0f;
-  float pu = 0.0f;
-  bool done = false;
+  bool done = !(T >= T_EPS);
   int64_t base = s;
   for (; base < e; base += BATCH) {
     // also the barrier that protects sh and part from the previous round
@@ -212,8 +245,7 @@ __device__ __forceinline__ void backward_tile(
           kept = true;
           const float cr = sh[5][k], cg = sh[6][k], cb = sh[7][k];
           const float w = __fmul_rn(sp.alpha, T);
-          const float gdotc = __fadd_rn(__fadd_rn(__fmul_rn(g0, cr), __fmul_rn(g1, cg)),
-                                        __fmul_rn(g2, cb));
+          const float gdotc = gdot(g0, g1, g2, cr, cg, cb);
           pu = __fadd_rn(pu, __fmul_rn(w, gdotc));
           const float inv_om = __frcp_rn(__fsub_rn(1.0f, sp.alpha));
           const float dalpha = __fsub_rn(
@@ -267,5 +299,266 @@ __device__ __forceinline__ void backward_tile(
     for (int c = 0; c < NOUT; ++c) gout[c * m + j] = 0.0f;
   }
 }
+
+// ---------------------------------------------------------------------------
+// The segmented walk of the instance kernels.
+//
+// Work unit = (tile, segment): segment k of tile t holds the columns
+// [s + k SEG, min(s + (k+1) SEG, e)) of the tile's range [s, e), counted
+// from the tile's own start. A frame has at most ceil(m / SEG) + T units
+// (unit_capacity), known from the shapes, so every grid is sized on the
+// host without reading the device. The blend splits along segments because
+// termination is a sticky mask on q, the running product of (1 - alpha)
+// over every instance that passes the skip test (the Pallas kernel's
+// definition, fateavatar_tpu/render/blend_instances.py:133-150): an
+// instance counts while q after it stays >= 1e-4, and q is a product, so
+//
+//   q_in(k)  = prod_{i<k} P_i        P_i = segment i's product, from 1
+//   pu_in(k) = sum_{i<k} q_in(i) U_i U_i = segment i's sum of
+//                                          alpha_j T_j (g . c_j), T from 1
+//
+// hold up to the segment in which a pixel terminates. The launches, in
+// stream order:
+//
+//   plan     one block: each tile's first unit and each unit's tile;
+//   pass A   every unit: P (the backward also U) at each of its pixels,
+//            over all its columns (it cannot know where a pixel stops);
+//   pass B   every unit: the exact walk of its columns from q_in (and
+//            pu_in), with the per-tile walk's skip and q >= 1e-4 tests;
+//   combine  the forward only: each tile's partial colours in segment
+//            order, plus T_final * bg.
+//
+// segment_entry takes q_in and pu_in in segment order, in the forward and
+// the backward alike, so both drop exactly the same instances. Each column
+// lies in one unit, so the backward stores with plain stores, and nothing
+// depends on the order in which blocks run.
+//
+// Entry into segment k+1 is decided by the rounded product q_in(k) P_k,
+// while pass B stops on the walk's own T, the product taken one instance at
+// a time from q_in(k); the two round differently. A pixel whose crossing
+// lies within a few ulps of 1e-4 can therefore stop inside segment k while
+// q_in(k) P_k stays >= 1e-4, and blend again from segment k+1 on: at most
+// ~1e-4 of colour (T is ~1e-4 there), inside the kernels' 2e-4 tolerance
+// against the plain version, with the same decisions in both directions.
+// ---------------------------------------------------------------------------
+
+constexpr int SEG = 256;             // columns per unit
+constexpr int PLAN_THREADS = 1024;
+constexpr int PLAN_WARPS = PLAN_THREADS / 32;
+static_assert(SEG == BLOCK, "pass A and the forward's pass B stage one column per thread");
+static_assert(PLAN_WARPS == 32, "the plan's scan over warps is one warp");
+
+__host__ __device__ constexpr int64_t unit_capacity(int64_t m, int num_tiles) {
+  return (m + SEG - 1) / SEG + num_tiles;
+}
+
+// Tile t's column range [s, e), clamped into [0, m) so that no input makes
+// a block read out of bounds.
+__device__ __forceinline__ void tile_range(const int* __restrict__ tile_starts,
+                                           int64_t m, int t, int64_t& s, int64_t& e) {
+  s = clamp64(tile_starts[t], 0, m);
+  e = clamp64(tile_starts[t + 1], s, m);
+}
+
+// The plan, for one block of PLAN_THREADS threads: unit_start[t] = tile
+// t's first unit (an exclusive prefix sum of the tiles' segment counts),
+// unit_start[T] = the units used, unit_tile[u] = unit u's tile. Units past
+// `cap` exist only when tile_starts decreases (overlapping ranges); they
+// are dropped, so that no later launch indexes past the scratch.
+__device__ __forceinline__ void plan_segments(const int* __restrict__ tile_starts,
+                                              int64_t m, int num_tiles, int cap,
+                                              int* __restrict__ unit_start,
+                                              int* __restrict__ unit_tile) {
+  __shared__ long long warp_total[PLAN_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int per = (num_tiles + PLAN_THREADS - 1) / PLAN_THREADS;
+  const int t0 = min(tid * per, num_tiles);
+  const int t1 = min(t0 + per, num_tiles);
+  long long mine = 0;
+  for (int t = t0; t < t1; ++t) {
+    int64_t s, e;
+    tile_range(tile_starts, m, t, s, e);
+    mine += (e - s + SEG - 1) / SEG;
+  }
+  // exclusive scan of `mine` over the block: in each warp, then over warps
+  long long incl = mine;
+  for (int off = 1; off < 32; off <<= 1) {
+    const long long v = __shfl_up_sync(FULL, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    long long w = warp_total[lane];
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long v = __shfl_up_sync(FULL, w, off);
+      if (lane >= off) w += v;
+    }
+    warp_total[lane] = w;
+  }
+  __syncthreads();
+  long long u = incl - mine + (warp > 0 ? warp_total[warp - 1] : 0);
+  for (int t = t0; t < t1; ++t) {
+    int64_t s, e;
+    tile_range(tile_starts, m, t, s, e);
+    const long long n = (e - s + SEG - 1) / SEG;
+    unit_start[t] = static_cast<int>(u < cap ? u : cap);
+    for (long long k = 0; k < n && u + k < cap; ++k) unit_tile[u + k] = t;
+    u += n;
+  }
+  if (tid == PLAN_THREADS - 1) unit_start[num_tiles] = static_cast<int>(u < cap ? u : cap);
+}
+
+// A unit's place in the plan: its tile t, its segment k of the tile's
+// nseg, the tile's first unit u0 and the segment's columns [a, b).
+struct Unit {
+  int t, k, nseg, u0;
+  int64_t a, b;
+};
+
+// Unit u of the plan; false for a block past the units used.
+__device__ __forceinline__ bool unit_of(int u, const int* __restrict__ tile_starts,
+                                        int64_t m, int num_tiles,
+                                        const int* __restrict__ unit_start,
+                                        const int* __restrict__ unit_tile, Unit& un) {
+  if (u >= unit_start[num_tiles]) return false;
+  un.t = unit_tile[u];
+  un.u0 = unit_start[un.t];
+  un.nseg = unit_start[un.t + 1] - un.u0;
+  un.k = u - un.u0;
+  int64_t s, e;
+  tile_range(tile_starts, m, un.t, s, e);
+  un.a = s + static_cast<int64_t>(un.k) * SEG;
+  un.b = un.a + SEG < e ? un.a + SEG : e;
+  return true;
+}
+
+// Pass A of unit u at the calling thread's pixel: P, the product of
+// (1 - alpha) over the segment's instances that pass the skip test, from 1
+// and without termination, into prod[u] ([BLOCK] per unit); with BWD also
+// U = sum alpha_j T_j (g . c_j), T from 1, into usum[u].
+template <bool BWD>
+__device__ __forceinline__ void segment_products(
+    const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
+    const Unit& un, int u, int grid_x, const float* __restrict__ gimg,
+    float* __restrict__ prod, float* __restrict__ usum) {
+  __shared__ float sh[NG][SEG];
+  const int tid = threadIdx.x;
+  const int n = static_cast<int>(un.b - un.a);
+  if (tid < n) stage(sh, tid, data, valid, m, un.a + tid);
+  __syncthreads();
+  float px, py;
+  pixel_of(un.t, grid_x, px, py);
+  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+  if (BWD) pixel_cotangent(gimg, un.t, g0, g1, g2);
+  float q = 1.0f, usum_k = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    Splat sp;
+    if (!splat_at(sh[0][k], sh[1][k], sh[2][k], sh[3][k], sh[4][k], sh[8][k], px, py, sp))
+      continue;
+    if (BWD) {
+      const float gdotc = gdot(g0, g1, g2, sh[5][k], sh[6][k], sh[7][k]);
+      usum_k = __fadd_rn(usum_k, __fmul_rn(__fmul_rn(sp.alpha, q), gdotc));
+    }
+    q = next_transmittance(q, sp.alpha);
+  }
+  const int64_t at = static_cast<int64_t>(u) * BLOCK + tid;
+  prod[at] = q;
+  if (BWD) usum[at] = usum_k;
+}
+
+// The transmittance q_in entering segment k at the calling thread's pixel
+// and, with usum, the prefix pu_in: pass A's results of the tile's
+// segments 0..k-1 folded in segment order. Stops once q fell below T_EPS:
+// the pixel has terminated, and every later q_in is below it too (each
+// step is a rounded product with a factor <= 1).
+__device__ __forceinline__ float segment_entry(const float* __restrict__ prod,
+                                               const float* __restrict__ usum,
+                                               const Unit& un, float& pu) {
+  float q = 1.0f;
+  pu = 0.0f;
+  for (int i = 0; i < un.k && q >= T_EPS; ++i) {
+    const int64_t at = static_cast<int64_t>(un.u0 + i) * BLOCK + threadIdx.x;
+    if (usum != nullptr) pu = __fadd_rn(pu, __fmul_rn(q, usum[at]));
+    q = __fmul_rn(q, prod[at]);
+  }
+  return q;
+}
+
+// Forward pass B of unit u: each pixel runs forward_walk over the segment's
+// columns from q_in and stores its partial colour sum_j c_j alpha_j T_j into
+// part[u] ([3, BLOCK] per unit). The pixel's last segment entered at or
+// above T_EPS writes its T_final to tfin[t]: exactly one unit per pixel of
+// a non-empty tile, as segment 0 always enters at 1. A pixel that entered
+// below T_EPS adds 0; a block whose pixels all did stages nothing.
+__device__ __forceinline__ void forward_segment(
+    const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
+    const Unit& un, int u, int grid_x, const float* __restrict__ prod,
+    float* __restrict__ part, float* __restrict__ tfin) {
+  const int tid = threadIdx.x;
+  float pu_unused;
+  float T = segment_entry(prod, nullptr, un, pu_unused);
+  const bool last =
+      T >= T_EPS && (un.k + 1 == un.nseg ||
+                     !(__fmul_rn(T, prod[static_cast<int64_t>(u) * BLOCK + tid]) >= T_EPS));
+  float px, py;
+  pixel_of(un.t, grid_x, px, py);
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  forward_walk(data, valid, m, un.a, un.b, px, py, T, acc_r, acc_g, acc_b);
+  float* out = part + static_cast<int64_t>(u) * 3 * BLOCK;
+  out[tid] = acc_r;
+  out[BLOCK + tid] = acc_g;
+  out[2 * BLOCK + tid] = acc_b;
+  if (last) tfin[static_cast<int64_t>(un.t) * BLOCK + tid] = T;
+}
+
+// Forward combine of tile t: img[t] = its units' partial colours summed in
+// segment order + T_final * bg; a tile without units keeps T_final = 1.
+__device__ __forceinline__ void combine_segments(int t, const int* __restrict__ unit_start,
+                                                 const float* __restrict__ part,
+                                                 const float* __restrict__ bg,
+                                                 float* __restrict__ img,
+                                                 float* __restrict__ tfin) {
+  const int tid = threadIdx.x;
+  const int u0 = unit_start[t], u1 = unit_start[t + 1];
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int u = u0; u < u1; ++u) {
+    const float* p = part + static_cast<int64_t>(u) * 3 * BLOCK;
+    acc_r = __fadd_rn(acc_r, p[tid]);
+    acc_g = __fadd_rn(acc_g, p[BLOCK + tid]);
+    acc_b = __fadd_rn(acc_b, p[2 * BLOCK + tid]);
+  }
+  const int64_t p1 = static_cast<int64_t>(t) * BLOCK + tid;
+  float T = 1.0f;
+  if (u1 > u0) {
+    T = tfin[p1];
+  } else {
+    tfin[p1] = 1.0f;
+  }
+  float* out = img + static_cast<int64_t>(t) * 3 * BLOCK;
+  out[tid] = __fadd_rn(acc_r, __fmul_rn(T, bg[0]));
+  out[BLOCK + tid] = __fadd_rn(acc_g, __fmul_rn(T, bg[1]));
+  out[2 * BLOCK + tid] = __fadd_rn(acc_b, __fmul_rn(T, bg[2]));
+}
+
+// Backward pass B of a unit: backward_tile over the segment's columns [a,
+// b), entered with T = q_in and the prefix pu = pu_in from segment_entry,
+// so that every pixel makes the forward's decisions. Writes all NOUT rows
+// of every column in [a, b).
+template <int NOUT>
+__device__ __forceinline__ void backward_segment(
+    const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
+    const Unit& un, int grid_x, const float* __restrict__ img,
+    const float* __restrict__ tfin, const float* __restrict__ gimg,
+    const float* __restrict__ gtfin, const float* __restrict__ prod,
+    const float* __restrict__ usum, float* __restrict__ gout) {
+  float pu;
+  const float q_in = segment_entry(prod, usum, un, pu);
+  backward_tile<NOUT>(data, valid, m, un.a, un.b, un.b, un.t, grid_x, img, tfin, gimg,
+                      gtfin, gout, q_in, pu);
+}
+
+// cudaGetLastError() as the C entry points return it.
+inline int last_error() { return static_cast<int>(cudaGetLastError()); }
 
 }  // namespace blend

@@ -1,7 +1,7 @@
-// Instance-range alpha blend, forward: one 16x16 tile per block.
+// Instance-range alpha blend, forward: the segmented walk.
 //
 // Replaces the Pallas TPU kernel fateavatar_tpu/render/blend_instances.py
-// ::_fwd_kernel (driven by _call_fwd). Same function: every tile walks its
+// ::_fwd_kernel (driven by _call_fwd). Same function: every tile blends its
 // [tile_starts[t], tile_starts[t+1]) range of the flat depth-sorted instance
 // array front to back, with renderCUDA's semantics (forward.cu:289-374):
 // skip on power > 0 or alpha < 1/255, alpha clamped to 0.99, and the
@@ -11,17 +11,33 @@
 // What bounds it on an H100: each binned instance is read once per tile
 // (10 channels used, 40 B), each pixel writes 16 B (rgb + T), and every
 // (instance, pixel) pair the pixel reaches costs ~20 fp32 operations plus
-// one exp. A frame has ~10^2 pairs per byte, so the kernel is bound by
-// arithmetic and the special-function unit, not by memory.
-// What the design does about it (blend_common.cuh::forward_tile, shared
-// with the dense-list kernel blend_tiles.cu): instance channels are staged
-// in shared memory in batches of 256 (coalesced per channel row of the
-// [16, M] array) so each is read from device memory once per tile and then
-// broadcast to the tile's 256 pixel threads; a pixel stops evaluating once
-// its T fell below 1e-4, and the whole block leaves its range as soon as
-// every pixel has (__syncthreads_count), so saturated regions cost no more
-// pairs than they need. Invalid / sentinel rows (valid = 0) are staged with
-// opacity 0, which the 1/255 test skips.
+// one exp. A frame has ~10^2 pairs per byte, so the work is arithmetic; at
+// 67 TFLOP/s a full-width frame needs ~0.013 ms. What held the per-tile
+// walk (one block per tile, blend_common.cuh::forward_tile, still used by
+// blend_tiles.cu) far from that was load imbalance: the longest tile walked
+// ~8,700 instances alone on one SM while the mean tile holds ~180, and one
+// dependent chain per pixel thread with a single block on the SM costs
+// ~200 cycles per instance.
+//
+// What this design does about it (blend_common.cuh, "the segmented walk"):
+// no block walks a whole tile. Each tile's range is cut into segments of
+// SEG = 256 columns, one block each, so every block does at most 256
+// columns and the longest tile spreads over ~35 blocks. Four launches,
+// queued by one host call on one stream:
+//   plan      one block: each tile's first unit, each unit's tile;
+//   products  pass A: each unit's product of (1 - alpha) per pixel;
+//   walk      pass B: each unit folds the earlier segments' products into
+//             its entry transmittance and walks its 256 columns exactly,
+//             writing a partial colour (and T_final from the pixel's last
+//             live segment);
+//   combine   each tile's partials summed in segment order, + T_final * bg.
+// Pass A evaluates every (instance, pixel) pair of a range, also those past
+// a pixel's termination, which the per-tile walk skipped; that is the price
+// of not knowing where a pixel stops before the earlier segments are done.
+// Instance channels are staged in shared memory per unit (coalesced per
+// channel row of the [16, M] array) and broadcast to the 256 pixel threads;
+// invalid / sentinel rows (valid = 0) are staged with opacity 0, which the
+// 1/255 test skips. The outputs do not depend on the order blocks run in.
 //
 // The arithmetic up to alpha and the transmittance step uses explicitly
 // rounded operations (no FMA contraction) in the order of the plain PyTorch
@@ -35,33 +51,85 @@ namespace {
 
 using namespace blend;
 
+__global__ void __launch_bounds__(PLAN_THREADS)
+blend_instances_fwd_plan(const int* __restrict__ tile_starts, int64_t m, int num_tiles,
+                         int cap, int* __restrict__ unit_start, int* __restrict__ unit_tile) {
+  plan_segments(tile_starts, m, num_tiles, cap, unit_start, unit_tile);
+}
+
+// row 9 of the [16, M] array is the valid flag
 __global__ void __launch_bounds__(BLOCK)
-blend_instances_fwd_kernel(const float* __restrict__ inst, int64_t m,
-                           const int* __restrict__ tile_starts,
-                           const float* __restrict__ bg,
-                           float* __restrict__ img, float* __restrict__ tfin,
-                           int grid_x) {
-  const int t = blockIdx.x;
-  // clamp the range into the array so no input can make the block read
-  // out of bounds
-  const int64_t s = clamp64(tile_starts[t], 0, m);
-  const int64_t e = clamp64(tile_starts[t + 1], s, m);
-  // row 9 of the [16, M] array is the valid flag
-  forward_tile(inst, inst + 9 * m, m, s, e, t, grid_x, bg, img, tfin);
+blend_instances_fwd_products(const float* __restrict__ inst, int64_t m,
+                             const int* __restrict__ tile_starts, int num_tiles, int grid_x,
+                             const int* __restrict__ unit_start,
+                             const int* __restrict__ unit_tile, float* __restrict__ prod) {
+  Unit un;
+  const int u = blockIdx.x;
+  if (!unit_of(u, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  segment_products<false>(inst, inst + 9 * m, m, un, u, grid_x, nullptr, prod, nullptr);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+blend_instances_fwd_walk(const float* __restrict__ inst, int64_t m,
+                         const int* __restrict__ tile_starts, int num_tiles, int grid_x,
+                         const int* __restrict__ unit_start, const int* __restrict__ unit_tile,
+                         const float* __restrict__ prod, float* __restrict__ part,
+                         float* __restrict__ tfin) {
+  Unit un;
+  const int u = blockIdx.x;
+  if (!unit_of(u, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  forward_segment(inst, inst + 9 * m, m, un, u, grid_x, prod, part, tfin);
+}
+
+__global__ void __launch_bounds__(BLOCK)
+blend_instances_fwd_combine(const int* __restrict__ unit_start, const float* __restrict__ part,
+                            const float* __restrict__ bg, float* __restrict__ img,
+                            float* __restrict__ tfin) {
+  combine_segments(blockIdx.x, unit_start, part, bg, img, tfin);
 }
 
 }  // namespace
 
+// Scratch floats the forward needs for m columns and num_tiles tiles: per
+// unit, pass A's product and the partial colour ([4, 256]), then
+// unit_start [T + 1] and unit_tile [units] as int32. The wrapper allocates
+// its scratch from this number.
+extern "C" int64_t blend_instances_fwd_scratch_floats(int64_t m, int num_tiles) {
+  const int64_t cap = unit_capacity(m, num_tiles);
+  return cap * 4 * BLOCK + num_tiles + 1 + cap;
+}
+
 // inst [16, m] float32 (row c = channel c), tile_starts [num_tiles + 1]
-// int32, bg [3] float32; writes img [num_tiles, 3, 256] and
-// t_final [num_tiles, 256]. Launches on `stream`, does not synchronise, and
-// returns cudaGetLastError() of the launch.
-extern "C" int blend_instances_fwd(const float* inst, int64_t m,
-                                   const int* tile_starts, const float* bg,
-                                   float* img, float* tfin, int num_tiles,
-                                   int grid_x, cudaStream_t stream) {
+// int32 (non-decreasing), bg [3] float32, scratch of scratch_floats >=
+// blend_instances_fwd_scratch_floats(m, num_tiles) floats; writes img
+// [num_tiles, 3, 256] and t_final [num_tiles, 256]. Queues its four
+// launches on `stream`, does not synchronise, and returns the first
+// cudaGetLastError() that is not cudaSuccess (cudaErrorInvalidValue for a
+// short scratch).
+extern "C" int blend_instances_fwd(const float* inst, int64_t m, const int* tile_starts,
+                                   const float* bg, float* img, float* tfin, int num_tiles,
+                                   int grid_x, float* scratch, int64_t scratch_floats,
+                                   cudaStream_t stream) {
   if (num_tiles == 0) return static_cast<int>(cudaSuccess);
-  blend_instances_fwd_kernel<<<num_tiles, BLOCK, 0, stream>>>(
-      inst, m, tile_starts, bg, img, tfin, grid_x);
-  return static_cast<int>(cudaGetLastError());
+  if (scratch_floats < blend_instances_fwd_scratch_floats(m, num_tiles))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t cap = unit_capacity(m, num_tiles);
+  float* prod = scratch;
+  float* part = prod + cap * BLOCK;
+  int* unit_start = reinterpret_cast<int*>(part + cap * 3 * BLOCK);
+  int* unit_tile = unit_start + num_tiles + 1;
+  const unsigned units = static_cast<unsigned>(cap);
+  int err;
+  blend_instances_fwd_plan<<<1, PLAN_THREADS, 0, stream>>>(
+      tile_starts, m, num_tiles, static_cast<int>(cap), unit_start, unit_tile);
+  if ((err = last_error()) != 0) return err;
+  blend_instances_fwd_products<<<units, BLOCK, 0, stream>>>(
+      inst, m, tile_starts, num_tiles, grid_x, unit_start, unit_tile, prod);
+  if ((err = last_error()) != 0) return err;
+  blend_instances_fwd_walk<<<units, BLOCK, 0, stream>>>(
+      inst, m, tile_starts, num_tiles, grid_x, unit_start, unit_tile, prod, part, tfin);
+  if ((err = last_error()) != 0) return err;
+  blend_instances_fwd_combine<<<num_tiles, BLOCK, 0, stream>>>(unit_start, part, bg, img,
+                                                                tfin);
+  return last_error();
 }

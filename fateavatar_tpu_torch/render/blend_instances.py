@@ -18,11 +18,19 @@ its backward the one in ``csrc/blend_instances_bwd.cu``
 versions, :func:`blend_instances_reference` and
 :func:`blend_instances_backward_reference`. Nothing falls back: a CUDA
 tensor gets the kernel or an error.
+
+Both kernels run the segmented walk of ``csrc/blend_common.cuh``: each
+tile's range is cut into segments of 256 columns, one block each, joined
+through each segment's transmittance product, so that no block walks a long
+tile alone. Each wrapper call makes one host call that queues all of its
+kernel's launches, with a scratch buffer (:func:`_scratch`) allocated here
+at the size the C side asks for.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,9 +45,26 @@ ROW = 16
 CHUNK = 128     # instances per window of the plain version
 
 # the C entry points' signatures (csrc/blend_instances*.cu)
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = (_PTR, ctypes.c_int64, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR)
-_BWD_ARGS = (_PTR, ctypes.c_int64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR)
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR)
+_BWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR)
+
+
+@functools.lru_cache(maxsize=64)
+def _scratch_floats(lib, entry, m, n_tiles):
+    return cuda_build.call(lib, f"{entry}_scratch_floats", (_I64, _INT), (m, n_tiles),
+                           ctypes.c_int64)
+
+
+def _scratch(lib, entry, m, n_tiles, device):
+    """The scratch of C entry point ``entry`` of ``csrc/<lib>.cu``: one
+    ``torch.empty`` of the floats its ``<entry>_scratch_floats`` asks for
+    (the layout lives in the C source alone; the entry point refuses a
+    shorter buffer). The caller may drop it when the launch returns:
+    PyTorch's caching allocator hands the memory only to work queued after
+    the kernels on the same stream."""
+    return torch.empty(_scratch_floats(lib, entry, m, n_tiles), dtype=torch.float32,
+                       device=device)
 
 
 def _check_inputs(inst_data, tile_starts, bg, grid):
@@ -296,10 +321,12 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
         raise ValueError(f"out must be a contiguous float32 [{ROW}, {m}] "
                          f"tensor on {inst_data.device}")
     ty, tx = grid
+    scratch = _scratch("blend_instances_bwd", "blend_instances_bwd", m, ty * tx,
+                       inst_data.device)
     cuda_build.launch("blend_instances_bwd", "blend_instances_bwd", _BWD_ARGS, (
         inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
         t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(), out.data_ptr(),
-        ty * tx, tx), inst_data.device)
+        ty * tx, tx, scratch.data_ptr(), scratch.numel()), inst_data.device)
     blend_instances_bwd.launches += 1
     return out
 
@@ -321,9 +348,12 @@ def _blend_forward(inst_data, tile_starts, bg, grid):
     T = ty * tx
     img = torch.empty((T, 3, P), dtype=torch.float32, device=inst_data.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=inst_data.device)
+    m = inst_data.shape[1]
+    scratch = _scratch("blend_instances", "blend_instances_fwd", m, T, inst_data.device)
     cuda_build.launch("blend_instances", "blend_instances_fwd", _FWD_ARGS, (
-        inst_data.data_ptr(), inst_data.shape[1], tile_starts.data_ptr(), bg.data_ptr(),
-        img.data_ptr(), t_final.data_ptr(), T, tx), inst_data.device)
+        inst_data.data_ptr(), m, tile_starts.data_ptr(), bg.data_ptr(),
+        img.data_ptr(), t_final.data_ptr(), T, tx, scratch.data_ptr(), scratch.numel()),
+        inst_data.device)
     blend_instances.launches += 1
     return img, t_final
 

@@ -82,11 +82,17 @@ def load(name: str) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str, symbol: str, argtypes: tuple):
+def _entry(name: str, symbol: str, argtypes: tuple, restype=ctypes.c_int):
     fn = getattr(load(name), symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
+
+
+def call(name: str, symbol: str, argtypes: tuple, args: tuple, restype):
+    """Calls the host-only C function ``symbol`` of ``csrc/<name>.cu``'s
+    library (no launch, no stream) and returns its ``restype`` result."""
+    return _entry(name, symbol, argtypes, restype)(*args)
 
 
 def launch(name: str, symbol: str, argtypes: tuple, args: tuple, device) -> None:

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_blend_cases import blend_case
+from torch_blend_cases import BLEND_CASES, blend_case
 from torch_tile_cases import TILE_CASES, tile_case
 
 from fateavatar_tpu_torch.render import blend_instances as tblend
@@ -26,7 +26,7 @@ def _cuda_inputs(name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["empty", "long", "saturated"])
+@pytest.mark.parametrize("name", BLEND_CASES)
 def test_blend_kernel_matches_plain_version(name):
     """Tolerance 2e-4: kernel and plain version take the transmittance
     product in another order, which can flip the instance that crosses
@@ -89,7 +89,7 @@ def test_blend_kernel_raises_on_cuda_grad():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["empty", "long", "saturated"])
+@pytest.mark.parametrize("name", BLEND_CASES)
 def test_blend_bwd_kernel_matches_plain_version(name):
     inst, starts, bg, grid = _cuda_inputs(name)
     img, tfin = tblend.blend_instances(inst, starts, bg, grid)
@@ -118,6 +118,22 @@ def test_blend_bwd_kernel_writes_every_element():
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dirty).all())
     assert torch.equal(dirty, clean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BLEND_CASES)
+def test_blend_kernels_are_bit_identical_across_calls(name):
+    """Kernels 1 and 2 give the same bits on every call: each column and
+    pixel is owned by one unit, and partial sums combine in a fixed order,
+    whatever order the blocks run in."""
+    inst, starts, bg, grid = _cuda_inputs(name)
+    img, tfin = tblend.blend_instances(inst, starts, bg, grid)
+    img2, tfin2 = tblend.blend_instances(inst, starts, bg, grid)
+    args = (inst, starts, bg, img, tfin, *_cotangents(grid), grid)
+    g, g2 = tblend.blend_instances_bwd(*args), tblend.blend_instances_bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(img, img2) and torch.equal(tfin, tfin2)
+    assert torch.equal(g, g2)
 
 
 def _cuda_tile_inputs(name):

@@ -1,13 +1,46 @@
 """Hand-built compact inputs of the instance blend, shared by the CPU tests
-(against the JAX package) and the card-only kernel tests. Numpy only, so
-the card-only tests run where JAX is not installed."""
+(against the JAX package) and the card-only kernel tests. They import no
+JAX, so the card-only tests run where JAX is not installed."""
 
 import numpy as np
+
+BLEND_CASES = ("empty", "long", "saturated", "boundary")
+
+# columns per work unit of the instance kernels' segmented walk (blend::SEG
+# in fateavatar_tpu_torch/csrc/blend_common.cuh)
+SEG = 256
+
+# "boundary": tile -> the column of its range at which its pixels' running
+# transmittance is meant to cross 1e-4: at segment boundaries 1, 2 and 3,
+# and (the saturated tile) within the first few columns
+CROSS_AT = {1: SEG, 4: 3, 6: 2 * SEG, 9: 3 * SEG}
+
+
+def _boundary_tile(rng, x0, y0, c, cross):
+    """``c`` splats of ~40 px sigma centred on the 16x16 tile at (x0, y0):
+    alpha varies by a few percent over the tile's pixels, so their running
+    transmittance crosses 1e-4 within a few columns of ``cross``."""
+    mxy = np.stack([x0 + 8 + rng.uniform(-1, 1, c), y0 + 8 + rng.uniform(-1, 1, c)])
+    sig = rng.uniform(36, 44, (2, c))
+    conic = np.stack([1 / sig[0]**2, np.zeros(c), 1 / sig[1]**2])
+    if cross < 8:
+        op = rng.uniform(0.9, 1.0, c)
+    else:
+        # 95% are valid; exp(power) averages ~0.987 over the tile's pixels
+        alpha = 1 - 1e-4 ** (1 / (0.95 * cross))
+        op = alpha / 0.987 * rng.uniform(0.97, 1.03, c)
+    return mxy, conic, op
 
 
 def blend_case(name, seed=0):
     """Hand-built compact blend inputs on a (3, 4) tile grid: ([16, M],
-    tile_starts, bg, grid). Ranges start and end mid-window."""
+    tile_starts, bg, grid). Ranges start and end mid-window.
+
+    ``boundary`` holds the edges of the kernels' segmented walk: tiles whose
+    pixels cross T = 1e-4 at and around segment boundaries 1-3 (CROSS_AT),
+    a long saturated tile whose pixels all stop in its first segment, ranges
+    of exactly one segment, one column and one column past two segments,
+    and ranges that start mid-segment of the global column index."""
     grid = (3, 4)
     ty, tx = grid
     rng = np.random.default_rng(seed)
@@ -18,6 +51,8 @@ def blend_case(name, seed=0):
         "long": [40, 3900, 100, 0, 0, 60, 0, 257, 0, 0, 12, 0],
         # opaque splats drive T below 1e-4
         "saturated": [300, 200, 0, 90, 500, 0, 129, 0, 40, 0, 0, 700],
+        # see CROSS_AT; tile 2 is one whole segment, 5 two and a column
+        "boundary": [37, 700, SEG, 0, 1500, 2 * SEG + 1, 1200, 0, 1, 1100, SEG - 1, 0],
     }[name]
     cols = []
     for tile, c in enumerate(counts):
@@ -30,7 +65,9 @@ def blend_case(name, seed=0):
         det = sx**2 * sy**2 - cxy**2
         conic = np.stack([sy**2 / det, -cxy / det, sx**2 / det])
         rgb = rng.uniform(0, 1, (3, c))
-        if name == "saturated":
+        if name == "boundary" and tile in CROSS_AT:
+            mxy, conic, op = _boundary_tile(rng, x0, y0, c, CROSS_AT[tile])
+        elif name == "saturated":
             op = rng.uniform(0.9, 1.0, c)
         elif c > 1000:
             # faint: pixels stay above T = 1e-4 through all ~30 windows
