@@ -24,14 +24,16 @@ weights), each through both routes of ``RenderConfig.kernel``:
   epoch and step checks with ``kernel="tiles"``, and one step's gradients
   through the tiles route against the instances route.
 
-Kernels 1 and 2 (the instance blend's segmented walk) are also held
-against their plain versions on the hand-built cases of
-``tests/torch_blend_cases.py`` (``boundary`` puts pixels' termination at
-and around segment boundaries), and two calls of each, on those cases and
-on the full-width frames, must return the same bits. Beside their times the
-script prints the pairs the segmented walk evaluates (pass A's every pair
-of the ranges, pass B's pairs before termination) and each of their
-launches' device time.
+All four kernels run the segmented walk of ``csrc/blend_common.cuh``.
+Kernels 1 and 2 (the instance blend) are also held against their plain
+versions on the hand-built cases of ``tests/torch_blend_cases.py``
+(``boundary`` puts pixels' termination at and around segment boundaries),
+kernels 3 and 4 (the dense-list blend) on those of
+``tests/torch_tile_cases.py`` (``boundary`` there is the same lists laid
+out densely), and two calls of each, on those cases and on the full-width
+frames, must return the same bits. Beside their times the script prints the
+pairs the segmented walk evaluates (pass A's every pair of the ranges, pass
+B's pairs before termination) and each of their launches' device time.
 
 The tiles route's ``max_per_tile`` (K, the yaml's 1,024) is set per phase
 from a probe of the phase's frames, 1.25x their longest tile rounded up to
@@ -110,9 +112,8 @@ TILE_K_HEADROOM = 1.25
 # the dense-list backward writes its whole [9, T*K] gradient (36 B a slot)
 TILE_BWD_BYTES_PER_SLOT = 36
 
-SEGMENTED = ("segmented walk: one block per (tile, 256-column segment); pass A "
+SEGMENTED = ("segmented walk: one work unit per (tile, 256-column segment); pass A "
              "products, entry transmittance folded in segment order, pass B exact walk")
-PER_TILE = "per-tile walk: one block walks a whole tile's range"
 KERNELS = {
     # kernel name -> its fixed fields in the {"kernels": [...]} line; "pr"
     # is the PR that last designed it
@@ -134,15 +135,15 @@ KERNELS = {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_tiles.cu",
         "replaces": "fateavatar_tpu/render/blend_tiles.py:199",
-        "design": PER_TILE,
-        "pr": 3,
+        "design": SEGMENTED,
+        "pr": 5,
     },
     "blend_tiles_bwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_tiles_bwd.cu",
         "replaces": "fateavatar_tpu/render/blend_tiles.py:261",
-        "design": PER_TILE,
-        "pr": 3,
+        "design": SEGMENTED + "; zero tail past each list",
+        "pr": 5,
     },
 }
 
@@ -297,7 +298,8 @@ def check_blend_bwd(label, args, results, kernel=None, plain=None, zero=None):
 
 def check_repeatable(label, fn):
     """Two calls of ``fn`` (a kernel wrapper on fixed inputs) return the same
-    bits: no result of kernels 1-2 may depend on the order blocks run in."""
+    bits: no result of the segmented walk may depend on the order blocks run
+    in."""
     import torch
 
     a, b = fn(), fn()
@@ -349,7 +351,8 @@ def instance_kernel_cases(rows):
 
 def segment_split(label, fn, card, n=10):
     """Device ms of each launch of a kernel wrapper (its plan, pass A, pass
-    B and combine) over ``n`` calls under torch.profiler."""
+    B, and the forward's combine or kernel 4's zero tail) over ``n`` calls
+    under torch.profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -379,7 +382,9 @@ def tile_kernel_cases(rows):
     """Kernels 3 and 4 against their plain versions on the hand-built
     dense-list cases of tests/torch_tile_cases.py (a (3, 4) grid; empty
     tiles, counts above K, saturated tiles, a faint list spanning > 60
-    windows), and a NaN-prefilled output of kernel 4."""
+    windows, ``boundary``: the blend case's crossings at segment boundaries
+    laid out densely), each twice for bit-identical results, and a
+    NaN-prefilled output of kernel 4."""
     import numpy as np
     import torch
 
@@ -407,6 +412,8 @@ def tile_kernel_cases(rows):
         g_clean = check_blend_bwd(f"tile case {name}", args, rows["blend_tiles_bwd"],
                                   bt.blend_tiles_bwd, bt.blend_tiles_backward_reference,
                                   past_lists(counts, k))
+        check_repeatable(f"tile case {name} forward", lambda: bt.blend_tiles(*fwd))
+        check_repeatable(f"tile case {name} backward", lambda: bt.blend_tiles_bwd(*args))
         if name == "long":
             g_dirty = bt.blend_tiles_bwd(*args, out=torch.full_like(g_clean, float("nan")))
             torch.cuda.synchronize()
@@ -450,7 +457,9 @@ def tile_k(longest, chunk):
 def tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, which, card, reps,
                         bwd_args=None):
     """ms per launch of kernel 3 (``which`` fwd) or 4 (bwd) and of its plain
-    version on captured full-width inputs, with the bound."""
+    version on captured full-width inputs, with the bound, the pairs the
+    segmented walk evaluates (derived from the inputs) and the device ms of
+    each of its launches."""
     from fateavatar_tpu_torch.render import blend_tiles as bt
 
     T = grid[0] * grid[1]
@@ -458,14 +467,19 @@ def tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, which, card, 
     n_slots = int(counts.clamp(max=k).sum())
     evaluated, blended = bt.pair_counts(data, valid, counts, grid)
     n_pix = T * 256
+
+    def kernel():
+        if which == "fwd":
+            return bt.blend_tiles(data, valid, counts, bg, grid, chunk)
+        return bt.blend_tiles_bwd(*bwd_args)
+
+    ms = cuda_ms(kernel, reps=reps)
     if which == "fwd":
-        ms = cuda_ms(lambda: bt.blend_tiles(data, valid, counts, bg, grid, chunk), reps=reps)
         plain_ms = cuda_ms(lambda: bt.blend_tiles_reference(data, valid, counts, bg, grid,
                                                             chunk), reps=2, warmup=1)
         bytes_moved = (BYTES_PER_INSTANCE * n_slots + 4 * T + 12 + BYTES_PER_PIXEL * n_pix)
         ops = OPS_PER_PAIR * evaluated
     else:
-        ms = cuda_ms(lambda: bt.blend_tiles_bwd(*bwd_args), reps=reps)
         plain_ms = cuda_ms(lambda: bt.blend_tiles_backward_reference(*bwd_args), reps=2,
                            warmup=1)
         bytes_moved = (BYTES_PER_INSTANCE * n_slots + 4 * T + BWD_BYTES_PER_PIXEL * n_pix
@@ -481,6 +495,12 @@ def tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, which, card, 
         f"{blended}; bound {row['bound_ms']:.5f} ms ({t_bytes:.5f} ms for {bytes_moved} B "
         f"at 3.35 TB/s, {t_ops:.5f} ms for {ops} ops at 67 TFLOP/s fp32) -> "
         f"{row['bound_ms'] / ms:.1%} of bound [{card}]")
+    log(f"[kernel] {row['name']} segmented walk, pairs derived from the inputs (not "
+        f"counted on the card): pass A evaluates every pair of the lists "
+        f"({n_slots * 256}), pass B about the sequential walk's {evaluated} before "
+        f"termination; {n_slots * 256 + evaluated} in all, "
+        f"{(n_slots * 256 + evaluated) / evaluated:.2f}x the per-tile walk's")
+    segment_split(row["name"], kernel, card)
 
 
 def write_assets(ws, seed):
@@ -1005,7 +1025,8 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
     img_i = instances.render_frame(exprs[0], poses[0], cam)
     err = (img_t - img_i).abs().max().item()
     log(f"[tiles-serve] frame 0: kernel=\"tiles\" vs kernel=\"instances\" max|diff| "
-        f"{err:.3e} (pixels differing: {int(((img_t - img_i).abs() > 0).sum())})")
+        f"{err:.3e} (pixels differing: {int(((img_t - img_i).abs() > 0).sum())}); "
+        f"bit-equal: {torch.equal(img_t, img_i)}")
     check(err <= TOL, f"frame 0 tiles vs instances {err:.3e} > {TOL}")
 
     # ---- kernel 3 on the real inputs of one full-width frame
@@ -1022,6 +1043,8 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
         f"mean {counts.float().mean().item():.1f}")
     check_blend("tiles frame 0 (serving inputs)", (data, valid, counts, bg, grid), row,
                 bt.blend_tiles, bt.blend_tiles_reference)
+    check_repeatable("tiles frame 0 forward",
+                     lambda: bt.blend_tiles(data, valid, counts, bg, grid, chunk))
     tile_kernel_timings(data, valid, counts, bg, grid, chunk, row, "fwd", card, reps=50)
 
     e0, p0 = views[0][0], views[0][1]
@@ -1113,6 +1136,7 @@ def tiles_train_phase(s, trainer_i, rows, card):
     check_blend_bwd("tiles training frame", bwd_args, rows["blend_tiles_bwd"],
                     bt.blend_tiles_bwd, bt.blend_tiles_backward_reference,
                     past_lists(counts, kk))
+    check_repeatable("tiles training frame backward", lambda: bt.blend_tiles_bwd(*bwd_args))
     tile_kernel_timings(data, valid, counts, bg, grid, chunk, rows["blend_tiles_bwd"], "bwd",
                         card, reps=20, bwd_args=bwd_args)
 
@@ -1146,13 +1170,15 @@ def tiles_train_phase(s, trainer_i, rows, card):
     check_step_grads("tiles-train", "tile kernels vs plain tile blends", gk, gp)
     worst = check_step_grads("tiles-train", "kernel=\"tiles\" vs kernel=\"instances\"",
                              gk, gi)
-    # what the routes' blends differ by on that frame: the per-tile walk
-    # (kernel 3) and the segmented walk (kernel 1) over the same sequences
+    # what the routes' blends differ by on that frame: kernels 3 and 1 run
+    # the same segmented walk over the same sequences
     (img_t, tfin_t), (img_i, tfin_i) = blends["tiles"], blends["instances"]
     flips, rel = termination_flips(tfin_t, tfin_i)
     field, l2, _ = max(worst, key=lambda x: x[1])
     log(f"[tiles-train] the compared frame's blends, kernel 3 vs kernel 1: max|img diff| "
-        f"{(img_t - img_i).abs().max().item():.3e}; termination flips {flips} of "
+        f"{(img_t - img_i).abs().max().item():.3e}, bit-equal "
+        f"{torch.equal(img_t, img_i) and torch.equal(tfin_t, tfin_i)}; termination flips "
+        f"{flips} of "
         f"{tfin_t.numel()} pixels, the others' T_final within {rel:.1e} relative; the "
         f"step's largest gradient gap between the routes: {field} ({l2:.1e} rel L2)")
 

@@ -1,16 +1,13 @@
-// The blend walks shared by the port's four blend kernels: the instance
+// The blend walk shared by the port's four blend kernels: the instance
 // blend (blend_instances.cu, blend_instances_bwd.cu) and the dense-list
-// blend (blend_tiles.cu, blend_tiles_bwd.cu). Two walks live here:
-//
-// * the per-tile walk, forward_tile / backward_tile: one block walks a
-//   whole tile's column range alone. The dense-list kernels (blend_tiles.cu,
-//   blend_tiles_bwd.cu) use it.
-// * the segmented walk (below the per-tile walk): a tile's range is cut
-//   into segments of SEG columns, each a block of its own, joined through
-//   each segment's transmittance product. The instance kernels
-//   (blend_instances.cu, blend_instances_bwd.cu) use it. Its pass B runs
-//   the per-tile walk's code (forward_walk, backward_tile) over one
-//   segment, entered with the segment's transmittance and prefix.
+// blend (blend_tiles.cu, blend_tiles_bwd.cu). All four run the segmented
+// walk (below): a tile's column range is cut into segments of SEG columns,
+// each a work unit of its own, joined through each segment's transmittance
+// product, so that no block walks a whole tile's range alone. The two
+// layouts differ only in where tile t's range lies (CompactRanges,
+// DenseRanges); the plan, both passes and the combine are the same code.
+// Pass B runs the walks forward_walk and backward_tile over one segment,
+// entered with the segment's transmittance and prefix.
 //
 // A backward recomputes its forward's walk from the forward's outputs, so
 // both must make bit-identical decisions: which instance is skipped
@@ -18,8 +15,9 @@
 // 1e-4 and stops. Every operation up to alpha and the transmittance step is
 // explicitly rounded (no FMA contraction), in the order of the plain
 // PyTorch version, and all four kernels run it through splat_at and
-// next_transmittance; the segmented pair also shares the segment plan and
-// the entry transmittance of each segment (segment_entry).
+// next_transmittance; forward and backward also share the segment plan and
+// the entry transmittance of each segment (segment_entry). The same lists
+// in either layout give the same segments and so the same bits.
 
 #pragma once
 
@@ -134,27 +132,6 @@ __device__ __forceinline__ void forward_walk(
   }
 }
 
-// Forward of a whole tile t: forward_walk over [s, e) from T = 1, then
-// img[t] = sum_i c_i a_i T_i + T_final * bg ([3, 256]) and tfin[t] =
-// T_final ([256]).
-__device__ __forceinline__ void forward_tile(
-    const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
-    int64_t s, int64_t e, int t, int grid_x, const float* __restrict__ bg,
-    float* __restrict__ img, float* __restrict__ tfin) {
-  const int tid = threadIdx.x;
-  float px, py;
-  pixel_of(t, grid_x, px, py);
-  float T = 1.0f;
-  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
-  forward_walk(data, valid, m, s, e, px, py, T, acc_r, acc_g, acc_b);
-
-  float* out = img + static_cast<int64_t>(t) * 3 * BLOCK;
-  out[tid] = __fadd_rn(acc_r, __fmul_rn(T, bg[0]));
-  out[BLOCK + tid] = __fadd_rn(acc_g, __fmul_rn(T, bg[1]));
-  out[2 * BLOCK + tid] = __fadd_rn(acc_b, __fmul_rn(T, bg[2]));
-  tfin[static_cast<int64_t>(t) * BLOCK + tid] = T;
-}
-
 constexpr int BATCH = 128;           // columns staged per round of the backward
 constexpr int NWARP = BLOCK / 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -173,11 +150,10 @@ __device__ __forceinline__ void pixel_cotangent(const float* __restrict__ gimg, 
   g2 = gimg[p3 + 2 * BLOCK];
 }
 
-// Backward: given the forward's img and T_final of tile t and their
+// Backward walk: given the forward's img and T_final of tile t and their
 // cotangents g_img, g_tfin, the calling block recomputes its pixels' walk
-// over the columns [s, e), entered with transmittance T and prefix pu (1
-// and 0 for a whole tile; the segmented walk passes a segment's q_in and
-// pu_in), and stores, for each column j, the gradient of
+// over the columns [s, e), entered with transmittance T and prefix pu (a
+// segment's q_in and pu_in), and stores, for each column j, the gradient of
 // channels 0-8 in rows 0-8 of gout (row stride m) and zeros in rows
 // 9..NOUT-1:
 //
@@ -190,9 +166,9 @@ __device__ __forceinline__ void pixel_cotangent(const float* __restrict__ gimg, 
 //   g_op     = dalpha exp(power)
 //
 // and the partials of power in mean and conic and w g for the colour,
-// each summed over the tile's 256 pixels. Every column of [s, zero_end)
-// is written: those after the block left its range (every pixel had
-// terminated, so they never blended) and those in [e, zero_end) as zeros.
+// each summed over the tile's 256 pixels. Every column of [s, e) is
+// written, those after the block left its range (every pixel had
+// terminated, so they never blended) as zeros.
 //
 // Columns are staged in batches of BATCH; each pixel thread walks them with
 // the forward's exact skip and termination decisions; a warp reduces a
@@ -203,10 +179,9 @@ __device__ __forceinline__ void pixel_cotangent(const float* __restrict__ gimg, 
 template <int NOUT>
 __device__ __forceinline__ void backward_tile(
     const float* __restrict__ data, const float* __restrict__ valid, int64_t m,
-    int64_t s, int64_t e, int64_t zero_end, int t, int grid_x,
-    const float* __restrict__ img, const float* __restrict__ tfin,
-    const float* __restrict__ gimg, const float* __restrict__ gtfin,
-    float* __restrict__ gout, float T = 1.0f, float pu = 0.0f) {
+    int64_t s, int64_t e, int t, int grid_x, const float* __restrict__ img,
+    const float* __restrict__ tfin, const float* __restrict__ gimg,
+    const float* __restrict__ gtfin, float* __restrict__ gout, float T, float pu) {
   __shared__ float sh[NG][BATCH];
   __shared__ float part[NWARP][NG][BATCH];
   const int tid = threadIdx.x;
@@ -293,25 +268,27 @@ __device__ __forceinline__ void backward_tile(
       gout[c * m + base + k] = acc;
     }
   }
-  // the columns the walk did not store: after an early exit, and [e, zero_end)
-  for (int64_t j = (base < e ? base : e) + tid; j < zero_end; j += BLOCK) {
+  // the columns the walk did not store, after an early exit
+  for (int64_t j = base + tid; j < e; j += BLOCK) {
 #pragma unroll
     for (int c = 0; c < NOUT; ++c) gout[c * m + j] = 0.0f;
   }
 }
 
 // ---------------------------------------------------------------------------
-// The segmented walk of the instance kernels.
+// The segmented walk.
 //
 // Work unit = (tile, segment): segment k of tile t holds the columns
 // [s + k SEG, min(s + (k+1) SEG, e)) of the tile's range [s, e), counted
-// from the tile's own start. A frame has at most ceil(m / SEG) + T units
-// (unit_capacity), known from the shapes, so every grid is sized on the
-// host without reading the device. The blend splits along segments because
-// termination is a sticky mask on q, the running product of (1 - alpha)
-// over every instance that passes the skip test (the Pallas kernel's
-// definition, fateavatar_tpu/render/blend_instances.py:133-150): an
-// instance counts while q after it stays >= 1e-4, and q is a product, so
+// from the tile's own start, in either layout. The units a frame can have
+// are bounded by the shapes alone: ceil(m / SEG) + T in the compact layout
+// (unit_capacity), T ceil(K / SEG) in the dense one (dense_unit_capacity),
+// so the scratch is sized on the host without reading the device. The
+// blend splits along segments because termination is a sticky mask on q,
+// the running product of (1 - alpha) over every instance that passes the
+// skip test (the Pallas kernel's definition,
+// fateavatar_tpu/render/blend_instances.py:133-150): an instance counts
+// while q after it stays >= 1e-4, and q is a product, so
 //
 //   q_in(k)  = prod_{i<k} P_i        P_i = segment i's product, from 1
 //   pu_in(k) = sum_{i<k} q_in(i) U_i U_i = segment i's sum of
@@ -324,9 +301,16 @@ __device__ __forceinline__ void backward_tile(
 //   pass A   every unit: P (the backward also U) at each of its pixels,
 //            over all its columns (it cannot know where a pixel stops);
 //   pass B   every unit: the exact walk of its columns from q_in (and
-//            pu_in), with the per-tile walk's skip and q >= 1e-4 tests;
+//            pu_in), with forward_walk's / backward_tile's skip and
+//            q >= 1e-4 tests;
 //   combine  the forward only: each tile's partial colours in segment
 //            order, plus T_final * bg.
+//
+// The instance kernels launch one block per unit of the capacity (surplus
+// blocks leave at once); the dense capacity is ~25x the units a frame has
+// (K holds the longest tile), so the tile kernels run passes A and B as a
+// grid-stride loop over the plan's unit count (for_each_unit) on the grid
+// the card holds at once (resident_grid).
 //
 // segment_entry takes q_in and pu_in in segment order, in the forward and
 // the backward alike, so both drop exactly the same instances. Each column
@@ -352,21 +336,43 @@ __host__ __device__ constexpr int64_t unit_capacity(int64_t m, int num_tiles) {
   return (m + SEG - 1) / SEG + num_tiles;
 }
 
-// Tile t's column range [s, e), clamped into [0, m) so that no input makes
-// a block read out of bounds.
-__device__ __forceinline__ void tile_range(const int* __restrict__ tile_starts,
-                                           int64_t m, int t, int64_t& s, int64_t& e) {
-  s = clamp64(tile_starts[t], 0, m);
-  e = clamp64(tile_starts[t + 1], s, m);
+// Units of the dense layout: each tile's list fills at most its K = m / T
+// slots, so it has at most ceil(K / SEG) segments.
+__host__ __device__ constexpr int64_t dense_unit_capacity(int64_t m, int num_tiles) {
+  return num_tiles > 0 ? num_tiles * ((m / num_tiles + SEG - 1) / SEG) : 0;
 }
+
+// Tile t's column range [s, e) in the compact layout (the instance
+// kernels): [tile_starts[t], tile_starts[t + 1]), clamped into [0, m) so
+// that no input makes a block read out of bounds.
+struct CompactRanges {
+  const int* tile_starts;
+  int64_t m;
+  __device__ __forceinline__ void operator()(int t, int64_t& s, int64_t& e) const {
+    s = clamp64(tile_starts[t], 0, m);
+    e = clamp64(tile_starts[t + 1], s, m);
+  }
+};
+
+// Tile t's column range in the dense layout (the tile kernels): the first
+// min(counts[t], K) of its K slots [t K, (t + 1) K).
+struct DenseRanges {
+  const int* counts;
+  int k;
+  __device__ __forceinline__ void operator()(int t, int64_t& s, int64_t& e) const {
+    s = static_cast<int64_t>(t) * k;
+    e = s + clamp64(counts[t], 0, k);
+  }
+};
 
 // The plan, for one block of PLAN_THREADS threads: unit_start[t] = tile
 // t's first unit (an exclusive prefix sum of the tiles' segment counts),
 // unit_start[T] = the units used, unit_tile[u] = unit u's tile. Units past
-// `cap` exist only when tile_starts decreases (overlapping ranges); they
-// are dropped, so that no later launch indexes past the scratch.
-__device__ __forceinline__ void plan_segments(const int* __restrict__ tile_starts,
-                                              int64_t m, int num_tiles, int cap,
+// `cap` exist only in the compact layout when tile_starts decreases
+// (overlapping ranges); they are dropped, so that no later launch indexes
+// past the scratch. The dense layout never exceeds dense_unit_capacity.
+template <typename Ranges>
+__device__ __forceinline__ void plan_segments(const Ranges& ranges, int num_tiles, int cap,
                                               int* __restrict__ unit_start,
                                               int* __restrict__ unit_tile) {
   __shared__ long long warp_total[PLAN_WARPS];
@@ -377,7 +383,7 @@ __device__ __forceinline__ void plan_segments(const int* __restrict__ tile_start
   long long mine = 0;
   for (int t = t0; t < t1; ++t) {
     int64_t s, e;
-    tile_range(tile_starts, m, t, s, e);
+    ranges(t, s, e);
     mine += (e - s + SEG - 1) / SEG;
   }
   // exclusive scan of `mine` over the block: in each warp, then over warps
@@ -400,7 +406,7 @@ __device__ __forceinline__ void plan_segments(const int* __restrict__ tile_start
   long long u = incl - mine + (warp > 0 ? warp_total[warp - 1] : 0);
   for (int t = t0; t < t1; ++t) {
     int64_t s, e;
-    tile_range(tile_starts, m, t, s, e);
+    ranges(t, s, e);
     const long long n = (e - s + SEG - 1) / SEG;
     unit_start[t] = static_cast<int>(u < cap ? u : cap);
     for (long long k = 0; k < n && u + k < cap; ++k) unit_tile[u + k] = t;
@@ -417,8 +423,8 @@ struct Unit {
 };
 
 // Unit u of the plan; false for a block past the units used.
-__device__ __forceinline__ bool unit_of(int u, const int* __restrict__ tile_starts,
-                                        int64_t m, int num_tiles,
+template <typename Ranges>
+__device__ __forceinline__ bool unit_of(int u, const Ranges& ranges, int num_tiles,
                                         const int* __restrict__ unit_start,
                                         const int* __restrict__ unit_tile, Unit& un) {
   if (u >= unit_start[num_tiles]) return false;
@@ -427,10 +433,26 @@ __device__ __forceinline__ bool unit_of(int u, const int* __restrict__ tile_star
   un.nseg = unit_start[un.t + 1] - un.u0;
   un.k = u - un.u0;
   int64_t s, e;
-  tile_range(tile_starts, m, un.t, s, e);
+  ranges(un.t, s, e);
   un.a = s + static_cast<int64_t>(un.k) * SEG;
   un.b = un.a + SEG < e ? un.a + SEG : e;
   return true;
+}
+
+// Runs body(un, u) for the units blockIdx.x, blockIdx.x + gridDim.x, ...
+// of the plan: the grid-stride loop of the tile kernels' passes A and B.
+// The barrier after each unit keeps the next unit from restaging shared
+// memory under the previous one's readers.
+template <typename Ranges, typename Body>
+__device__ __forceinline__ void for_each_unit(const Ranges& ranges, int num_tiles,
+                                              const int* __restrict__ unit_start,
+                                              const int* __restrict__ unit_tile, Body body) {
+  Unit un;
+  for (int u = blockIdx.x; unit_of(u, ranges, num_tiles, unit_start, unit_tile, un);
+       u += gridDim.x) {
+    body(un, u);
+    __syncthreads();
+  }
 }
 
 // Pass A of unit u at the calling thread's pixel: P, the product of
@@ -554,11 +576,43 @@ __device__ __forceinline__ void backward_segment(
     const float* __restrict__ usum, float* __restrict__ gout) {
   float pu;
   const float q_in = segment_entry(prod, usum, un, pu);
-  backward_tile<NOUT>(data, valid, m, un.a, un.b, un.b, un.t, grid_x, img, tfin, gimg,
-                      gtfin, gout, q_in, pu);
+  backward_tile<NOUT>(data, valid, m, un.a, un.b, un.t, grid_x, img, tfin, gimg, gtfin,
+                      gout, q_in, pu);
+}
+
+// Zeroes row[lo, hi) with the calling block: scalar stores up to the first
+// 16-byte boundary, float4 stores to the last one, scalar stores after it.
+__device__ __forceinline__ void zero_range(float* __restrict__ row, int64_t lo,
+                                           int64_t hi) {
+  const int64_t head = (4 - ((reinterpret_cast<uintptr_t>(row + lo) >> 2) & 3)) & 3;
+  const int64_t body = lo + head < hi ? lo + head : hi;
+  const int64_t n4 = (hi - body) >> 2;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int64_t j = lo + threadIdx.x; j < body; j += blockDim.x) row[j] = 0.0f;
+  float4* v = reinterpret_cast<float4*>(row + body);
+  for (int64_t i = threadIdx.x; i < n4; i += blockDim.x) v[i] = zero;
+  for (int64_t j = body + 4 * n4 + threadIdx.x; j < hi; j += blockDim.x) row[j] = 0.0f;
 }
 
 // cudaGetLastError() as the C entry points return it.
 inline int last_error() { return static_cast<int>(cudaGetLastError()); }
+
+// The blocks of `kernel` (BLOCK threads, static shared memory only) one
+// card holds at once: the grid of a grid-stride launch, queried on the
+// first call (neither query synchronises) and kept. The grid sets only how
+// many units run at once, never the results. 0 when a query failed, which
+// the launch then reports as its error.
+template <typename Kernel>
+int resident_grid(Kernel kernel) {
+  static int grid = 0;
+  if (grid == 0) {
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    grid = per_sm * sms;
+  }
+  return grid;
+}
 
 }  // namespace blend

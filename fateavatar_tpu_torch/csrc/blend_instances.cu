@@ -13,8 +13,8 @@
 // (instance, pixel) pair the pixel reaches costs ~20 fp32 operations plus
 // one exp. A frame has ~10^2 pairs per byte, so the work is arithmetic; at
 // 67 TFLOP/s a full-width frame needs ~0.013 ms. What held the per-tile
-// walk (one block per tile, blend_common.cuh::forward_tile, still used by
-// blend_tiles.cu) far from that was load imbalance: the longest tile walked
+// walk (one block per tile, this kernel's design before the segmented
+// walk) far from that was load imbalance: the longest tile walked
 // ~8,700 instances alone on one SM while the mean tile holds ~180, and one
 // dependent chain per pixel thread with a single block on the SM costs
 // ~200 cycles per instance.
@@ -54,7 +54,7 @@ using namespace blend;
 __global__ void __launch_bounds__(PLAN_THREADS)
 blend_instances_fwd_plan(const int* __restrict__ tile_starts, int64_t m, int num_tiles,
                          int cap, int* __restrict__ unit_start, int* __restrict__ unit_tile) {
-  plan_segments(tile_starts, m, num_tiles, cap, unit_start, unit_tile);
+  plan_segments(CompactRanges{tile_starts, m}, num_tiles, cap, unit_start, unit_tile);
 }
 
 // row 9 of the [16, M] array is the valid flag
@@ -65,7 +65,8 @@ blend_instances_fwd_products(const float* __restrict__ inst, int64_t m,
                              const int* __restrict__ unit_tile, float* __restrict__ prod) {
   Unit un;
   const int u = blockIdx.x;
-  if (!unit_of(u, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  const CompactRanges tiles{tile_starts, m};
+  if (!unit_of(u, tiles, num_tiles, unit_start, unit_tile, un)) return;
   segment_products<false>(inst, inst + 9 * m, m, un, u, grid_x, nullptr, prod, nullptr);
 }
 
@@ -77,7 +78,8 @@ blend_instances_fwd_walk(const float* __restrict__ inst, int64_t m,
                          float* __restrict__ tfin) {
   Unit un;
   const int u = blockIdx.x;
-  if (!unit_of(u, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  const CompactRanges tiles{tile_starts, m};
+  if (!unit_of(u, tiles, num_tiles, unit_start, unit_tile, un)) return;
   forward_segment(inst, inst + 9 * m, m, un, u, grid_x, prod, part, tfin);
 }
 

@@ -14,7 +14,7 @@
 // blends ~40 more (dalpha, the 9 partials and their warp reduction),
 // against 40 B read per instance, 32 B per pixel and 64 B written per
 // column: arithmetic again, ~0.012 ms for a full-width training frame. The
-// per-tile walk (one block per tile, still kernel 4's) was held to ~0.5% of
+// per-tile walk (one block per tile, the earlier design) was held to ~0.5% of
 // that by its longest tile: ~8,300 instances walked by one block, with a
 // warp vote and 9 x 5 shuffle-adds per instance in the same serial chain.
 //
@@ -51,7 +51,7 @@ constexpr int ROW = 16;              // rows of the [16, M] arrays
 __global__ void __launch_bounds__(PLAN_THREADS)
 blend_instances_bwd_plan(const int* __restrict__ tile_starts, int64_t m, int num_tiles,
                          int cap, int* __restrict__ unit_start, int* __restrict__ unit_tile) {
-  plan_segments(tile_starts, m, num_tiles, cap, unit_start, unit_tile);
+  plan_segments(CompactRanges{tile_starts, m}, num_tiles, cap, unit_start, unit_tile);
 }
 
 // row 9 of the [16, M] array is the valid flag
@@ -64,7 +64,8 @@ blend_instances_bwd_products(const float* __restrict__ inst, int64_t m,
                              float* __restrict__ usum) {
   Unit un;
   const int u = blockIdx.x;
-  if (!unit_of(u, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  const CompactRanges tiles{tile_starts, m};
+  if (!unit_of(u, tiles, num_tiles, unit_start, unit_tile, un)) return;
   segment_products<true>(inst, inst + 9 * m, m, un, u, grid_x, gimg, prod, usum);
 }
 
@@ -93,7 +94,8 @@ blend_instances_bwd_walk(const float* __restrict__ inst, int64_t m,
     return;
   }
   Unit un;
-  if (!unit_of(blockIdx.x, tile_starts, m, num_tiles, unit_start, unit_tile, un)) return;
+  const CompactRanges tiles{tile_starts, m};
+  if (!unit_of(blockIdx.x, tiles, num_tiles, unit_start, unit_tile, un)) return;
   backward_segment<ROW>(inst, inst + 9 * m, m, un, grid_x, img, tfin, gimg, gtfin, prod,
                         usum, gout);
 }

@@ -23,7 +23,7 @@ Both kernels run the segmented walk of ``csrc/blend_common.cuh``: each
 tile's range is cut into segments of 256 columns, one block each, joined
 through each segment's transmittance product, so that no block walks a long
 tile alone. Each wrapper call makes one host call that queues all of its
-kernel's launches, with a scratch buffer (:func:`_scratch`) allocated here
+kernel's launches, with a scratch buffer (:func:`scratch`) allocated here
 at the size the C side asks for.
 """
 
@@ -56,7 +56,7 @@ def _scratch_floats(lib, entry, m, n_tiles):
                            ctypes.c_int64)
 
 
-def _scratch(lib, entry, m, n_tiles, device):
+def scratch(lib, entry, m, n_tiles, device):
     """The scratch of C entry point ``entry`` of ``csrc/<lib>.cu``: one
     ``torch.empty`` of the floats its ``<entry>_scratch_floats`` asks for
     (the layout lives in the C source alone; the entry point refuses a
@@ -321,12 +321,11 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
         raise ValueError(f"out must be a contiguous float32 [{ROW}, {m}] "
                          f"tensor on {inst_data.device}")
     ty, tx = grid
-    scratch = _scratch("blend_instances_bwd", "blend_instances_bwd", m, ty * tx,
-                       inst_data.device)
+    buf = scratch("blend_instances_bwd", "blend_instances_bwd", m, ty * tx, inst_data.device)
     cuda_build.launch("blend_instances_bwd", "blend_instances_bwd", _BWD_ARGS, (
         inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
         t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(), out.data_ptr(),
-        ty * tx, tx, scratch.data_ptr(), scratch.numel()), inst_data.device)
+        ty * tx, tx, buf.data_ptr(), buf.numel()), inst_data.device)
     blend_instances_bwd.launches += 1
     return out
 
@@ -349,10 +348,10 @@ def _blend_forward(inst_data, tile_starts, bg, grid):
     img = torch.empty((T, 3, P), dtype=torch.float32, device=inst_data.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=inst_data.device)
     m = inst_data.shape[1]
-    scratch = _scratch("blend_instances", "blend_instances_fwd", m, T, inst_data.device)
+    buf = scratch("blend_instances", "blend_instances_fwd", m, T, inst_data.device)
     cuda_build.launch("blend_instances", "blend_instances_fwd", _FWD_ARGS, (
         inst_data.data_ptr(), m, tile_starts.data_ptr(), bg.data_ptr(),
-        img.data_ptr(), t_final.data_ptr(), T, tx, scratch.data_ptr(), scratch.numel()),
+        img.data_ptr(), t_final.data_ptr(), T, tx, buf.data_ptr(), buf.numel()),
         inst_data.device)
     blend_instances.launches += 1
     return img, t_final

@@ -18,6 +18,13 @@ in ``csrc/blend_tiles_bwd.cu`` (:func:`blend_tiles_bwd`); on a CPU tensor
 both run their plain versions, :func:`blend_tiles_reference` and
 :func:`blend_tiles_backward_reference`. Nothing falls back: a CUDA tensor
 gets the kernel or an error.
+
+Both kernels run the segmented walk of ``csrc/blend_common.cuh``, as the
+instance kernels do: each tile's list is cut into segments of 256 slots,
+counted from the tile's first slot, so that no block walks a long list
+alone. Each wrapper call makes one host call that queues all of its
+kernel's launches, with a scratch buffer (``blend_instances.scratch``) of
+the size the C side asks for.
 """
 
 from __future__ import annotations
@@ -35,10 +42,10 @@ P = TILE * TILE
 NG = 9          # rows of the gathered lists and of their gradient
 
 # the C entry points' signatures (csrc/blend_tiles*.cu)
-_PTR, _INT = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = (_PTR, _PTR, ctypes.c_int64, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR)
-_BWD_ARGS = (_PTR, _PTR, ctypes.c_int64, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR,
-             _INT, _INT, _PTR)
+_PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_FWD_ARGS = (_PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR)
+_BWD_ARGS = (_PTR, _PTR, _I64, _PTR, _INT, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT,
+             _PTR, _I64, _PTR)
 
 
 def tiles_to_image(img_tiles: torch.Tensor, grid: Tuple[int, int],
@@ -158,10 +165,11 @@ def blend_tiles_bwd(data, valid, counts, bg, img, t_final, g_img, g_tfin, grid,
         raise ValueError(f"out must be a contiguous float32 [{NG}, {m}] tensor "
                          f"on {data.device}")
     ty, tx = grid
+    buf = bi.scratch("blend_tiles_bwd", "blend_tiles_bwd", m, ty * tx, data.device)
     cuda_build.launch("blend_tiles_bwd", "blend_tiles_bwd", _BWD_ARGS, (
         data.data_ptr(), valid.data_ptr(), m, counts.data_ptr(), k, img.data_ptr(),
         t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(), out.data_ptr(),
-        ty * tx, tx), data.device)
+        ty * tx, tx, buf.data_ptr(), buf.numel()), data.device)
     blend_tiles_bwd.launches += 1
     return out
 
@@ -179,9 +187,11 @@ def _blend_forward(data, valid, counts, bg, grid, chunk):
     T = ty * tx
     img = torch.empty((T, 3, P), dtype=torch.float32, device=data.device)
     t_final = torch.empty((T, P), dtype=torch.float32, device=data.device)
+    m = data.shape[1]
+    buf = bi.scratch("blend_tiles", "blend_tiles_fwd", m, T, data.device)
     cuda_build.launch("blend_tiles", "blend_tiles_fwd", _FWD_ARGS, (
-        data.data_ptr(), valid.data_ptr(), data.shape[1], counts.data_ptr(),
-        data.shape[1] // T, bg.data_ptr(), img.data_ptr(), t_final.data_ptr(), T, tx),
+        data.data_ptr(), valid.data_ptr(), m, counts.data_ptr(), m // T, bg.data_ptr(),
+        img.data_ptr(), t_final.data_ptr(), T, tx, buf.data_ptr(), buf.numel()),
         data.device)
     blend_tiles.launches += 1
     return img, t_final

@@ -1,15 +1,19 @@
-"""The segmented walk of the instance-blend kernels, emulated on the CPU.
+"""The segmented walk of the four blend kernels, emulated on the CPU.
 
-``csrc/blend_instances.cu`` and ``csrc/blend_instances_bwd.cu`` cut every
-tile's range into segments of SEG columns, one block each: pass A takes
-each segment's product P of (1 - alpha) (and, backward, U = sum alpha_j T_j
+``csrc/blend_instances*.cu`` (the compact layout: tile t's range is
+[tile_starts[t], tile_starts[t+1]) of a flat array) and
+``csrc/blend_tiles*.cu`` (the dense layout: the first min(counts[t], K) of
+tile t's K slots) cut every tile's range into segments of SEG columns,
+counted from the tile's own start, each a work unit: pass A takes each
+segment's product P of (1 - alpha) (and, backward, U = sum alpha_j T_j
 (g . c_j)) from T = 1, each segment's entry q_in (and pu_in) folds the
 earlier segments' results in order, and pass B walks the segment exactly
 from there with the q >= 1e-4 test. This file holds a torch emulation of
 that schedule, with the kernels' rounding order (test code only, never
-called by the package), and holds it against the plain versions and the
-Pallas kernels in interpret mode: the only place off the card where a wrong
-q_in, pu_in or T_final shows."""
+called by the package), and holds it against the plain versions of both
+layouts and, for the compact one, the Pallas kernels in interpret mode: the
+only place off the card where a wrong q_in, pu_in or T_final shows. The
+same lists in either layout give the same bits."""
 
 import functools
 
@@ -20,9 +24,11 @@ import torch
 
 from torch_blend_cases import BLEND_CASES, CROSS_AT, SEG, blend_case
 from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
+from torch_tile_cases import TILE_CASES, dense_layout
 from fateavatar_tpu.render.blend_instances import blend_instances_pallas
 
 from fateavatar_tpu_torch.render import blend_instances as tblend
+from fateavatar_tpu_torch.render import blend_tiles as ttiles
 
 L = SEG
 P = tblend.P
@@ -36,6 +42,10 @@ FWD_ATOL = 5e-5
 # against the Pallas VJP (tests/test_torch_render.py): the 256 pixel terms
 # and the prefix pu are summed in another order
 BWD_RTOL = 5e-5
+# slots per tile when a blend case is laid out densely: the "boundary" tile
+# case's K, above every case's longest range (3,900)
+DENSE_K = TILE_CASES["boundary"][0]
+LAYOUTS = ("compact", "dense")
 
 
 def t(x, dtype=torch.float32):
@@ -43,15 +53,14 @@ def t(x, dtype=torch.float32):
 
 
 class Units:
-    """The plan: unit u is segment k[u] of tile tile[u], columns
-    [a[u], a[u] + n[u]); units of a tile are consecutive, in segment order.
-    Every column of every unit is evaluated at every pixel once, up front
-    (:meth:`splat` reads it)."""
+    """The plan over tile t's columns [s[t], e[t]) of ``rows`` ([>= 9, M]):
+    unit u is segment k[u] of tile tile[u], columns [a[u], a[u] + n[u]);
+    units of a tile are consecutive, in segment order. A column blends only
+    where ``valid`` [M] > 0. Every column of every unit is evaluated at
+    every pixel once, up front (:meth:`splat` reads it)."""
 
-    def __init__(self, inst, starts, grid):
-        m = inst.shape[1]
-        s = starts[:-1].long().clamp(0, m)
-        e = torch.maximum(starts[1:].long().clamp(0, m), s)
+    def __init__(self, rows, valid, s, e, grid):
+        m = rows.shape[1]
         nseg = (e - s + L - 1) // L
         self.tile = torch.repeat_interleave(torch.arange(len(nseg)), nseg)
         first = torch.cumsum(nseg, 0) - nseg
@@ -62,9 +71,9 @@ class Units:
         cols = self.a[:, None] + torch.arange(L)                  # [U, L]
         in_seg = torch.arange(L)[None, :] < self.n[:, None]
         col = cols.clamp(max=m - 1)
-        ok = in_seg & (inst[9, col] > 0)
+        ok = in_seg & (valid[col] > 0)
         self.cols, self.in_seg = cols, in_seg
-        self.data = inst[:9, col]                                  # [9, U, L]
+        self.data = rows[:9, col]                                  # [9, U, L]
         self.data[8] = torch.where(ok, self.data[8], 0.0)          # staged opacity 0
         ty, tx = grid
         lin = torch.arange(P)
@@ -143,10 +152,11 @@ def walk(units, q_in, step):
     return T, evaluated
 
 
-def emulate_forward(inst, starts, bg, grid):
-    """The forward kernel's schedule: (img [T,3,P], t_final [T,P], pairs
-    evaluated by pass A, pairs evaluated by pass B)."""
-    units = Units(inst, starts, grid)
+def emulate_forward(rows, valid, s, e, bg, grid):
+    """The forward kernels' schedule over tile t's columns [s[t], e[t]):
+    (img [T,3,P], t_final [T,P], pairs evaluated by pass A, pairs evaluated
+    by pass B)."""
+    units = Units(rows, valid, s, e, grid)
     prod, _ = pass_a(units)
     q_in, _ = entry(units, prod, torch.zeros_like(prod))
     acc = torch.zeros((3,) + prod.shape)
@@ -170,16 +180,17 @@ def emulate_forward(inst, starts, bg, grid):
     return img, tfin, int(units.in_seg.sum()) * P, evaluated_b
 
 
-def emulate_backward(inst, starts, img, tfin, g_img, g_tfin, grid):
-    """The backward kernel's schedule: g_inst [16, M]."""
-    units = Units(inst, starts, grid)
+def emulate_backward(rows, valid, s, e, img, tfin, g_img, g_tfin, grid, n_out):
+    """The backward kernels' schedule: the gradient of rows 0-8 as
+    [n_out, M] (the other rows and the columns outside the ranges 0)."""
+    units = Units(rows, valid, s, e, grid)
     g = g_img[units.tile].permute(1, 0, 2)                       # [3, U, P]
     prod, usum = pass_a(units, g)
     q_in, pu_in = entry(units, prod, usum)
     gdotimg = _gdot(g, *img[units.tile].permute(1, 0, 2))
     gt_tn = (g_tfin * tfin)[units.tile]
     pu = pu_in.clone()
-    g_out = torch.zeros((16, inst.shape[1]))
+    g_out = torch.zeros((n_out, rows.shape[1]))
 
     def step(j, keep, alpha, T, sp):
         _, _, raw, expp, dx, dy = sp
@@ -205,6 +216,31 @@ def emulate_backward(inst, starts, img, tfin, g_img, g_tfin, grid):
 def _inputs(name):
     inst, starts, bg, grid = blend_case(name)
     return inst, starts, bg, grid, (t(inst), t(starts, torch.int32), t(bg))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(name, layout):
+    """Blend case ``name`` in ``layout``: (rows, valid, s, e), tile t's
+    columns [s[t], e[t]) of rows; "compact" as the instance kernels read it
+    (ranges clamped into [0, M), as blend_common.cuh's CompactRanges),
+    "dense" as the tile kernels do (dense_layout, K = DENSE_K)."""
+    if layout == "compact":
+        inst, starts, _, _ = blend_case(name)
+        m = inst.shape[1]
+        s = t(starts[:-1], torch.int64).clamp(0, m)
+        e = torch.maximum(t(starts[1:], torch.int64).clamp(0, m), s)
+        return t(inst), t(inst[9]), s, e
+    data, valid, counts, _, _ = _dense_case(name)
+    s = torch.arange(len(counts)) * DENSE_K
+    return data, valid, s, s + counts.long()
+
+
+def _dense_case(name):
+    """The tile blend's arguments (data, valid, counts, bg, grid) of blend
+    case ``name`` laid out densely."""
+    inst, starts, bg, grid = blend_case(name)
+    data, valid, counts = dense_layout(inst, starts, DENSE_K, grid)
+    return t(data), t(valid), t(counts, torch.int32), t(bg), grid
 
 
 def _cotangents(grid):
@@ -243,45 +279,93 @@ def _plain_forward(name):
     return img, tfin, evaluated
 
 
+@functools.lru_cache(maxsize=None)
+def _emulated_forward(name, layout):
+    bg, grid = blend_case(name)[2:]
+    return emulate_forward(*_layout(name, layout), t(bg), grid)
+
+
+@functools.lru_cache(maxsize=None)
+def _emulated_backward(name, layout):
+    """The emulated backward in ``layout`` on the compact plain forward's
+    outputs and _cotangents: the same inputs in both layouts."""
+    grid = blend_case(name)[3]
+    img, tfin, _ = _plain_forward(name)
+    g_img, g_tfin = (t(x) for x in _cotangents(grid))
+    n_out = tblend.ROW if layout == "compact" else ttiles.NG
+    return emulate_backward(*_layout(name, layout), img, tfin, g_img, g_tfin, grid, n_out)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("name", BLEND_CASES)
-def test_segmented_forward_matches_plain_and_pallas(name):
-    """Emulated kernel schedule vs blend_instances_reference and the Pallas
-    forward (interpret), FWD_ATOL; pass B evaluates the pairs the
-    sequential walk evaluates, pass A every pair of every range."""
+def test_segmented_forward_matches_plain_and_pallas(name, layout):
+    """Emulated kernel schedule vs the plain version of its layout
+    (blend_instances_reference or blend_tiles_reference), and in the compact
+    layout the Pallas forward (interpret), FWD_ATOL; pass B evaluates the
+    pairs the sequential walk evaluates, pass A every pair of every range."""
     inst, starts, bg, grid, (ti, ts, tb) = _inputs(name)
-    img, tfin, pairs_a, pairs_b = emulate_forward(ti, ts, tb, grid)
-    img_p, tfin_p, evaluated = _plain_forward(name)
+    img, tfin, pairs_a, pairs_b = _emulated_forward(name, layout)
+    if layout == "compact":
+        img_p, tfin_p, evaluated = _plain_forward(name)
+        img_j, tfin_j, _ = _pallas(name)
+        np.testing.assert_allclose(img.numpy(), img_j, atol=FWD_ATOL)
+        np.testing.assert_allclose(tfin.numpy(), tfin_j, atol=FWD_ATOL)
+        assert pairs_b == int(evaluated.sum())
+    else:
+        img_p, tfin_p = ttiles.blend_tiles_reference(*_dense_case(name))
     torch.testing.assert_close(img, img_p, atol=FWD_ATOL, rtol=0)
     torch.testing.assert_close(tfin, tfin_p, atol=FWD_ATOL, rtol=0)
-    img_j, tfin_j, _ = _pallas(name)
-    np.testing.assert_allclose(img.numpy(), img_j, atol=FWD_ATOL)
-    np.testing.assert_allclose(tfin.numpy(), tfin_j, atol=FWD_ATOL)
     assert pairs_a == int(np.diff(starts).sum()) * P
-    assert pairs_b == int(evaluated.sum())
     empty = np.diff(starts) == 0
     np.testing.assert_array_equal(tfin.numpy()[empty], 1.0)
 
 
+@pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("name", BLEND_CASES)
-def test_segmented_backward_matches_plain_and_pallas(name):
-    """Emulated backward schedule vs blend_instances_backward_reference on
-    the same forward outputs and vs jax.vjp of the Pallas kernel
-    (interpret), BWD_RTOL of each row's largest element; rows 9-15 and the
-    columns past the ranges are 0."""
+def test_segmented_backward_matches_plain_and_pallas(name, layout):
+    """Emulated backward schedule vs the plain backward of its layout
+    (blend_instances_backward_reference or blend_tiles_backward_reference)
+    on the same forward outputs, and in the compact layout vs jax.vjp of the
+    Pallas kernel (interpret), BWD_RTOL of each row's largest element; the
+    other rows and the columns outside the ranges are 0."""
     _, starts, _, grid, (ti, ts, tb) = _inputs(name)
     g_img, g_tfin = (t(x) for x in _cotangents(grid))
     img, tfin, _ = _plain_forward(name)
-    got = emulate_backward(ti, ts, img, tfin, g_img, g_tfin, grid).numpy()
-    ref = tblend.blend_instances_backward_reference(ti, ts, tb, img, tfin, g_img, g_tfin,
-                                                    grid).numpy()
-    ref_j = _pallas(name)[2]
+    got = _emulated_backward(name, layout).numpy()
+    if layout == "compact":
+        refs = (tblend.blend_instances_backward_reference(ti, ts, tb, img, tfin, g_img,
+                                                          g_tfin, grid).numpy(),
+                _pallas(name)[2])
+    else:
+        data, valid, counts, bg, _ = _dense_case(name)
+        refs = (ttiles.blend_tiles_backward_reference(data, valid, counts, bg, img, tfin,
+                                                      g_img, g_tfin, grid).numpy(),)
     for row in range(9):
-        for r in (ref, ref_j):
+        for r in refs:
             np.testing.assert_allclose(got[row], r[row],
                                        atol=BWD_RTOL * np.abs(r[row]).max() + 1e-7,
                                        err_msg=f"row {row}")
     np.testing.assert_array_equal(got[9:], 0.0)
-    np.testing.assert_array_equal(got[:, starts[-1]:], 0.0)
+    _, _, s, e = _layout(name, layout)
+    outside = np.ones(got.shape[1], bool)
+    for a, b in zip(s.tolist(), e.tolist()):
+        outside[a:b] = False
+    np.testing.assert_array_equal(got[:, outside], 0.0)
+
+
+def test_dense_layout_gives_the_compact_bits():
+    """The ``boundary`` case laid out densely runs the same segments as its
+    compact layout, so the emulated schedule gives the same bits: image,
+    T_final, pass A and pass B pairs, and each list's gradient columns."""
+    name = "boundary"
+    for a, b in zip(_emulated_forward(name, "compact"), _emulated_forward(name, "dense")):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+    g_c = _emulated_backward(name, "compact")
+    g_d = _emulated_backward(name, "dense")
+    _, _, s_c, e_c = _layout(name, "compact")
+    _, _, s_d, _ = _layout(name, "dense")
+    for sc, ec, sd in zip(s_c.tolist(), e_c.tolist(), s_d.tolist()):
+        assert torch.equal(g_d[:, sd:sd + ec - sc], g_c[:9, sc:ec])
 
 
 def test_boundary_case_crosses_at_segment_boundaries():
@@ -290,8 +374,8 @@ def test_boundary_case_crosses_at_segment_boundaries():
     pixels all stop in its first segment (so its later segments enter below
     1e-4 and add nothing), and ranges start mid-segment of the global
     column index."""
-    _, starts, _, grid, (ti, ts, tb) = _inputs("boundary")
-    units = Units(ti, ts, grid)
+    _, starts, _, grid, _ = _inputs("boundary")
+    units = Units(*_layout("boundary", "compact"), grid)
     prod, _ = pass_a(units)
     q_in, _ = entry(units, prod, torch.zeros_like(prod))
     evaluated = _plain_forward("boundary")[2]

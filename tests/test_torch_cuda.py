@@ -120,27 +120,48 @@ def test_blend_bwd_kernel_writes_every_element():
     assert torch.equal(dirty, clean)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", BLEND_CASES)
-def test_blend_kernels_are_bit_identical_across_calls(name):
-    """Kernels 1 and 2 give the same bits on every call: each column and
-    pixel is owned by one unit, and partial sums combine in a fixed order,
-    whatever order the blocks run in."""
-    inst, starts, bg, grid = _cuda_inputs(name)
-    img, tfin = tblend.blend_instances(inst, starts, bg, grid)
-    img2, tfin2 = tblend.blend_instances(inst, starts, bg, grid)
-    args = (inst, starts, bg, img, tfin, *_cotangents(grid), grid)
-    g, g2 = tblend.blend_instances_bwd(*args), tblend.blend_instances_bwd(*args)
-    torch.cuda.synchronize()
-    assert torch.equal(img, img2) and torch.equal(tfin, tfin2)
-    assert torch.equal(g, g2)
-
-
 def _cuda_tile_inputs(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     data, valid, counts, bg, grid = tile_case(name)
     return (*(torch.from_numpy(x).cuda() for x in (data, valid, counts, bg)), grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, name", [("instances", n) for n in BLEND_CASES]
+                         + [("tiles", n) for n in sorted(TILE_CASES)])
+def test_blend_kernels_are_bit_identical_across_calls(route, name):
+    """Each route's kernels (1 and 2 on the compact cases, 3 and 4 on the
+    dense ones) give the same bits on every call: each column and pixel is
+    owned by one unit, and partial sums combine in a fixed order, whatever
+    order the blocks run in."""
+    if route == "instances":
+        fwd_args = _cuda_inputs(name)
+        fwd, bwd = tblend.blend_instances, tblend.blend_instances_bwd
+    else:
+        fwd_args = _cuda_tile_inputs(name)
+        fwd, bwd = ttiles.blend_tiles, ttiles.blend_tiles_bwd
+    *inputs, grid = fwd_args
+    img, tfin = fwd(*fwd_args)
+    img2, tfin2 = fwd(*fwd_args)
+    args = (*inputs, img, tfin, *_cotangents(grid), grid)
+    g, g2 = bwd(*args), bwd(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(img, img2) and torch.equal(tfin, tfin2)
+    assert torch.equal(g, g2)
+
+
+@pytest.mark.cuda
+def test_tile_and_instance_kernels_agree_bit_for_bit():
+    """The same lists through kernels 1 and 3 (the ``boundary`` blend case
+    and its dense layout, the tile case ``boundary``) give the same bits:
+    both kernels run the same segments, counted from each tile's start."""
+    inst, starts, bg, grid = _cuda_inputs("boundary")
+    data, valid, counts, bg_t, _ = _cuda_tile_inputs("boundary")
+    img_i, tfin_i = tblend.blend_instances(inst, starts, bg, grid)
+    img_t, tfin_t = ttiles.blend_tiles(data, valid, counts, bg_t, grid)
+    torch.cuda.synchronize()
+    assert torch.equal(img_i, img_t) and torch.equal(tfin_i, tfin_t)
 
 
 @pytest.mark.cuda

@@ -4,6 +4,8 @@ Numpy only, so the card-only tests run where JAX is not installed."""
 
 import numpy as np
 
+from torch_blend_cases import blend_case
+
 TILE_CASES = {
     # name: (K, per-tile counts on a (3, 4) grid)
     # empty tiles between short lists
@@ -14,7 +16,32 @@ TILE_CASES = {
     "saturated": (512, [300, 200, 0, 90, 500, 0, 129, 0, 40, 0, 0, 700]),
     # one faint tile spans > 60 windows of 64
     "long": (4096, [40, 3900, 100, 0, 0, 60, 0, 257, 0, 0, 12, 0]),
+    # torch_blend_cases' "boundary" lists laid out densely (dense_layout):
+    # crossings of T = 1e-4 at and around the segmented walk's segment
+    # boundaries; the K of "long" (above every list), so no new array shape
+    "boundary": (4096, None),
 }
+
+
+def dense_layout(inst, starts, k, grid):
+    """The compact ranges [starts[t], starts[t+1]) of a [16, M] instance
+    array laid into each tile's first slots of K: (data [9, T*K], valid
+    [T*K], counts [T] int32), the instances in the same order. The slots
+    past each list hold an opaque splat over the whole tile, marked valid:
+    a blend must never read them."""
+    tx = grid[1]
+    counts = np.diff(starts).astype(np.int32)
+    tile = np.arange(len(counts))
+    data = np.zeros((9, len(counts), k), np.float32)
+    data[0] = ((tile % tx) * 16 + 8)[:, None]
+    data[1] = ((tile // tx) * 16 + 8)[:, None]
+    data[2] = data[4] = 1e-3
+    data[5:9] = 1.0
+    valid = np.ones((len(counts), k), np.float32)
+    for t, (s, c) in enumerate(zip(starts[:-1], counts)):
+        data[:, t, :c] = inst[:9, s:s + c]
+        valid[t, :c] = inst[9, s:s + c]
+    return data.reshape(9, -1), valid.reshape(-1), counts
 
 
 def tile_case(name, seed=0):
@@ -27,6 +54,9 @@ def tile_case(name, seed=0):
     grid = (3, 4)
     ty, tx = grid
     k, counts = TILE_CASES[name]
+    if counts is None:
+        inst, starts, bg, grid = blend_case(name, seed)
+        return (*dense_layout(inst, starts, k, grid), bg, grid)
     rng = np.random.default_rng(seed)
     cols, valids = [], []
     for tile, c in enumerate(counts):
