@@ -22,7 +22,18 @@ weights), each through both routes of ``RenderConfig.kernel``:
   trains on; one train step's gradients with the kernels against the same
   step with both blends swapped for their plain versions; then the same
   epoch and step checks with ``kernel="tiles"``, and one step's gradients
-  through the tiles route against the instances route.
+  through the tiles route against the instances route;
+* the CLIs (``[cli]``): an IMAvatar layout written to disk with the port's
+  PNG writer (the serving checkpoint's renders as ground truth), then
+  ``cli/train_mono_avatar`` with per-frame tracking refinement, snapshots,
+  the test rows' fit, evaluation and its media, ``--resume``, and
+  ``cli/avatar_reenact``; launches per step, tracking counts, media files,
+  and one tracking step's row gradients with the kernels against the
+  plain blends.
+
+A ``[caps]`` line first reports what the machine offers the host side
+(g++, the libpng and libjpeg headers, ffmpeg, PIL, matplotlib,
+torchvision).
 
 All four kernels run the segmented walk of ``csrc/blend_common.cuh``.
 Kernels 1 and 2 (the instance blend) are also held against their plain
@@ -111,6 +122,18 @@ MAINT_OVERRIDES = {"densify_interval": 10, "prune_interval": 15}
 TILE_K_HEADROOM = 1.25
 # the dense-list backward writes its whole [9, T*K] gradient (36 B a slot)
 TILE_BWD_BYTES_PER_SLOT = 36
+
+# the [cli] phase: an IMAvatar layout of this many 512x512 frames, the test
+# rows' tracking fit (training.epochs.finetune) and the snapshot cadence
+CLI_TRAIN, CLI_TEST = 12, 4
+CLI_FINETUNE = 3
+CLI_SNAPSHOT = 6
+# one tracking step's row gradients, kernels vs plain blends: relative L2
+# per field. The two images differ by ~1e-6 a pixel (see check_blend), which
+# the loss turns into O(1) changes of a pixel's term where an L1 residual,
+# a VGG ReLU input or a max pool's top two sit within it (the bound of the
+# whole step's comparison, STEP_RTOL_L2); a wrong gradient shows as O(1)
+TRACK_RTOL_L2 = 1e-2
 
 SEGMENTED = ("segmented walk: one work unit per (tile, 256-column segment); pass A "
              "products, entry transmittance folded in segment order, pass B exact walk")
@@ -827,6 +850,7 @@ def train_phase(s, gen, rows, card):
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) * 1e3 / 10
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    s.step_ms = step_ms
     log(f"[train] ms/step {step_ms:.3f} (host clock, synchronized, 10 steady steps, "
         f"maintenance excluded), peak device memory {peak_gib:.3f} GiB "
         f"(resident before the steps {base_mem / 2**30:.3f} GiB) [{card}]")
@@ -1211,6 +1235,324 @@ def tiles_train_phase(s, trainer_i, rows, card):
     log(f"[tiles-train] phase total {time.perf_counter() - t_phase:.1f} s")
 
 
+def capabilities():
+    """What the machine offers the host side: a C++ compiler, the libpng
+    and libjpeg headers (for a copy of the JAX package's native loader),
+    ffmpeg (mp4 videos), PIL, matplotlib (metric plots), torchvision."""
+    import glob
+    import importlib.util
+    import shutil
+
+    def header(name):
+        return bool([p for d in ("/usr/include", "/usr/local/include")
+                     for p in glob.glob(os.path.join(d, "**", name), recursive=True)][:1])
+
+    caps = {"g++": shutil.which("g++") is not None, "png.h": header("png.h"),
+            "jpeglib.h": header("jpeglib.h"), "ffmpeg": shutil.which("ffmpeg") is not None}
+    for mod in ("PIL", "matplotlib", "torchvision"):
+        caps[mod] = importlib.util.find_spec(mod) is not None
+    return caps
+
+
+@contextmanager
+def counted(cls, names, record):
+    """Wrap methods ``names`` of ``cls``: each call appends (name, kernel 1
+    launches, kernel 2 launches, host seconds, synchronized) to ``record``."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    orig = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def inner(*args, **kwargs):
+            torch.cuda.synchronize()
+            f0, b0, t0 = bi.blend_instances.launches, bi.blend_instances_bwd.launches, \
+                time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append((name, bi.blend_instances.launches - f0,
+                           bi.blend_instances_bwd.launches - b0, time.perf_counter() - t0))
+            return out
+        return inner
+
+    for n, fn in orig.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in orig.items():
+            setattr(cls, n, fn)
+
+
+def write_cli_layout(ws, model, params, state):
+    """An IMAvatar subject under ``ws``: CLI_TRAIN + CLI_TEST frames at
+    512x512, ground truth the RGBA renders of ``params`` (black background:
+    colour / alpha, alpha = 1 - T_final) through the kernels, expression and
+    pose codes of std 0.05, the cameras of SyntheticDataset's orbit, and
+    seeded random VGG16 weights as an npz. Returns (root, vgg path, frame 0's
+    binned instances, its share of covered pixels)."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render.render import render
+    from fateavatar_tpu_torch.train.losses import vgg16_random_params
+    from fateavatar_tpu_torch.utils.png import write_png
+
+    _tests_on_path()
+    from torch_layouts import orbit, write_imavatar
+
+    dev = "cuda"
+    rng = np.random.default_rng(1)
+    root = os.path.join(ws, "imavatar", "subj")
+    h, w = model.cfg.img_height, model.cfg.img_width
+    stats = {}
+    for mode, n in (("train", CLI_TRAIN), ("test", CLI_TEST)):
+        exprs = (rng.normal(size=(n, 50)) * 0.05).astype(np.float32)
+        poses = (rng.normal(size=(n, 15)) * 0.05).astype(np.float32)
+        views = orbit(n)
+        imgs = []
+        for i in range(n):
+            cam = make_camera(views[i, :3, :3].T, views[i, :3, 3], 0.8, 0.8, w, h, device=dev)
+            g = build_gaussians(model, params, state, torch.from_numpy(exprs[i]).to(dev),
+                                torch.from_numpy(poses[i]).to(dev))[0]
+            with torch.no_grad():
+                out = render(cam, g, torch.zeros(3, device=dev))
+            alpha = 1.0 - out["t_final"]
+            rgb = out["render"] / alpha.clamp_min(1e-6)[..., None]
+            rgba = torch.cat([rgb, alpha[..., None]], dim=-1).clamp(0, 1)
+            imgs.append((rgba * 255.0).round().to(torch.uint8).cpu().numpy())
+            check(bool(torch.isfinite(rgba).all()), f"finite ground truth {mode} {i}")
+            if mode == "train" and i == 0:
+                stats = {"instances": int(out["tile_counts"].sum()),
+                         "covered": float((alpha > 0.5).float().mean())}
+        write_imavatar(root, mode, imgs, views, exprs, poses, np.zeros(100), 0.8, write_png)
+    vgg = vgg16_random_params(torch.Generator(device=dev).manual_seed(0), device=dev)
+    vgg_path = os.path.join(ws, "vgg16_random.npz")
+    np.savez(vgg_path, **{f"{k}{i}": x.cpu().numpy() for i, (wt, b) in enumerate(vgg)
+                          for k, x in (("w", wt), ("b", b))})
+    return root, vgg_path, stats
+
+
+def cli_phase(ws, model, params, state, rows, card, train_step_ms):
+    """The monocular-video path through the port's CLIs at full width: an
+    IMAvatar layout on disk -> train_mono_avatar (one epoch with per-frame
+    tracking, snapshots, the test rows' fit, eval, media, checkpoint) ->
+    --resume to epoch 2 -> avatar_reenact on the test layout; then one
+    tracking step's row gradients, kernels vs plain blends."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import avatar_reenact, train_mono_avatar
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train import tracking
+    from fateavatar_tpu_torch.train.losses import FateAvatarLoss
+    from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cws = os.path.join(ws, "cli")
+    root, vgg_path, gt0 = write_cli_layout(cws, model, params, state)
+    log(f"[cli] IMAvatar layout {root}: {CLI_TRAIN} train / {CLI_TEST} test frames of "
+        f"{model.cfg.img_height}x{model.cfg.img_width}, ground truth the serving "
+        f"checkpoint's RGBA renders (codes std 0.05); frame 0 bins {gt0['instances']} "
+        f"instances and covers {gt0['covered']:.1%} of its pixels "
+        f"(built in {time.perf_counter() - t_phase:.1f} s)")
+    check(gt0["instances"] > 0 and gt0["covered"] > 0.01,
+          "frame 0 bins instances and differs from the background")
+
+    run = os.path.join(cws, "run")
+    yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                        "fateavatar.yaml")
+    device = ["--device", "cuda"]
+    assets = [f"assets.flame_model_path={os.path.join(ws, 'generic_model.pkl')}",
+              f"assets.template_mesh_path={os.path.join(ws, 'head_template.obj')}",
+              f"assets.vgg16_weights_path={vgg_path}"]
+    args = ["--config", yaml, *device, f"dataset.root_path={root}", f"workspace={run}",
+            *assets, f"training.epochs.finetune={CLI_FINETUNE}",
+            f"training.snapshot_interval={CLI_SNAPSHOT}",
+            *(f"training.{k}={v}" for k, v in MAINT_OVERRIDES.items())]
+    log(f"[cli] train_mono_avatar overrides: {args[4:]}")
+    names = ("train_epoch", "save_snapshot", "optimize_tracking", "evaluate")
+    media = os.path.join(run, "media")
+    trainers = []
+    for epochs, extra in ((1, []), (2, ["--resume"])):
+        record = []
+        # ---- the CLI path: counts to 0 just before, read just after
+        bi.blend_instances.launches = 0
+        bi.blend_instances_bwd.launches = 0
+        t0 = time.perf_counter()
+        with counted(Trainer, names, record):
+            tr = train_mono_avatar.main(["--epochs", str(epochs), *extra, *args])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+        trainers.append(tr)
+        rec = {n: [r for r in record if r[0] == n] for n in names}
+        snaps = rec["save_snapshot"]
+        ep = rec["train_epoch"][0]
+        steps = len(tr.train_dataset)
+        step_f = (ep[1] - sum(r[1] for r in snaps)) / steps
+        step_b = (ep[2] - sum(r[2] for r in snaps)) / steps
+        opt = rec["optimize_tracking"][0]
+        ev = rec["evaluate"][0]
+        tag = f"[cli] run {len(trainers)} (--epochs {epochs}{' --resume' if extra else ''})"
+        log(f"{tag}: {run_s:.1f} s; per-step loss "
+            f"{[round(x, 5) for x in tr.epoch_losses]}; launches per step: forward "
+            f"{step_f:g}, backward {step_b:g} (train step + tracking step); snapshots "
+            f"{len(snaps)} ({[(r[1], r[2]) for r in snaps]} launches, "
+            f"{sum(r[3] for r in snaps):.2f} s); optimize_tracking {opt[1]} / {opt[2]} "
+            f"launches, {opt[3] * 1e3 / CLI_FINETUNE:.2f} ms per batch of "
+            f"{len(tr.test_dataset)} frames; evaluate {ev[1] - opt[1]} forward launches; "
+            f"in all {fwd} forward, {bwd} backward")
+        check(all(np.isfinite(tr.epoch_losses)) and len(tr.epoch_losses) == steps,
+              "finite loss every step")
+        check(step_f == 2 and step_b == 2, "a step launches kernels 1 and 2 twice "
+              "(the train step, then the tracking step)")
+        check(len(snaps) == 2 and all(r[1] == 4 and r[2] == 0 for r in snaps),
+              "two snapshots of four renders each")
+        n_test = len(tr.test_dataset)
+        check(opt[1] == opt[2] == CLI_FINETUNE * n_test, "finetune steps per test row")
+        check(ev[1] - opt[1] == n_test and ev[2] == opt[2], "one eval forward per test frame")
+        check(fwd == 2 * steps + 8 + CLI_FINETUNE * n_test + n_test
+              and bwd == 2 * steps + CLI_FINETUNE * n_test, "launch totals of the run")
+        ds = tr.train_dataset
+        moved = {f: int((getattr(tr.train_tables, f).cpu().numpy() != ref).any(axis=1).sum())
+                 for f, ref in (("expression", ds.expressions), ("flame_pose", ds.flame_pose),
+                                ("cam_t", ds.world_mats[:, :3, 3]))}
+        shift = {f: float(np.abs(getattr(tr.train_tables, f).cpu().numpy() - ref).max())
+                 for f, ref in (("expression", ds.expressions), ("flame_pose", ds.flame_pose),
+                                ("cam_t", ds.world_mats[:, :3, 3]))}
+        tc, vc = tr.train_track_state.count.tolist(), tr.test_track_state.count.tolist()
+        log(f"{tag}: train rows moved {moved} of {steps} (largest shift {shift}); "
+            f"tracking counts train {tc}, test {vc}")
+        check(all(v == steps for v in moved.values()), "every train row moved")
+        check(tc == [epochs] * steps and vc == [CLI_FINETUNE] * n_test,
+              "tracking counts equal the visits")
+        with open(os.path.join(media, "metrics", f"test_epoch{epochs}.json")) as fh:
+            summary = json.load(fh)["summary"]
+        log(f"{tag}: eval psnr {summary['psnr']:.4f} ssim {summary['ssim']:.4f} "
+            f"l1 {summary['l1']:.5f}")
+        check(all(np.isfinite(v) for v in summary.values()), "finite eval metrics")
+        video = [f for f in (f"test_epoch{epochs}.mp4", f"test_epoch{epochs}.gif")
+                 if os.path.exists(os.path.join(media, "eval_videos", f))]
+        first = (epochs - 1) * steps
+        files = [os.path.join(media, "eval_images", f"test_epoch{epochs}_frame0.png")] + [
+            os.path.join(media, "snapshots", f"step{first + k:08d}.png")
+            for k in (CLI_SNAPSHOT, 2 * CLI_SNAPSHOT)]
+        check(len(video) == 1 and all(os.path.exists(f) for f in files),
+              f"media of run {len(trainers)}")
+        shapes = [read_png(f).shape for f in files]
+        log(f"{tag}: media metrics/test_epoch{epochs}.json, eval_videos/{video[0]}, "
+            + ", ".join(f"{os.path.relpath(f, media)} {sh[1]}x{sh[0]}"
+                        for f, sh in zip(files, shapes)))
+        h, w = model.cfg.img_height, model.cfg.img_width
+        check(shapes[0] == (h, 2 * w, 3) and shapes[1] == shapes[2] == (2 * h, 4 * w, 3),
+              "media sizes")
+    check(trainers[1].global_step == 2 * CLI_TRAIN, "resumed to epoch 2")
+
+    # ---- reenactment of the test layout
+    out = os.path.join(cws, "reenact.mp4")
+    bi.blend_instances.launches = 0
+    frames = avatar_reenact.main(["--config", yaml, *device, "--dst_workspace", run,
+                                  "--src_root", root, "--out", out, *assets])
+    written = [f for f in (out, out[:-4] + ".gif") if os.path.exists(f)]
+    log(f"[cli] avatar_reenact: {len(frames)} frames, {bi.blend_instances.launches} forward "
+        f"launches, wrote {[os.path.basename(f) for f in written]}")
+    check(len(frames) == CLI_TEST and bi.blend_instances.launches == CLI_TEST
+          and len(written) == 1, "reenacted frames and their video")
+
+    phase_peak = torch.cuda.max_memory_allocated() / 2**30
+    # ---- timings with tracking, the same trainer, no maintenance due
+    tr = trainers[1]
+    tr.snapshot_interval = 10**9
+    never = 10**9
+    tr.maint_cfg = dataclasses.replace(tr.maint_cfg, densify_interval=never,
+                                       prune_interval=never, opacity_reset_interval=never)
+    tr.set_render_cfg(tr.render_cfg)     # rebuilds the train step on maint_cfg
+    t_ms = {}
+    torch.cuda.reset_peak_memory_stats()
+    for label, enabled in (("with tracking", True), ("without tracking", False)):
+        tr.tracking_enabled = enabled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        t_ms[label] = (time.perf_counter() - t0) * 1e3 / CLI_TRAIN
+    tr.tracking_enabled = True
+    epoch_peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[cli] ms/step with tracking {t_ms['with tracking']:.3f}, without "
+        f"{t_ms['without tracking']:.3f} (one epoch of {CLI_TRAIN} steps each, same trainer, "
+        f"host clock, synchronized, frames in the device cache, maintenance excluded); "
+        f"[train]'s ms/step "
+        f"without tracking {train_step_ms:.3f}; peak device memory of these epochs "
+        f"{epoch_peak:.3f} GiB [{card}]")
+
+    samples = [tr.train_dataset.sample(i) for i in range(3)]
+
+    def step_and_track(i):
+        sample = samples[i]
+        frame = tr._make_frame(sample, tr.train_tables)
+        tr.ts, _ = tr.train_step(tr.ts, frame)
+        pose = np.asarray(sample["cam_pose"], np.float32)
+        tr.train_tables, tr.train_track_state = tr._tracking_step(
+            tr.train_tables, tr.train_track_state, sample["idx"],
+            (pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb, tr.ts.state,
+             tr.ts.params))
+
+    profile_top("3 train steps, each with its tracking step", step_and_track, 3, "step", card)
+
+    # ---- one tracking step's row gradients, kernels vs plain blends. The
+    # VGG stack runs in float32 with TF32 off and deterministic cuDNN here,
+    # so that only the blends differ between the two.
+    loss_fn = tr.loss_fn
+    tr.loss_fn = FateAvatarLoss(dataclasses.replace(loss_fn.cfg, vgg_dtype=None),
+                                vgg_params=loss_fn.vgg_params)
+    sample = tr.train_dataset.sample(0)
+    frame = tr._make_frame(sample, tr.train_tables)
+    cam_pose = np.asarray(sample["cam_pose"], np.float32)
+    const = (cam_pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb,
+             tr.ts.state, tr.ts.params)
+    rows_in = (tr.train_tables.expression[0], tr.train_tables.flame_pose[0],
+               tr.train_tables.cam_t[0])
+    captured = []
+
+    def record(*a):
+        img, tfin = bi.blend_instances(*a)
+        captured.append((a, tfin.detach()))
+        return img, tfin
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        with swapped_blend(record):
+            gk = tracking.row_gradients(tr._tracking_loss, *rows_in, const)
+        with swapped_blend(bi.blend_instances_plain):
+            gp = tracking.row_gradients(tr._tracking_loss, *rows_in, const)
+    tr.loss_fn = loss_fn
+    inputs, tfin_k = captured[0]
+    with torch.no_grad():
+        flips, rel_t = termination_flips(tfin_k, bi.blend_instances_reference(*inputs)[1])
+    errs = {}
+    for f in tracking.FIELDS:
+        a, b = getattr(gk, f), getattr(gp, f)
+        check(bool(torch.isfinite(a).all()) and float(b.norm()) > 0, f"tracking gradient {f}")
+        errs[f] = float((a - b).norm() / b.norm())
+    log(f"[cli] one tracking step, kernels vs plain blends: row gradients relative L2 "
+        + ", ".join(f"{f} {e:.1e}" for f, e in errs.items())
+        + f" (bound {TRACK_RTOL_L2}); the frame's termination flips {flips}, other pixels' "
+        f"T_final within {rel_t:.1e} relative")
+    check(all(e <= TRACK_RTOL_L2 for e in errs.values()),
+          "tracking gradients kernels vs plain blends")
+    for name in ("blend_instances_fwd", "blend_instances_bwd"):
+        rows[name]["launches"] = fwd if name.endswith("fwd") else bwd
+    log(f"[cli] peak device memory of the phase {phase_peak:.3f} GiB (the model's "
+        f"init: its KNN takes the distances of 4,096 points to all at once); phase total "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+
+
 def main():
     import torch
 
@@ -1238,6 +1580,7 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
+    log(f"[caps] {json.dumps(capabilities())}")
 
     # ---- build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -1443,6 +1786,7 @@ def main():
         setup = train_setup(ws)
         trainer = train_phase(setup, gen, rows, card)
         tiles_train_phase(setup, trainer, rows, card)
+        cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -1,19 +1,20 @@
 """Construction helpers for the entry points (port of
-``fateavatar_tpu/cli/common.py`` without the image dataset readers): config
--> FLAME -> model, the loss, the render and maintenance settings, and the
-identity-info artifact used for dataset-free inference."""
+``fateavatar_tpu/cli/common.py``): config -> datasets -> FLAME -> model, the
+loss, the render and maintenance settings, and the identity-info artifact
+used for dataset-free inference."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
 from fateavatar_tpu_torch.flame.loader import load_flame_pickle, make_flame
 from fateavatar_tpu_torch.models.fateavatar import FateAvatarConfig, init_fateavatar
 from fateavatar_tpu_torch.render.render import RenderConfig
+from fateavatar_tpu_torch.train.datasets import FaceDataset, construct_dataset
 from fateavatar_tpu_torch.train.losses import (
     FateAvatarLoss,
     FateAvatarLossConfig,
@@ -22,6 +23,26 @@ from fateavatar_tpu_torch.train.losses import (
 from fateavatar_tpu_torch.train.step import MaintenanceConfig
 from fateavatar_tpu_torch.utils.config import Config
 from fateavatar_tpu_torch.utils.obj_io import ObjMesh, load_obj
+
+
+def construct_datasets(cfg: Config) -> Tuple[FaceDataset, FaceDataset]:
+    """The train and test sets under ``dataset.root_path`` (common.py:29-44),
+    subsampled and cached as the config says."""
+    ds_cfg = cfg.dataset
+    kwargs = dict(
+        img_res=ds_cfg.img_res,
+        use_mean_expression=ds_cfg.use_mean_expression,
+        use_var_expression=ds_cfg.use_var_expression,
+        background_color=ds_cfg.background_color,
+        cache_images=ds_cfg.cache_images,
+    )
+    train = construct_dataset(
+        ds_cfg.root_path, "train", subsample=ds_cfg.train_subsample, **kwargs
+    )
+    test = construct_dataset(
+        ds_cfg.root_path, "test", subsample=ds_cfg.test_subsample, **kwargs
+    )
+    return train, test
 
 
 def construct_flame(cfg: Config, dataset=None, device="cuda"):

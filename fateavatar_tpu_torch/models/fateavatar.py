@@ -2,7 +2,7 @@
 
 Port of ``fateavatar_tpu/models/fateavatar.py`` (config, containers,
 ``init_fateavatar``, ``build_gaussians``, ``fateavatar_forward``,
-``fateavatar_inference``). The model splits into three containers:
+``fateavatar_inference``, ``fateavatar_visualization``). The model splits into three containers:
 
 * :class:`FateAvatarModel`  — frozen assets + static config,
 * :class:`FateAvatarParams` — trainable tensors (per-splat attributes at
@@ -13,6 +13,7 @@ Port of ``fateavatar_tpu/models/fateavatar.py`` (config, containers,
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -20,7 +21,7 @@ import torch
 
 from fateavatar_tpu_torch.flame.flame import FlameModel, flame_forward
 from fateavatar_tpu_torch.ops import sampling
-from fateavatar_tpu_torch.ops.camera import Camera
+from fateavatar_tpu_torch.ops.camera import Camera, make_camera
 from fateavatar_tpu_torch.ops.gathers import gather_rows
 from fateavatar_tpu_torch.ops.knn import mean_knn_distance
 from fateavatar_tpu_torch.ops.mesh import (
@@ -34,6 +35,7 @@ from fateavatar_tpu_torch.ops.quaternion import (
     quat_multiply,
     quat_to_axis_angle,
 )
+from fateavatar_tpu_torch.ops.sh import rgb_to_sh
 from fateavatar_tpu_torch.render.render import RenderConfig, render
 from fateavatar_tpu_torch.render.splats import Gaussians, inverse_sigmoid
 from fateavatar_tpu_torch.utils.obj_io import ObjMesh
@@ -290,3 +292,64 @@ def fateavatar_inference(
         model, params, state, expression, flame_pose, camera,
         render_cfg=render_cfg,
     )["rgb_image"]
+
+
+@torch.no_grad()
+def fateavatar_visualization(
+    model, params, state, expression, flame_pose, camera: Camera,
+    render_cfg: RenderConfig = RenderConfig(),
+):
+    """Diagnostic renders (fateavatar.py:368-594): posed, canonical-pose
+    (front camera), densification-sample highlight, gradient heat. Each goes
+    through :func:`render`."""
+    dev = params.offset.device
+    out = fateavatar_forward(model, params, state, expression, flame_pose, camera,
+                             render_cfg=render_cfg)
+
+    # canonical camera: identity-ish frontal view at the same distance
+    R_cano = torch.tensor([[1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]], device=dev)
+    T_cano = camera.view[:3, 3] * torch.tensor([0.0, 0.0, 1.0], device=dev)
+    cam_cano = make_camera(R_cano, T_cano, camera.fovx, camera.fovy,
+                           camera.width, camera.height, device=dev)
+
+    gaussians_cano, _, _ = build_gaussians(
+        model, params, state,
+        model.flame.canonical_exp[0], model.flame.canonical_pose[0])
+    cano_img = render(cam_cano, gaussians_cano, model.bg_color, config=render_cfg)
+
+    # gradient heat: densification pressure as red intensity (fateavatar.py:505-538)
+    grad_accum = torch.nan_to_num(
+        state.xyz_gradient_accum / torch.clamp_min(state.denom, 1e-6))
+    thresh = torch.quantile(grad_accum, 0.95)
+    below = grad_accum <= thresh
+    denom = torch.clamp_min(torch.max(torch.where(below, grad_accum, 0.0)), 1e-12)
+    norm_grad = torch.where(below, grad_accum / denom, 1.0)
+    zero = torch.zeros_like(norm_grad)
+    red = torch.stack([0.99 * norm_grad, zero, zero], dim=-1)
+    grad_gaussians = dataclasses.replace(
+        gaussians_cano, features_dc=rgb_to_sh(red)[:, None, :],
+        opacity=params.opacity + 5.0)
+    grad_img = render(cam_cano, grad_gaussians, torch.zeros(3, device=dev),
+                      config=render_cfg)
+
+    # densification-sample highlight (fateavatar.py:540-563)
+    sampled = state.sample_flag > 0.5
+    blue = (180 / 255 - 0.5) / 0.282 * torch.tensor([0.0, 0.0, 1.0], device=dev)
+    point_gaussians = dataclasses.replace(
+        gaussians_cano,
+        features_dc=blue.expand(gaussians_cano.features_dc.shape[0], 3)[:, None, :],
+        opacity=torch.ones_like(params.opacity) + 5.0,
+        scaling=-torch.ones_like(params.scaling) * 8.0,
+        alive=state.alive & sampled)
+    point_img = render(cam_cano, point_gaussians, model.bg_color, config=render_cfg)
+
+    return {
+        "rgb_image": out["rgb_image"],
+        "cano_image": cano_img["render"],
+        "grad_image": grad_img["render"],
+        "point_image": point_img["render"],
+        "scale": out["scale"],
+        "raw_rot": out["raw_rot"],
+        "verts": out["verts"],
+        "faces": model.faces,
+    }

@@ -17,6 +17,11 @@ C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
       -0.5900435899266435)
 
 
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    """RGB in [0,1] -> degree-0 SH coefficient (tools/gs_utils/sh_utils.py)."""
+    return (rgb - 0.5) / C0
+
+
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH colour BEFORE the +0.5 shift / clamp. ``sh`` [..., K, 3] with
     K >= (degree+1)^2, ``dirs`` [..., 3] unit view directions."""

@@ -31,7 +31,7 @@ import torch
 
 from fateavatar_tpu_torch.ops.camera import Camera
 from fateavatar_tpu_torch.render import binning
-from fateavatar_tpu_torch.render.blend_instances import CHUNK, blend_instances
+from fateavatar_tpu_torch.render.blend_instances import CHUNK, T_EPS, blend_instances
 from fateavatar_tpu_torch.render.blend_tiles import blend_tiles, tiles_to_image
 from fateavatar_tpu_torch.render.preprocess import preprocess
 from fateavatar_tpu_torch.render.splats import Gaussians
@@ -57,8 +57,9 @@ class RenderConfig:
     layout: str = "compact"
     # 'instances' (flat per-tile ranges) or 'tiles' (dense [T, K] lists)
     kernel: str = "instances"
-    # > 0 would be the chunk-granular early exit of the Pallas kernel; only
-    # the exact blend (0.0, the yaml default) is ported
+    # 'instances': the chunk-granular early exit of the Pallas kernel; values
+    # <= 1e-4 give the exact blend (0.0, the yaml default), larger ones are
+    # not ported. 'tiles' ignores it, as the JAX package does
     t_cutoff: float = 0.0
     # consumed by the Trainer at startup: measure the dataset's occupancy
     # and replace budget / R / tail_k with sized values (render/autosize.py)
@@ -154,10 +155,14 @@ def render(
     if config.kernel not in ("instances", "tiles"):
         raise NotImplementedError(
             f"kernel {config.kernel!r} is not ported; use 'instances' or 'tiles'")
-    if config.t_cutoff != 0.0:
+    # the JAX package honours t_cutoff only in its instance kernel, where any
+    # value <= 1e-4 (T_EPS) gives the exact blend's bits (blend_instances.py:
+    # 158-161): the 'tiles' route ignores it, 'instances' takes those values
+    if config.kernel == "instances" and config.t_cutoff > T_EPS:
         raise NotImplementedError(
-            "t_cutoff > 0 (the chunk-granular early exit) is not ported; "
-            "the kernel already stops each tile once every pixel terminated")
+            f"t_cutoff {config.t_cutoff} > {T_EPS} (the chunk-granular early exit "
+            "of the instance kernel) is not ported yet (ROADMAP Queue 2 (a)); "
+            "values <= 1e-4 give the exact blend")
 
     grid = binning.tile_grid(camera.width, camera.height)
     prep = preprocess(

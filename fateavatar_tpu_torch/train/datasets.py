@@ -1,16 +1,24 @@
-"""Dataset containers: the ``FaceDataset`` base, the synthetic self-test
-set and the prefetching iterator.
+"""Dataset readers: INSTA, IMAvatar, and a synthetic self-test set.
 
-Port of part of ``fateavatar_tpu/train/datasets.py`` (train/dataset.py:81-595
-of the reference). Metadata lives in dense numpy arrays and ``sample(idx)``
-returns one frame as numpy (the ``__getitem__`` contract of
-dataset.py:283-319). The INSTA and IMAvatar readers, which decode PNG/JPEG
-images, are not ported yet; ``SyntheticDataset`` lets the whole trainer run
-with no external assets.
+Port of ``fateavatar_tpu/train/datasets.py`` (train/dataset.py:81-595 of
+the reference). Metadata is parsed once into dense numpy arrays, images
+decode lazily with an optional in-RAM cache, and ``sample(idx)`` returns one
+frame as numpy (the ``__getitem__`` contract of dataset.py:283-319); a
+prefetching thread overlaps decoding with the card's work. Images decode
+through the port's PNG codec (``utils/png.py``), the counterpart of the JAX
+package's native loader.
+
+Camera-convention notes are preserved from the reference loaders:
+IMAvatar world_mat sign flips (dataset.py:264-272), INSTA
+camera-rotation-as-head-rotation (dataset.py:437-446, rot_camera=True), 6d
+rotations -> axis-angle for jaw/eyes (dataset.py:510-525).
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
 import threading
 from dataclasses import dataclass
 from queue import Queue
@@ -18,6 +26,86 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from fateavatar_tpu_torch.ops.camera import make_camera
+from fateavatar_tpu_torch.utils import png
+
+# the FlashAvatar baseline's inputs (mouth masks) wait for its port
+_FLASHAVATAR = ("the FlashAvatar baseline's mouth masks are not ported yet "
+                "(ROADMAP Queue 1 item 8, the baselines)")
+
+
+# ---------------------------------------------------------------------------
+# small math helpers (host side)
+# ---------------------------------------------------------------------------
+
+def rotation_6d_to_matrix(d6: np.ndarray) -> np.ndarray:
+    """6D rotation representation (Zhou et al.) -> 3x3 matrices. [..., 6]."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / np.linalg.norm(a1, axis=-1, keepdims=True).clip(1e-8)
+    b2 = a2 - np.sum(b1 * a2, axis=-1, keepdims=True) * b1
+    b2 = b2 / np.linalg.norm(b2, axis=-1, keepdims=True).clip(1e-8)
+    b3 = np.cross(b1, b2)
+    return np.stack([b1, b2, b3], axis=-2)
+
+
+def matrix_to_axis_angle(m: np.ndarray) -> np.ndarray:
+    """3x3 rotation matrices -> axis-angle. [..., 3, 3] -> [..., 3]."""
+    tr = np.trace(m, axis1=-2, axis2=-1)
+    cos = np.clip((tr - 1.0) / 2.0, -1.0, 1.0)
+    angle = np.arccos(cos)
+    axis = np.stack(
+        [m[..., 2, 1] - m[..., 1, 2],
+         m[..., 0, 2] - m[..., 2, 0],
+         m[..., 1, 0] - m[..., 0, 1]], axis=-1
+    )
+    norm = np.linalg.norm(axis, axis=-1, keepdims=True)
+    small = norm[..., 0] < 1e-8
+    axis = np.where(small[..., None], np.array([1.0, 0, 0]), axis / np.where(norm < 1e-8, 1.0, norm))
+    return axis * angle[..., None]
+
+
+def load_rgb(path: str, img_res, bg_color: str = "black",
+             return_alpha: bool = False):
+    """Decode + resize + alpha-composite (train/dataset.py:14-54). Returns
+    HWC float32 in [0,1]. PNG only: another format raises ``ValueError``."""
+    rgba, src_c = png.decode_image(path, img_res[0], img_res[1])
+    arr = rgba if src_c == 4 else rgba[:, :, :3]
+    alpha = None
+    if arr.shape[2] == 4:
+        alpha = arr[:, :, 3:4]
+        if bg_color == "white":
+            arr = arr[:, :, :3] * alpha + (1 - alpha)
+        elif bg_color == "black":
+            arr = arr[:, :, :3] * alpha
+        else:
+            raise ValueError(f"invalid bg_color {bg_color!r}")
+    if return_alpha:
+        if alpha is None:
+            alpha = np.ones(arr.shape[:2] + (1,), np.float32)
+        return arr, alpha
+    return arr
+
+
+def load_mask(path: str, img_res) -> np.ndarray:
+    raise NotImplementedError(f"load_mask({path!r}): {_FLASHAVATAR}")
+
+
+def _intrinsics_and_fov(focal_cxcy):
+    """Normalized (fx, fy, cx, cy) -> 4x4 intrinsics, matching
+    dataset.py:244-262/535-548 including the IMAvatar fx<0 quirk."""
+    intr = np.zeros((4, 4), np.float32)
+    intr[0, 0] = focal_cxcy[0] * 2
+    intr[1, 1] = focal_cxcy[1] * 2
+    intr[0, 2] = (focal_cxcy[2] * 2 - 1.0) * -1
+    intr[1, 2] = (focal_cxcy[3] * 2 - 1.0) * -1
+    intr[3, 2] = 1.0
+    intr[2, 3] = 1.0
+    return intr
+
+
+# ---------------------------------------------------------------------------
+# dataset base
+# ---------------------------------------------------------------------------
 
 @dataclass
 class FrameRecord:
@@ -29,28 +117,36 @@ class FrameRecord:
 class FaceDataset:
     """Common container. Subclasses fill world_mats [N,4,4] (world->view),
     expressions [N,n_exp], flame_pose [N,15], records, fovx/fovy,
-    shape_params [1,n_shape], mean/var expression, and provide
-    ``load_image(idx) -> (rgb [H,W,3], alpha [H,W,1])``."""
+    shape_params [1,n_shape], mean/var expression."""
 
     type_name: str = "base"
     optimize_tracking: bool = False
 
-    def __init__(self, img_res, background_color="black", cache_images=True):
+    def __init__(self, img_res, background_color="black", cache_images=True,
+                 is_flashavatar: bool = False):
+        if is_flashavatar:
+            raise NotImplementedError(f"is_flashavatar=True: {_FLASHAVATAR}")
         self.img_res = list(img_res)
         self.background_color = background_color
         self.cache_images = cache_images
+        self._cache: dict = {}
         self.records: list[FrameRecord] = []
 
     def __len__(self):
         return len(self.records)
 
     def load_image(self, idx: int):
-        raise NotImplementedError(
-            f"{type(self).__name__} has no image reader (the PNG/JPEG "
-            "readers are not ported)")
+        if self.cache_images and idx in self._cache:
+            return self._cache[idx]
+        out = load_rgb(self.records[idx].image_path, self.img_res,
+                       bg_color=self.background_color, return_alpha=True)
+        if self.cache_images:
+            self._cache[idx] = out
+        return out
 
     def sample(self, idx: int) -> dict:
-        """One frame's metadata and ground truth, as numpy."""
+        """One frame's metadata and ground truth, as numpy (the __getitem__
+        contract, dataset.py:283-319, 559-595)."""
         rgb, alpha = self.load_image(idx)
         return {
             "idx": idx,
@@ -63,6 +159,173 @@ class FaceDataset:
             "ground_truth": {"rgb": rgb, "object_mask": alpha},
         }
 
+    def camera(self, idx: int, width: int, height: int, device="cuda"):
+        w2v = self.world_mats[idx]
+        R = w2v[:3, :3].T  # make_camera expects the 3DGS (R=c2w-rot) form
+        T = w2v[:3, 3]
+        return make_camera(R, T, self.fovx, self.fovy, width, height, device=device)
+
+
+# ---------------------------------------------------------------------------
+# IMAvatar
+# ---------------------------------------------------------------------------
+
+class IMAvatarDataset(FaceDataset):
+    """flame_params.json layout (train/dataset.py:114-319)."""
+
+    type_name = "imavatar"
+    optimize_tracking = True
+    n_shape = 100
+    n_exp = 50
+
+    def __init__(self, root_path, mode, img_res, use_mean_expression=False,
+                 use_var_expression=False, background_color="black",
+                 cache_images=True, is_flashavatar=False, subsample=1):
+        super().__init__(img_res, background_color, cache_images, is_flashavatar)
+        instance_dir = os.path.join(
+            root_path, f"{os.path.basename(root_path)}_{mode}"
+        )
+        with open(os.path.join(instance_dir, "flame_params.json")) as f:
+            meta = json.load(f)
+
+        world_mats, exprs, poses = [], [], []
+        for frame in meta["frames"][::subsample]:
+            wm = np.array(frame["world_mat"], np.float32)
+            wm[:, 3] /= 4  # FLAME scaled by 4 in the DECA pipeline
+            world_mats.append(wm)
+            exprs.append(np.array(frame["expression"], np.float32))
+            poses.append(np.array(frame["pose"], np.float32))
+            img = os.path.join(instance_dir, frame["file_path"] + ".png")
+            self.records.append(FrameRecord(
+                image_path=img.replace("image", "matted"),
+                mask_path=None,
+                img_name=frame["file_path"].split("/")[-1],
+            ))
+
+        self.gt_dir = instance_dir
+        self.shape_params = np.array(meta["shape_params"], np.float32)[None]
+        wm = np.stack(world_mats)                        # [N, 3, 4]
+        wm4 = np.tile(np.eye(4, dtype=np.float32), (len(wm), 1, 1))
+        wm4[:, :3, :] = wm
+
+        intr_raw = meta["intrinsics"]                    # fx fy cx cy normalized
+        intr = _intrinsics_and_fov(intr_raw)
+        self.intrinsics = intr
+        fx, fy, cx, cy = intr_raw[:4]
+        self.fovx = 2 * math.atan2(cx, -fx)
+        self.fovy = 2 * math.atan2(cy, fy)
+
+        # camera-convention fixups (dataset.py:264-272)
+        if intr[0, 0] < 0:
+            wm4[:, 0, :] *= -1
+        wm4[:, :3, 2] *= -1
+        wm4[:, 2, 3] *= -1
+        wm4[:, 0, :] *= -1
+        wm4[:, 1, :] *= -1
+
+        self.world_mats = wm4
+        self.expressions = np.stack(exprs)
+        self.flame_pose = np.stack(poses)
+
+        self.mean_expression = (
+            self.expressions.mean(0, keepdims=True)
+            if use_mean_expression else np.zeros((1, self.n_exp), np.float32)
+        )
+        self.var_expression = (
+            self.expressions.var(0, keepdims=True) if use_var_expression else None
+        )
+
+
+# ---------------------------------------------------------------------------
+# INSTA
+# ---------------------------------------------------------------------------
+
+class InstaDataset(FaceDataset):
+    """transforms_{train,test}.json + per-frame flame txt coefficients
+    (train/dataset.py:323-595). Head rotation realized as camera rotation
+    (rot_camera=True path, dataset.py:437-446, 478-480)."""
+
+    type_name = "insta"
+    optimize_tracking = False
+    n_shape = 300
+    n_exp = 100
+
+    def __init__(self, root_path, mode, img_res, use_mean_expression=False,
+                 use_var_expression=False, background_color="black",
+                 cache_images=True, is_flashavatar=False, subsample=1):
+        super().__init__(img_res, background_color, cache_images, is_flashavatar)
+        tf = "transforms_train.json" if mode == "train" else "transforms_test.json"
+        with open(os.path.join(root_path, tf)) as f:
+            meta = json.load(f)
+        frames = sorted(
+            meta["frames"],
+            key=lambda x: int(x["file_path"].split("/")[-1].split(".")[0]),
+        )[::subsample]
+
+        world_mats, exprs, jaws, eyes = [], [], [], []
+        shape = None
+        for frame in frames:
+            c2w = np.array(frame["transform_matrix"], np.float32)
+            w2c = np.linalg.inv(c2w)
+            # rot_camera: transpose the rotation block (head motion becomes
+            # camera orbit; dataset.py:478-480)
+            w2c[:3, :3] = w2c[:3, :3].T
+            world_mats.append(w2c)
+            if shape is None:
+                shape = np.loadtxt(
+                    os.path.join(root_path, frame["exp_path"].replace("exp", "shape"))
+                )
+            exprs.append(np.loadtxt(os.path.join(root_path, frame["exp_path"])))
+            eyes.append(np.loadtxt(
+                os.path.join(root_path, frame["exp_path"].replace("exp", "eyes"))
+            ))
+            jaws.append(np.loadtxt(
+                os.path.join(root_path, frame["exp_path"].replace("exp", "jaw"))
+            ))
+            self.records.append(FrameRecord(
+                image_path=os.path.join(root_path, frame["file_path"]),
+                mask_path=os.path.join(
+                    root_path, frame["file_path"].replace("images", "alpha")
+                ),
+                img_name=frame["file_path"].split("/")[-1],
+            ))
+
+        n = len(frames)
+        self.shape_params = np.asarray(shape, np.float32)[None]
+        self.expressions = np.stack(exprs).astype(np.float32)
+        eyes = np.stack(eyes).astype(np.float32)
+        jaws = np.stack(jaws).astype(np.float32)
+
+        l_eye = matrix_to_axis_angle(rotation_6d_to_matrix(eyes[:, 6:]))
+        r_eye = matrix_to_axis_angle(rotation_6d_to_matrix(eyes[:, :6]))
+        jaw = matrix_to_axis_angle(rotation_6d_to_matrix(jaws))
+        zero = np.zeros((n, 3), np.float32)
+        # [rot | neck | jaw | l_eye | r_eye] (dataset.py:525)
+        self.flame_pose = np.concatenate([zero, zero, jaw, l_eye, r_eye], axis=1)
+        self.world_mats = np.stack(world_mats)
+
+        focal_cxcy = [
+            0.5 * meta["fl_x"] / meta["cx"],
+            0.5 * meta["fl_y"] / meta["cy"],
+            meta["cx"] / meta["w"],
+            meta["cy"] / meta["h"],
+        ]
+        self.intrinsics = _intrinsics_and_fov(focal_cxcy)
+        self.fovx = 2 * math.atan2(focal_cxcy[2], focal_cxcy[0])
+        self.fovy = 2 * math.atan2(focal_cxcy[3], focal_cxcy[1])
+
+        self.mean_expression = (
+            self.expressions.mean(0, keepdims=True)
+            if use_mean_expression else np.zeros((1, self.n_exp), np.float32)
+        )
+        self.var_expression = (
+            self.expressions.var(0, keepdims=True) if use_var_expression else None
+        )
+
+
+# ---------------------------------------------------------------------------
+# synthetic dataset (tests / self-contained runs)
+# ---------------------------------------------------------------------------
 
 class SyntheticDataset(FaceDataset):
     """Procedural frames around a synthetic head — lets the full trainer run
@@ -131,3 +394,16 @@ class Prefetcher:
             if isinstance(item, Exception):
                 raise item
             yield item
+
+
+def construct_dataset(root_path: str, mode: str, img_res, **kwargs) -> FaceDataset:
+    """Dataset-type inference from the root path, like common.py:34-44."""
+    rp = root_path.lower()
+    if "insta" in rp:
+        return InstaDataset(root_path, mode, img_res, **kwargs)
+    if "imavatar" in rp or "im_avatar" in rp:
+        return IMAvatarDataset(root_path, mode, img_res, **kwargs)
+    raise ValueError(
+        f"cannot infer dataset type from {root_path!r}; "
+        "expected an 'insta' or 'imavatar' path component"
+    )

@@ -21,6 +21,7 @@ from fateavatar_tpu_torch.models.fateavatar import (
 )
 from fateavatar_tpu_torch.render.render import RenderConfig
 from fateavatar_tpu_torch.train.checkpoints import CheckpointManager
+from fateavatar_tpu_torch.train.tracking import TrackingTables
 from fateavatar_tpu_torch.utils.logging import write_video
 
 
@@ -35,7 +36,9 @@ def checkpoint_tree(params, state, epoch: int = 0, global_step: int = 0) -> dict
 
 class Loader:
     """Restore (params, state) of a trained avatar from a workspace's
-    ``checkpoints/`` onto the device of ``params_template``."""
+    ``checkpoints/`` onto the device of ``params_template``, and ``tables``
+    (the train set's TrackingTables, or None) where the run refined
+    tracking."""
 
     def __init__(self, model: FateAvatarModel, params_template, state_template,
                  workspace: str, render_cfg: RenderConfig = RenderConfig()):
@@ -48,6 +51,9 @@ class Loader:
         self.params = dataclasses.replace(params_template, **tree["params"])
         self.state = dataclasses.replace(state_template, **tree["state"])
         self.epoch = int(tree["epoch"])
+        # the train set's tracked rows, when the run refined tracking
+        self.tables = (TrackingTables(**tree["train_tables"])
+                       if "train_tables" in tree else None)
 
     def render_frame(self, expression, flame_pose, camera):
         dev = self.params.offset.device

@@ -3,14 +3,16 @@
 Port of the per-step mode of ``fateavatar_tpu/train/trainer.py``
 (train/base.py:14-245 + train/trainer.py:61-632 of the reference): startup
 autosizing of the binning capacities, epochs of one step per frame over a
-prefetched dataset, meters, evaluation, checkpoints and resume. Host <->
-device traffic per step is one frame's metadata (the ground truth is cached
-on the device as uint8 after its first upload); the loss values stay on the
-device and are fetched in batches of 50 steps.
+prefetched dataset, per-frame tracking refinement for datasets that ask for
+it (IMAvatar), meters, evaluation with its metrics file, video and image,
+media snapshots, checkpoints and resume. Host <-> device traffic per step is
+one frame's metadata (the ground truth is cached on the device as uint8
+after its first upload); the loss values stay on the device and are fetched
+in batches of 50 steps.
 
 Not ported yet: the scan-epoch mode (one dispatch per epoch; its CUDA
-counterpart would be CUDA graphs), data parallel, tracking refinement,
-family adapters, snapshots and videos, the fps test.
+counterpart would be CUDA graphs), data parallel, family adapters, the fps
+test.
 """
 
 from __future__ import annotations
@@ -24,9 +26,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from fateavatar_tpu_torch.models.fateavatar import FateAvatarModel, fateavatar_forward
+from fateavatar_tpu_torch.models.fateavatar import (
+    FateAvatarModel,
+    fateavatar_forward,
+    fateavatar_visualization,
+)
 from fateavatar_tpu_torch.ops.camera import make_camera
 from fateavatar_tpu_torch.render.autosize import autosize_render_config
+from fateavatar_tpu_torch.render.mesh_render import overlay_mesh
 from fateavatar_tpu_torch.render.render import RenderConfig
 from fateavatar_tpu_torch.train import metrics as metrics_mod
 from fateavatar_tpu_torch.train.checkpoints import CheckpointManager
@@ -40,6 +47,15 @@ from fateavatar_tpu_torch.train.step import (
     init_train_state,
     make_train_step,
 )
+from fateavatar_tpu_torch.train.tracking import (
+    RowAdam,
+    RowAdamState,
+    TrackingTables,
+    make_batched_tracking_step,
+    make_tracking_step,
+    tables_from_dataset,
+)
+from fateavatar_tpu_torch.utils.logging import Logger, save_image, save_image_grid, write_video
 
 FLUSH_EVERY = 50   # steps between fetches of the device-side loss values
 
@@ -62,9 +78,24 @@ class Trainer:
         workspace: Optional[str] = None,
         maint_cfg: MaintenanceConfig = MaintenanceConfig(),
         render_cfg: RenderConfig = RenderConfig(),
+        tracking_lr: float = 5e-4,
         bg_color=(1.0, 1.0, 1.0),
+        snapshot_interval: int = 1000,
+        max_keep_ckpt: int = 2,
         seed: int = 0,
+        data_parallel: int = 0,
+        device_frame_cache: str = "auto",
+        lpips_weights_path=None,
+        scan_unroll: int = 1,
     ):
+        if data_parallel and data_parallel > 0:
+            raise NotImplementedError(
+                f"data_parallel={data_parallel}: the data-parallel epoch is not "
+                "ported yet (ROADMAP Queue 1 item 11)")
+        if device_frame_cache not in ("on", "off", "auto"):
+            raise ValueError(f"device_frame_cache {device_frame_cache!r}: on, off or auto")
+        # fails now, not at the first evaluation, if LPIPS weights are given
+        metrics_mod.default_meters(lpips_weights_path=lpips_weights_path)
         self.name = name
         self.model = model
         self.loss_fn = loss_fn
@@ -74,22 +105,39 @@ class Trainer:
         self.workspace = workspace
         self.device = params.offset.device
         self.bg_color = torch.as_tensor(bg_color, dtype=torch.float32, device=self.device)
+        self.snapshot_interval = snapshot_interval
+        self.lpips_weights_path = lpips_weights_path
+        # the JAX trainer's scan-epoch unroll; the per-step mode computes the
+        # same numbers, so it is only recorded here
+        self.scan_unroll = max(1, int(scan_unroll))
         self.epoch = 0
         self.global_step = 0
-        self._log_path = None
+        self.logger = Logger(name, workspace)
+
+        # media dirs (train/trainer.py:107-134)
+        self.media_dirs = {}
         if workspace is not None:
-            os.makedirs(os.path.join(workspace, "media", "metrics"), exist_ok=True)
-            self._log_path = os.path.join(workspace, f"log_{name}.txt")
-            self.ckpt = CheckpointManager(os.path.join(workspace, "checkpoints"))
+            for sub in ("snapshots", "eval_images", "eval_videos", "metrics"):
+                d = os.path.join(workspace, "media", sub)
+                os.makedirs(d, exist_ok=True)
+                self.media_dirs[sub] = d
+            self.ckpt = CheckpointManager(os.path.join(workspace, "checkpoints"),
+                                          max_keep=max_keep_ckpt)
         else:
             self.ckpt = None
 
         # ground truth cached on the device as uint8 (4x smaller) after its
-        # first upload, converted inside the loss (losses.as_float_rgb),
-        # when the whole dataset fits 4 GiB
+        # first upload, converted inside the loss (losses.as_float_rgb);
+        # "auto" caches when the whole dataset fits 4 GiB
         h, w = model.cfg.img_height, model.cfg.img_width
-        fits = len(train_dataset) * h * w * 3 <= 4 << 30
-        self._frame_cache: Optional[dict] = {} if fits else None
+        est_bytes = len(train_dataset) * h * w * 3
+        self._frame_cache: Optional[dict] = None
+        if device_frame_cache == "on" or (device_frame_cache == "auto"
+                                          and est_bytes <= 4 << 30):
+            self._frame_cache = {}
+        elif device_frame_cache == "auto":
+            self.log(f"[cache] dataset ~{est_bytes >> 20} MiB exceeds the 4 GiB "
+                     "device-frame budget; streaming uploads per step")
 
         if render_cfg.autosize:
             # measure the dataset's tile occupancy on its first frames and
@@ -105,38 +153,96 @@ class Trainer:
         self.ts: TrainState = init_train_state(params, state, optimizer, seed)
         self.last_epoch_stats: Optional[dict] = None
 
+        # tracking refinement (train/base.py:113-151)
+        self.tracking_enabled = getattr(train_dataset, "optimize_tracking", False)
+        self.train_tables: Optional[TrackingTables] = None
+        if self.tracking_enabled:
+            self.track_opt = RowAdam(lr=tracking_lr)
+            self.train_tables = tables_from_dataset(train_dataset, self.device)
+            self.train_track_state = self.track_opt.init(self.train_tables)
+            if test_dataset is not None:
+                self.test_tables = tables_from_dataset(test_dataset, self.device)
+                self.test_track_state = self.track_opt.init(self.test_tables)
+            self._tracking_step = self._build_tracking_step()
+            self._batched_tracking_step = self._build_tracking_step(batched=True)
+
     def log(self, msg: str):
-        print(msg, flush=True)
-        if self._log_path is not None:
-            with open(self._log_path, "a") as f:
-                f.write(msg + "\n")
+        self.logger.log(msg)
 
     # ------------------------------------------------------------------
     # frames
     # ------------------------------------------------------------------
 
-    def _make_frame(self, sample: dict, cache: bool = True) -> Frame:
-        """A dataset sample as a Frame on the device. ``cache`` keys the
-        uint8 ground truth by TRAIN-set index; samples of another dataset
-        (evaluation on the test set) pass cache=False."""
+    def _make_frame(self, sample: dict, tables: Optional[TrackingTables] = None,
+                    cache: bool = True) -> Frame:
+        """A dataset sample as a Frame on the device. With ``tables``, the
+        frame's expression, pose and camera translation are its tracked rows
+        (the camera is then built from the row, so it stays differentiable).
+        ``cache`` keys the uint8 ground truth by TRAIN-set index; samples of
+        another dataset (evaluation on the test set) pass cache=False."""
         dev = self.device
         h, w = self.model.cfg.img_height, self.model.cfg.img_width
+        idx = sample["idx"]
         cam_pose = np.asarray(sample["cam_pose"], np.float32)
-        camera = make_camera(cam_pose[:3, :3].T, cam_pose[:3, 3], sample["fovx"],
-                             sample["fovy"], w, h, device=dev)
+        if tables is not None:
+            expr, pose, cam_t = (tables.expression[idx], tables.flame_pose[idx],
+                                 tables.cam_t[idx])
+        else:
+            expr = torch.as_tensor(sample["expression"], dtype=torch.float32, device=dev)
+            pose = torch.as_tensor(sample["flame_pose"], dtype=torch.float32, device=dev)
+            cam_t = cam_pose[:3, 3]
+        camera = make_camera(cam_pose[:3, :3].T, cam_t, sample["fovx"], sample["fovy"],
+                             w, h, device=dev)
         rgb = np.asarray(sample["ground_truth"]["rgb"], np.float32)
         if cache and self._frame_cache is not None:
-            gt = self._frame_cache.get(sample["idx"])
+            gt = self._frame_cache.get(idx)
             if gt is None:
                 gt = torch.from_numpy(np.clip(np.round(rgb * 255.0), 0, 255)
                                       .astype(np.uint8)).to(dev)
-                self._frame_cache[sample["idx"]] = gt
+                self._frame_cache[idx] = gt
         else:
             gt = torch.from_numpy(rgb).to(dev)
-        return Frame(
-            expression=torch.as_tensor(sample["expression"], dtype=torch.float32, device=dev),
-            flame_pose=torch.as_tensor(sample["flame_pose"], dtype=torch.float32, device=dev),
-            camera=camera, rgb=gt, bg_color=self.bg_color)
+        return Frame(expression=expr, flame_pose=pose, camera=camera, rgb=gt,
+                     bg_color=self.bg_color)
+
+    @staticmethod
+    def _rgb_f32(rgb: torch.Tensor) -> np.ndarray:
+        """Host float view of a frame's ground truth (undoes the device
+        cache's uint8 encoding)."""
+        arr = rgb.cpu().numpy()
+        if arr.dtype == np.uint8:
+            return arr.astype(np.float32) / 255.0
+        return arr
+
+    def _tracking_loss(self, expr, pose, cam_t, const):
+        """The frame's full training loss as a function of its tracked rows;
+        ``const`` = (R, fovx, fovy, gt rgb, model state, model params)."""
+        R, fovx, fovy, rgb, mstate, params = const
+        cfg = self.model.cfg
+        camera = make_camera(R, cam_t, fovx, fovy, cfg.img_width, cfg.img_height,
+                             device=self.device)
+        out = fateavatar_forward(self.model, params, mstate, expr, pose, camera,
+                                 bg_color=self.bg_color, render_cfg=self.render_cfg)
+        return self.loss_fn(out, {"rgb": rgb})["loss"]
+
+    def _build_tracking_step(self, batched: bool = False):
+        if batched:
+            def loss_of_frame_b(expr, pose, cam_t, frame_const, shared):
+                params, mstate = shared
+                return self._tracking_loss(expr, pose, cam_t, (*frame_const, mstate, params))
+
+            return make_batched_tracking_step(loss_of_frame_b, self.track_opt)
+        return make_tracking_step(self._tracking_loss, self.track_opt)
+
+    def set_render_cfg(self, render_cfg: RenderConfig):
+        """Swap the binning capacities mid-run (train/trainer.py:421-465):
+        the train step is rebuilt on the new settings (and on the current
+        ``maint_cfg``). The tracking steps need no rebuild: their loss reads
+        ``self.render_cfg`` at each call, where the JAX package's jitted
+        steps close over the old value."""
+        self.render_cfg = render_cfg
+        self.train_step = make_train_step(self.model, self.loss_fn, self.optimizer,
+                                          self.maint_cfg, render_cfg)
 
     # ------------------------------------------------------------------
     # training
@@ -175,12 +281,22 @@ class Trainer:
 
         t0 = time.perf_counter()
         for sample in Prefetcher(ds, np.arange(len(ds))):
-            frame = self._make_frame(sample)
+            frame = self._make_frame(sample, self.train_tables)
             self.ts, aux = self.train_step(self.ts, frame)
             self.global_step += 1
             pending.append(aux)
+            # tracking refinement on the SAME frame with the updated model
+            # (train/trainer.py:173-176)
+            if self.tracking_enabled:
+                cam_pose = np.asarray(sample["cam_pose"], np.float32)
+                const = (cam_pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb,
+                         self.ts.state, self.ts.params)
+                self.train_tables, self.train_track_state = self._tracking_step(
+                    self.train_tables, self.train_track_state, sample["idx"], const)
             if len(pending) >= FLUSH_EVERY:
                 flush()
+            if self.workspace is not None and self.global_step % self.snapshot_interval == 0:
+                self.save_snapshot(sample)
         flush()
         dt = time.perf_counter() - t0
         n = len(ds)
@@ -198,48 +314,143 @@ class Trainer:
     # evaluation (train/trainer.py:271-381)
     # ------------------------------------------------------------------
 
-    @torch.no_grad()
-    def evaluate(self, mode: str = "test"):
+    def evaluate(self, mode: str = "test", optim_epoch: Optional[int] = None,
+                 save_media: bool = True):
         """PSNR, SSIM, L1 and L2 over the test (or train) set, computed on
-        the device and fetched once; per-frame values go to
-        ``<workspace>/media/metrics/<mode>_epoch<n>.json``."""
+        the device and fetched once. On a tracking dataset the test rows are
+        fitted first (:meth:`optimize_tracking`, ``optim_epoch`` steps). With
+        a workspace: per-frame values to ``media/metrics/<mode>_epoch<n>.json``
+        (and a plot where matplotlib is installed), and with ``save_media``
+        the prediction | ground truth frames as a video and frame 0 as a
+        PNG."""
         ds = self.test_dataset if mode == "test" else self.train_dataset
         if ds is None:
             raise ValueError("no test dataset")
-        names, rows = [], []
-        for i in range(len(ds)):
-            sample = ds.sample(i)
-            frame = self._make_frame(sample, cache=ds is self.train_dataset)
-            img = fateavatar_forward(
-                self.model, self.ts.params, self.ts.state, frame.expression,
-                frame.flame_pose, frame.camera, bg_color=self.bg_color,
-                render_cfg=self.render_cfg)["rgb_image"]
-            rows.append(metrics_mod.image_metrics(img, as_float_rgb(frame.rgb)))
-            names.append(sample["img_name"])
-        meters = metrics_mod.default_meters()
+        if mode == "test" and self.tracking_enabled:
+            self.optimize_tracking(optim_epoch or 50)
+
+        meters = metrics_mod.default_meters(lpips_weights_path=self.lpips_weights_path)
+        tables = None
+        if self.tracking_enabled:
+            tables = self.test_tables if mode == "test" else self.train_tables
+        names, rows, frames_out = [], [], []
+        with torch.no_grad():
+            for i in range(len(ds)):
+                sample = ds.sample(i)
+                frame = self._make_frame(sample, tables, cache=ds is self.train_dataset)
+                img = fateavatar_forward(
+                    self.model, self.ts.params, self.ts.state, frame.expression,
+                    frame.flame_pose, frame.camera, bg_color=self.bg_color,
+                    render_cfg=self.render_cfg)["rgb_image"]
+                rows.append(metrics_mod.image_metrics(img, as_float_rgb(frame.rgb)))
+                names.append(sample["img_name"])
+                if save_media:
+                    # the prediction comes to the host as uint8
+                    img_u8 = torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8)
+                    gt_u8 = (np.clip(self._rgb_f32(frame.rgb), 0, 1) * 255).astype(np.uint8)
+                    frames_out.append((img_u8, gt_u8))
         per_frame = []
         for name, vals in zip(names, torch.stack(rows).cpu().numpy()):
             row = {"frame": name}
             for k, v in zip(metrics_mod.IMAGE_METRICS, vals):
-                meters[k].update(v)
-                row[k] = float(v)
+                meters[k].update_value(v)
+                row[k] = meters[k].V_cur
             per_frame.append(row)
         summary = {k: m.measure() for k, m in meters.items()}
         self.log(f"[eval {mode}] " + " ".join(f"{k}={v:.4f}" for k, v in summary.items()))
+
         if self.workspace is not None:
-            path = os.path.join(self.workspace, "media", "metrics",
-                                f"{mode}_epoch{self.epoch}.json")
-            with open(path, "w") as f:
+            mpath = os.path.join(self.media_dirs["metrics"], f"{mode}_epoch{self.epoch}.json")
+            with open(mpath, "w") as f:
                 json.dump({"summary": summary, "per_frame": per_frame}, f, indent=2)
+            self._plot_metrics(mode, per_frame)
+            if save_media and frames_out:
+                frames_out = [np.concatenate([p.cpu().numpy(), g], axis=1)
+                              for p, g in frames_out]
+                write_video(os.path.join(self.media_dirs["eval_videos"],
+                                         f"{mode}_epoch{self.epoch}.mp4"), frames_out, fps=25)
+                save_image(os.path.join(self.media_dirs["eval_images"],
+                                        f"{mode}_epoch{self.epoch}_frame0.png"), frames_out[0])
         return summary
 
+    def _plot_metrics(self, mode: str, per_frame: list):
+        """Per-frame metric curves (train/trainer.py:576-602 equivalent);
+        skipped, with a log line, where matplotlib is not installed."""
+        try:
+            import matplotlib
+
+            matplotlib.use("Agg")
+            import matplotlib.pyplot as plt
+        except ImportError:
+            self.log("[eval] matplotlib is not installed: no metric plot")
+            return
+        keys = [k for k in per_frame[0] if k != "frame"] if per_frame else []
+        if not keys:
+            return
+        fig, axes = plt.subplots(1, len(keys), figsize=(4 * len(keys), 3))
+        if len(keys) == 1:
+            axes = [axes]
+        for ax, key in zip(axes, keys):
+            ax.plot([row[key] for row in per_frame])
+            ax.set_title(key)
+            ax.set_xlabel("frame")
+        fig.tight_layout()
+        fig.savefig(os.path.join(self.media_dirs["metrics"], f"{mode}_epoch{self.epoch}.png"))
+        plt.close(fig)
+
+    def optimize_tracking(self, optim_epoch: int = 50, batch: int = 8):
+        """Fit test-set tracking rows (train/base.py:198-235): ``optim_epoch``
+        gradient steps per frame on (expression, pose, camera translation),
+        ``batch`` frames' rows per update (the last batch holds the rest; no
+        padding is needed here, so no row is masked)."""
+        ds = self.test_dataset
+        dev = self.device
+        self.log("==> optimizing test tracking...")
+        n = len(ds)
+        for start in range(0, n, batch):
+            idxs = list(range(start, min(start + batch, n)))
+            consts = []
+            for i in idxs:
+                s = ds.sample(i)
+                consts.append((np.asarray(s["cam_pose"], np.float32)[:3, :3].T,
+                               s["fovx"], s["fovy"],
+                               torch.from_numpy(np.asarray(s["ground_truth"]["rgb"],
+                                                           np.float32)).to(dev)))
+            idx_t = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
+            mask = torch.ones(len(idxs), dtype=torch.bool, device=dev)
+            shared = (self.ts.params, self.ts.state)
+            for _ in range(optim_epoch):
+                self.test_tables, self.test_track_state = self._batched_tracking_step(
+                    self.test_tables, self.test_track_state, idx_t, mask, consts, shared)
+
     # ------------------------------------------------------------------
-    # checkpoints
+    # media / checkpoints
     # ------------------------------------------------------------------
+
+    def save_snapshot(self, sample: dict):
+        """Seven-panel snapshot (train/trainer.py:474-538): pred / gt /
+        FLAME-mesh overlay / L1 heat / canonical / gradient heat / sampled
+        points (the mesh overlay replaces the nvdiffrast panel)."""
+        frame = self._make_frame(sample, self.train_tables)
+        with torch.no_grad():
+            vis = fateavatar_visualization(
+                self.model, self.ts.params, self.ts.state, frame.expression,
+                frame.flame_pose, frame.camera, render_cfg=self.render_cfg)
+            mesh_panel = overlay_mesh(self._rgb_f32(frame.rgb), vis["verts"][0],
+                                      self.model.faces, frame.camera).cpu().numpy()
+        pred = vis["rgb_image"].cpu().numpy()
+        gt = self._rgb_f32(frame.rgb)
+        l1 = np.abs(pred - gt).mean(-1, keepdims=True)
+        heat = np.concatenate([l1, np.zeros_like(l1), 1.0 - l1], axis=-1)
+        save_image_grid(
+            os.path.join(self.media_dirs["snapshots"], f"step{self.global_step:08d}.png"),
+            [pred, gt, mesh_panel, heat, vis["cano_image"].cpu().numpy(),
+             vis["grad_image"].cpu().numpy(), vis["point_image"].cpu().numpy()],
+            cols=4)
 
     def checkpoint_tree(self) -> dict:
         ts = self.ts
-        return {
+        tree = {
             "params": _fields(ts.params),
             "state": _fields(ts.state),
             "opt_state": {"mu": _fields(ts.opt_state.mu), "nu": _fields(ts.opt_state.nu),
@@ -249,6 +460,13 @@ class Trainer:
             "epoch": self.epoch,
             "global_step": self.global_step,
         }
+        if self.tracking_enabled:
+            tree["train_tables"] = _fields(self.train_tables)
+            tree["train_track_state"] = _track_state_tree(self.train_track_state)
+            if self.test_dataset is not None:
+                tree["test_tables"] = _fields(self.test_tables)
+                tree["test_track_state"] = _track_state_tree(self.test_track_state)
+        return tree
 
     def save_checkpoint(self):
         if self.ckpt is None:
@@ -274,4 +492,19 @@ class Trainer:
         )
         self.epoch = int(tree["epoch"])
         self.global_step = int(tree["global_step"])
+        if self.tracking_enabled:
+            self.train_tables = TrackingTables(**tree["train_tables"])
+            self.train_track_state = _track_state(tree["train_track_state"])
+            if self.test_dataset is not None:
+                self.test_tables = TrackingTables(**tree["test_tables"])
+                self.test_track_state = _track_state(tree["test_track_state"])
         self.log(f"[ckpt] restored step {self.global_step}")
+
+
+def _track_state_tree(s: RowAdamState) -> dict:
+    return {"mu": _fields(s.mu), "nu": _fields(s.nu), "count": s.count}
+
+
+def _track_state(d: dict) -> RowAdamState:
+    return RowAdamState(mu=TrackingTables(**d["mu"]), nu=TrackingTables(**d["nu"]),
+                        count=d["count"])

@@ -1,6 +1,8 @@
 """Typed configuration system (a copy of ``fateavatar_tpu/utils/config.py``:
 the port reads the same YAML files, so it keeps every section and key; the
-keys the port does not use yet are read and ignored).
+keys the port does not use yet are read and ignored). One addition: a
+``key.path=value`` override may name one entry of a mapping, as in
+``training.epochs.finetune=3``.
 
 The reference uses YAML -> EasyDict with ad-hoc CLI overrides and no schema
 (tools/util.py:12-39, common.py:25-31). Here configs are typed dataclasses
@@ -167,10 +169,13 @@ def load_config(path: Optional[str] = None, overrides: Optional[list] = None) ->
         obj = cfg
         parts = key.split(".")
         for p in parts[:-1]:
-            obj = getattr(obj, p)
-        cur = getattr(obj, parts[-1])
+            obj = obj[p] if isinstance(obj, dict) else getattr(obj, p)
         val: Any = yaml.safe_load(raw)
-        setattr(obj, parts[-1], val)
+        if isinstance(obj, dict):     # one entry of a mapping (training.epochs)
+            obj[parts[-1]] = val
+        else:
+            getattr(obj, parts[-1])   # an unknown key raises
+            setattr(obj, parts[-1], val)
     return cfg
 
 

@@ -235,3 +235,85 @@ def test_tile_bwd_kernel_writes_every_element():
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dirty).all())
     assert torch.equal(dirty, clean)
+
+
+@pytest.mark.cuda
+def test_png_codec_round_trip(tmp_path):
+    """The port's PNG writer and reader on the card's host (no PIL there):
+    grey, RGB and RGBA round-trip exactly, and decode_image at the native
+    size returns the bytes / 255."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.utils import png
+
+    rng = np.random.default_rng(0)
+    for c in (1, 3, 4):
+        arr = (rng.random((37, 53, c)) * 255).astype(np.uint8)
+        path = str(tmp_path / f"c{c}.png")
+        png.write_png(path, arr)
+        back = png.read_png(path)
+        want = np.repeat(arr, 3, axis=2) if c == 1 else arr
+        assert np.array_equal(back, want)
+        rgba, src_c = png.decode_image(path, 53, 37)
+        assert src_c == back.shape[2]
+        assert np.array_equal(rgba[..., :src_c], want.astype(np.float32) * np.float32(1 / 255))
+
+
+@pytest.mark.cuda
+def test_tracking_step_kernels_match_plain():
+    """One tracking step's row gradients (expression, pose, camera
+    translation) through kernels 1 and 2 against the same step through the
+    plain instance blend, on a small avatar: within 1e-2 relative L2 per
+    field, the bound of chip_smoke.py's step comparisons (the two images
+    differ by ~1e-6 a pixel, which an L1 residual near 0 turns into an O(1)
+    change of that pixel's term). One forward and one backward launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from fateavatar_tpu_torch.flame.loader import synthetic_flame
+    from fateavatar_tpu_torch.models import fateavatar as tfa
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render import render as render_mod
+    from fateavatar_tpu_torch.render.render import RenderConfig
+    from fateavatar_tpu_torch.train import losses as tl
+    from fateavatar_tpu_torch.train.tracking import FIELDS, row_gradients
+    from fateavatar_tpu_torch.utils.obj_io import sphere_obj_mesh
+
+    dev, res = "cuda", 64
+    flame = synthetic_flame(n_verts=96, n_shape=8, n_exp=6, seed=0, device=dev)
+    cfg = tfa.FateAvatarConfig(tex_size=32, capacity=2048, img_height=res, img_width=res,
+                               normal_offset=0.02)
+    m, p, s = tfa.init_fateavatar(sphere_obj_mesh(96), flame, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = dataclasses.replace(p, **{k: getattr(p, k) + sc * torch.randn(
+        getattr(p, k).shape, generator=gen, device=dev)
+        for k, sc in (("features_dc", 0.8), ("opacity", 1.5), ("offset", 1.0))})
+    loss_fn = tl.FateAvatarLoss(tl.FateAvatarLossConfig(rgb_weight=1.0,
+                                                        laplacian_weight=1e5))
+    gt = torch.rand((res, res, 3), generator=gen, device=dev)
+    rcfg = RenderConfig(binning="twotier", max_tiles_per_gaussian=64)
+
+    def loss(e, po, ct):
+        cam = make_camera(torch.eye(3, device=dev), ct, 0.8, 0.8, res, res, device=dev)
+        out = tfa.fateavatar_forward(m, p, s, e, po, cam, render_cfg=rcfg)
+        return loss_fn(out, {"rgb": gt})["loss"]
+
+    rows = (torch.randn(6, generator=gen, device=dev) * 0.3,
+            torch.randn(15, generator=gen, device=dev) * 0.05,
+            torch.tensor([0.0, 0.0, 0.4], device=dev))
+    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+    gk = row_gradients(loss, *rows)
+    torch.cuda.synchronize()
+    assert tblend.blend_instances.launches == f0 + 1
+    assert tblend.blend_instances_bwd.launches == b0 + 1
+    orig = render_mod.blend_instances
+    render_mod.blend_instances = tblend.blend_instances_plain
+    try:
+        gp = row_gradients(loss, *rows)
+    finally:
+        render_mod.blend_instances = orig
+    for f in FIELDS:
+        a, b = getattr(gk, f), getattr(gp, f)
+        assert bool(torch.isfinite(a).all()) and float(b.norm()) > 0, f
+        assert float((a - b).norm() / b.norm()) <= 1e-2, f

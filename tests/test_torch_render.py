@@ -249,8 +249,11 @@ def test_render_matches_goldens(name, binning):
 
 
 def test_render_refuses_unported_options():
+    """The aligned layout, and a t_cutoff above 1e-4 on the instances route
+    (the chunk-granular early exit; values <= 1e-4 give the exact blend and
+    are taken, see test_torch_data.py)."""
     cam, g, bg, n = _port_scene("sh0_basic")
-    for cfg in (RenderConfig(layout="aligned"), RenderConfig(t_cutoff=1e-4)):
+    for cfg in (RenderConfig(layout="aligned"), RenderConfig(t_cutoff=2e-4)):
         with pytest.raises(NotImplementedError):
             render(cam, g, bg, config=cfg)
 

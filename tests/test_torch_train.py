@@ -187,7 +187,7 @@ def test_meters_match_jax():
         pred, gt = _images(32, seed)
         for k, v in zip(tmetrics.IMAGE_METRICS, tmetrics.image_metrics(t(pred), t(gt))):
             jm[k].update(pred, gt)
-            tm[k].update(v)
+            tm[k].update_value(v)
     for k in jm:
         np.testing.assert_allclose(tm[k].measure(), jm[k].measure(), rtol=1e-5, err_msg=k)
 
