@@ -29,7 +29,18 @@ weights), each through both routes of ``RenderConfig.kernel``:
   the test rows' fit, evaluation and its media, ``--resume``, and
   ``cli/avatar_reenact``; launches per step, tracking counts, media files,
   and one tracking step's row gradients with the kernels against the
-  plain blends.
+  plain blends;
+* CUDA graphs (``[graph]``): the Trainer's scan epoch (one captured step
+  replayed per frame) on the ``[train]`` Trainer, on a Trainer of 8 frames
+  through ``kernel="tiles"`` and on the ``[cli]`` Trainer with its
+  tracking step: one step eager against the graph's first replay, a whole
+  epoch each way from one state (maintenance steps eager in both), ms/step
+  each way, the replays under the profiler; ``fps_performance_test``; and
+  ``Reenactor.reenact``'s graph on both routes against the eager loop (bit
+  for bit), with ms/frame each way.
+
+Serving runs through ``Reenactor.reenact``'s CUDA graph: a wrapper counts the launches of the graph's warm-up calls and its capture,
+and the graph reports its replays and launches per replay.
 
 A ``[caps]`` line first reports what the machine offers the host side
 (g++, the libpng and libjpeg headers, ffmpeg, PIL, matplotlib,
@@ -134,6 +145,20 @@ CLI_SNAPSHOT = 6
 # a VGG ReLU input or a max pool's top two sit within it (the bound of the
 # whole step's comparison, STEP_RTOL_L2); a wrong gradient shows as O(1)
 TRACK_RTOL_L2 = 1e-2
+
+# the [graph] phase: the scan epoch's CUDA graph against eager steps from
+# one state. The first step's loss within 1e-6 relative (the forward
+# kernels are deterministic; cuDNN's choice of VGG algorithm and the
+# Laplacian's index_add_ could differ); every parameter field and tracking
+# table after one step within 1e-4 relative L2, and every step's loss over
+# an epoch within 1e-3 relative (the backward sums with atomics: the same
+# step twice differs by <= 5e-5, PERF.md)
+GRAPH_LOSS0_RTOL = 1e-6
+GRAPH_STEP_RTOL_L2 = 1e-4
+GRAPH_EPOCH_RTOL = 1e-3
+GRAPH_TILES_FRAMES = 8    # the tiles route's graph epoch
+GRAPH_PROFILE = 8         # replays under the profiler
+SERVE_LONG = 3            # the longer served sequence, in N_FRAMES
 
 SEGMENTED = ("segmented walk: one work unit per (tile, 256-column segment); pass A "
              "products, entry transmittance folded in segment order, pass B exact walk")
@@ -967,6 +992,9 @@ def profile_top(label, fn, n, unit, card):
     for e in kernels[:10]:
         log(f"[profile]   {e.self_device_time_total / n / 1e3:8.4f} ms/{unit} "
             f"x{e.count // n:<4d} {e.key[:90]}")
+    return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "idle": 1 - busy_us / wall_us, "kernels": n_launch / n,
+            "names": {e.key for e in kernels}}
 
 
 def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, rows, card):
@@ -981,6 +1009,7 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
     from fateavatar_tpu_torch.render import blend_instances as bi
     from fateavatar_tpu_torch.render import blend_tiles as bt
     from fateavatar_tpu_torch.train.loader import Reenactor
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
 
     dev = "cuda"
     row = rows["blend_tiles_fwd"]
@@ -1010,10 +1039,14 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
     n = bt.blend_tiles.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     row["launches"] = n
-    log(f"[tiles-serve] blend_tiles_fwd launches in the serving path: {n}, "
-        f"blend_instances_fwd {bi.blend_instances.launches}")
-    check(n == N_FRAMES and bi.blend_instances.launches == 0,
-          "one dense-list blend launch per frame and no instance blend")
+    g = reenactor.last_graph
+    log(f"[tiles-serve] blend_tiles_fwd launches in the serving path: {n} by the wrapper "
+        f"({WARMUP} warm-up calls + the capture), then {g.replays} replays x "
+        f"{g.launches_per_replay}; blend_instances_fwd {bi.blend_instances.launches}")
+    check(n == WARMUP + 1 and g.replays == N_FRAMES
+          and g.launches_per_replay == {"blend_tiles_fwd": 1}
+          and bi.blend_instances.launches == 0,
+          "one graph replay per frame, one dense-list blend launch each, no instance blend")
     check(len(frames) == N_FRAMES
           and all(f.shape == (cam.height, cam.width, 3) for f in frames),
           "16 frames of 512x512x3")
@@ -1021,7 +1054,8 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
     check(spread > 5.0, f"frames must not be flat (pixel std {spread:.2f})")
     log(f"[tiles-serve] {N_FRAMES} frames in {serve_s * 1e3:.3f} ms: "
         f"{serve_s * 1e3 / N_FRAMES:.3f} ms/frame (host clock, uint8 frames on the "
-        f"host), peak device memory {peak_gib:.3f} GiB, pixel std {spread:.2f} [{card}]")
+        f"host, the graph's warm-up and capture included), peak device memory "
+        f"{peak_gib:.3f} GiB, pixel std {spread:.2f} [{card}]")
 
     lat, overflow = [], []
     for e, p, c in views:
@@ -1079,6 +1113,7 @@ def tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, 
     profile_top("4 tiles forwards", lambda i: fateavatar_forward(
         model, reenactor.params, state, e0, p0, cam, render_cfg=tcfg), 4, "frame", card)
     log(f"[tiles-serve] phase total {time.perf_counter() - t_phase:.1f} s")
+    return tcfg
 
 
 def tiles_train_phase(s, trainer_i, rows, card):
@@ -1233,6 +1268,267 @@ def tiles_train_phase(s, trainer_i, rows, card):
 
     profile_top("3 tiles train steps", step, 3, "step", card)
     log(f"[tiles-train] phase total {time.perf_counter() - t_phase:.1f} s")
+    return rcfg
+
+
+def graph_snapshot(tr):
+    """The Trainer's state (train state, generator, step counters, tracking
+    tables) in copies of its own."""
+    from fateavatar_tpu_torch.train.step import clone_train_state
+    from fateavatar_tpu_torch.train.tracking import clone_tracking
+
+    track = (clone_tracking(tr.train_tables, tr.train_track_state) if tr.tracking_enabled
+             else None)
+    return (clone_train_state(tr.ts), tr.ts.generator.get_state(), tr.global_step,
+            tr.epoch, track)
+
+
+def graph_restore(tr, snap):
+    """The Trainer back at ``snap``, in tensors of its own (so a scan epoch's
+    static buffers never alias the snapshot)."""
+    import torch
+
+    from fateavatar_tpu_torch.train.step import clone_train_state
+    from fateavatar_tpu_torch.train.tracking import clone_tracking
+
+    ts, gen, tr.global_step, tr.epoch, track = snap
+    tr.ts = clone_train_state(ts)
+    tr.ts.generator = torch.Generator(device=tr.device)
+    tr.ts.generator.set_state(gen)
+    if track is not None:
+        tr.train_tables, tr.train_track_state = clone_tracking(*track)
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+def timed(fn, n):
+    """Host-clock and CUDA-event milliseconds per unit of ``fn()``, which
+    does ``n`` units; synchronized before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    ev[0].record()
+    fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n, ev[0].elapsed_time(ev[1]) / n
+
+
+def zero_counts():
+    from fateavatar_tpu_torch.render.render import KERNEL_COUNTERS
+
+    for c in KERNEL_COUNTERS.values():
+        c.launches = 0
+    return KERNEL_COUNTERS
+
+
+def graph_train(tag, tr, card, seen):
+    """The scan epoch on the card for a Trainer whose device frame cache
+    holds every training frame: one step eagerly and as the graph's first
+    replay from one state; a whole epoch each way from that state (with the
+    Trainer's maintenance intervals: those steps run eagerly in both); then,
+    with no maintenance due, epochs in turns eager, graph (its capture),
+    graph, eager, timed; and graph replays under the profiler (their kernel
+    names into ``seen``). Returns the numbers for the summary."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.train.tracking import FIELDS
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    n = len(tr.train_dataset)
+    route, tracking = tr.render_cfg.kernel, tr.tracking_enabled
+    fwd, bwd = f"blend_{route}_fwd", f"blend_{route}_bwd"
+    per = 2 if tracking else 1
+    check(tr._frame_cache is not None and len(tr._frame_cache) == n,
+          f"[{tag}] every training frame in the device cache")
+    check(not tr.maint_cfg.due(tr.ts.step + 1), f"[{tag}] no maintenance at the compared step")
+    snap = graph_snapshot(tr)
+    first_step = tr.ts.step
+
+    # ---- one step: eagerly, then as the graph's first replay
+    sample = tr.train_dataset.sample(0)
+    frame = tr._make_frame(sample, tr.train_tables)
+    ts1, aux1 = tr.train_step(tr.ts, frame)
+    if tracking:
+        pose = np.asarray(sample["cam_pose"], np.float32)
+        tables1, _ = tr._tracking_step(
+            tr.train_tables, tr.train_track_state, sample["idx"],
+            (pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb, ts1.state, ts1.params))
+    graph_restore(tr, snap)
+    counters = zero_counts()
+    scan = tr._maybe_scan_epoch()
+    tr._load_scan_state(scan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan.graph()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    g = scan.graph
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
+    loss_e, loss_g = float(aux1["loss"]), float(scan.aux["loss"][0])
+    rel0 = abs(loss_g - loss_e) / abs(loss_e)
+    errs = {f.name: rel_l2(getattr(scan.ts.params, f.name), getattr(ts1.params, f.name))
+            for f in dataclasses.fields(ts1.params)}
+    if tracking:
+        errs.update({f"tables.{f}": rel_l2(getattr(scan.tables, f), getattr(tables1, f))
+                     for f in FIELDS})
+    log(f"[{tag}] one step eager vs the graph's first replay (route {route}"
+        f"{', with the tracking step' if tracking else ''}): loss {loss_e:.8f} vs "
+        f"{loss_g:.8f} (rel {rel0:.1e}, bound {GRAPH_LOSS0_RTOL}); rel L2 after the step "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+        + f" (bound {GRAPH_STEP_RTOL_L2})")
+    log(f"[{tag}] capture: wrapper launches {wrapper} ({WARMUP} warm-up calls + the "
+        f"capture), launches per replay {g.launches_per_replay}; warm-up, capture and "
+        f"the first replay {capture_ms:.1f} ms")
+    check(rel0 <= GRAPH_LOSS0_RTOL, f"[{tag}] first step's loss graph vs eager {rel0:.2e}")
+    check(all(v <= GRAPH_STEP_RTOL_L2 for v in errs.values()),
+          f"[{tag}] state after one step graph vs eager")
+    check(g.launches_per_replay == {fwd: per, bwd: per}
+          and wrapper == {fwd: (WARMUP + 1) * per, bwd: (WARMUP + 1) * per},
+          f"[{tag}] {per} launch of kernels {fwd} and {bwd} per replay")
+
+    # ---- a whole epoch each way from the same state
+    graph_restore(tr, snap)
+    tr._scan_disabled = True
+    tr.epoch += 1
+    tr.train_epoch()
+    eager = np.asarray(tr.epoch_losses)
+    check(tr.last_epoch_stats["mode"] == "per-step", f"[{tag}] the eager epoch runs per step")
+    graph_restore(tr, snap)
+    tr._scan_disabled = False
+    tr.epoch += 1
+    r0 = g.replays
+    counters = zero_counts()
+    tr.train_epoch()
+    graph = tr.last_epoch_aux["loss"]
+    due = [first_step + j + 1 for j in range(n) if tr.maint_cfg.due(first_step + j + 1)]
+    rel = np.abs(graph - eager) / np.abs(eager)
+    log(f"[{tag}] epoch of {n} steps from one state, eager vs graph: per-step loss rel diff "
+        f"max {rel.max():.1e} (bound {GRAPH_EPOCH_RTOL}), step 1 {rel[0]:.1e}; graph "
+        f"losses {[round(float(x), 5) for x in graph]}; {g.replays - r0} replays, steps "
+        f"{due} eagerly (maintenance; wrapper launches {dict((k, c.launches) for k, c in counters.items() if c.launches)}); "
+        f"mode {tr.last_epoch_stats['mode']}")
+    check(tr.last_epoch_stats["mode"] == "scan" and tr._scan_epoch is scan,
+          f"[{tag}] the captured epoch reports mode scan")
+    check(g.replays - r0 == n - len(due), f"[{tag}] one replay per step without maintenance")
+    check(bool(np.isfinite(graph).all()) and rel[0] <= GRAPH_LOSS0_RTOL
+          and rel.max() <= GRAPH_EPOCH_RTOL, f"[{tag}] the epoch's losses graph vs eager")
+
+    # ---- steady epochs without maintenance: eager, graph, graph, eager
+    never = 10**9
+    tr.maint_cfg = dataclasses.replace(tr.maint_cfg, densify_interval=never,
+                                       prune_interval=never, opacity_reset_interval=never)
+    tr.set_render_cfg(tr.render_cfg)    # rebuilds the step; drops the graph
+    t = {}
+    for i, mode in enumerate(("eager", "graph", "graph", "eager")):
+        tr._scan_disabled = mode == "eager"
+        tr.epoch += 1
+        t[i] = timed(tr.train_epoch, n)
+        check(tr.last_epoch_stats["mode"] == ("per-step" if mode == "eager" else "scan"),
+              f"[{tag}] {mode} epoch mode")
+    log(f"[{tag}] ms/step, no maintenance due (host clock / CUDA events, epochs of {n} "
+        f"steps in turns): eager {t[0][0]:.3f} / {t[0][1]:.3f} (first, its frames "
+        f"re-uploaded after the stacking), graph {t[1][0]:.3f} / {t[1][1]:.3f} (first: "
+        f"warm-up and capture), graph {t[2][0]:.3f} / {t[2][1]:.3f}, eager {t[3][0]:.3f} / "
+        f"{t[3][1]:.3f}; steady graph vs eager {t[3][0] / t[2][0]:.2f}x by the host clock "
+        f"[{card}]")
+
+    # ---- replays under the profiler
+    scan = tr._scan_epoch
+    tr._load_scan_state(scan)
+    k = min(n, GRAPH_PROFILE)
+    prof = profile_top(f"{k} replays of the {tag} graph", lambda i: scan.graph(), k,
+                       "replay", card)
+    seen.update(prof["names"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] peak device memory {peak:.3f} GiB (the Trainer's eager steps, two "
+        f"captures; its graph's pool held); phase total {time.perf_counter() - t_phase:.1f} s")
+    return {"eager_ms": t[3], "graph_ms": t[2], "capture_epoch_ms": t[1], "profile": prof,
+            "per_replay": dict(scan.graph.launches_per_replay), "peak_gib": peak}
+
+
+def graph_serve(tag, model, params, state, ws, rcfg, cam, exprs, poses, delta, card, seen):
+    """Reenactor.reenact through its graph against the eager loop it
+    replaced (render_frame, round and clip to uint8, a host copy every
+    DRAIN frames) on the same sequence: frames equal bit for bit; ms per
+    frame of the eager loop, of a whole call (its warm-up and capture
+    included) over N_FRAMES and SERVE_LONG * N_FRAMES frames, and of the
+    graph's replays alone (rewound to the first frame), which also run
+    under the profiler."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.train.loader import DRAIN, Reenactor
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
+
+    torch.cuda.reset_peak_memory_stats()
+    rr = Reenactor(model, params, state, ws, render_cfg=rcfg)
+    fwd = f"blend_{rcfg.kernel}_fwd"
+    n_exp = model.flame.n_exp
+
+    def eager(ex, po):
+        frames, pending = [], []
+        for expr, pose in zip(ex, po):
+            e = np.zeros(n_exp, np.float32)
+            m = min(n_exp, len(expr))
+            e[:m] = expr[:m]
+            e[:len(delta)] -= delta[:len(e)]
+            img = rr.render_frame(e, pose, cam)
+            pending.append(torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8))
+            if len(pending) == DRAIN:
+                frames.extend(torch.stack(pending).cpu().numpy())
+                pending.clear()
+        if pending:
+            frames.extend(torch.stack(pending).cpu().numpy())
+        return frames
+
+    n = len(exprs)
+    long_e, long_p = np.tile(exprs, (SERVE_LONG, 1)), np.tile(poses, (SERVE_LONG, 1))
+    eager(exprs[:2], poses[:2])                                  # warm-up
+    box = {}
+    e_ms = timed(lambda: box.update(eager=eager(exprs, poses)), n)
+    counters = zero_counts()
+    g_ms = timed(lambda: box.update(graph=rr.reenact(exprs, poses, delta, cam)), n)
+    g = rr.last_graph
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
+    gl_ms = timed(lambda: rr.reenact(long_e, long_p, delta, cam), SERVE_LONG * n)
+    e2_ms = timed(lambda: eager(exprs, poses), n)
+    g = rr.last_graph
+    cursor = g.buffers[0]          # the served frame's device cursor (train/loader.py)
+
+    def replays():
+        cursor.zero_()
+        for _ in range(SERVE_LONG * n):
+            g()
+
+    r_ms = timed(replays, SERVE_LONG * n)
+    same = all(np.array_equal(a, b) for a, b in zip(box["graph"], box["eager"]))
+    log(f"[{tag}] {n} frames, graph vs eager loop: bit-equal {same}; wrapper launches "
+        f"{wrapper} ({WARMUP} warm-up calls + the capture), {n} replays x "
+        f"{g.launches_per_replay}")
+    log(f"[{tag}] ms/frame (host clock / CUDA events): eager loop {e_ms[0]:.3f} / "
+        f"{e_ms[1]:.3f} and {e2_ms[0]:.3f} / {e2_ms[1]:.3f}; reenact through the graph "
+        f"over {n} frames {g_ms[0]:.3f} / {g_ms[1]:.3f} and over {SERVE_LONG * n} frames "
+        f"{gl_ms[0]:.3f} / {gl_ms[1]:.3f} (warm-up and capture included); the graph's "
+        f"{SERVE_LONG * n} replays alone {r_ms[0]:.3f} / {r_ms[1]:.3f} [{card}]")
+    check(len(box["graph"]) == n and same, f"[{tag}] served frames graph == eager, bit for bit")
+    check(g.launches_per_replay == {fwd: 1} and wrapper == {fwd: WARMUP + 1},
+          f"[{tag}] one {fwd} launch per replay")
+    cursor.zero_()
+    prof = profile_top(f"{n} replays of the served frame's graph ({tag})", lambda i: g(), n,
+                       "frame", card)
+    seen.update(prof["names"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] peak device memory {peak:.3f} GiB")
+    return {"eager_ms": e2_ms, "call_ms": g_ms, "long_call_ms": gl_ms, "replay_ms": r_ms,
+            "profile": prof, "per_replay": dict(g.launches_per_replay), "peak_gib": peak}
 
 
 def capabilities():
@@ -1350,6 +1646,7 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
     from fateavatar_tpu_torch.train import tracking
     from fateavatar_tpu_torch.train.losses import FateAvatarLoss
     from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
     from fateavatar_tpu_torch.utils.png import read_png
 
     t_phase = time.perf_counter()
@@ -1461,8 +1758,9 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
                                   "--src_root", root, "--out", out, *assets])
     written = [f for f in (out, out[:-4] + ".gif") if os.path.exists(f)]
     log(f"[cli] avatar_reenact: {len(frames)} frames, {bi.blend_instances.launches} forward "
-        f"launches, wrote {[os.path.basename(f) for f in written]}")
-    check(len(frames) == CLI_TEST and bi.blend_instances.launches == CLI_TEST
+        f"launches by the wrapper (the graph's warm-up calls and capture), then "
+        f"{CLI_TEST} replays; wrote {[os.path.basename(f) for f in written]}")
+    check(len(frames) == CLI_TEST and bi.blend_instances.launches == WARMUP + 1
           and len(written) == 1, "reenacted frames and their video")
 
     phase_peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1473,6 +1771,7 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
     tr.maint_cfg = dataclasses.replace(tr.maint_cfg, densify_interval=never,
                                        prune_interval=never, opacity_reset_interval=never)
     tr.set_render_cfg(tr.render_cfg)     # rebuilds the train step on maint_cfg
+    tr._scan_disabled = True             # eager epochs here; [graph] captures them
     t_ms = {}
     torch.cuda.reset_peak_memory_stats()
     for label, enabled in (("with tracking", True), ("without tracking", False)):
@@ -1551,6 +1850,52 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
     log(f"[cli] peak device memory of the phase {phase_peak:.3f} GiB (the model's "
         f"init: its KNN takes the distances of 4,096 points to all at once); phase total "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return tr
+
+
+def graph_phase(s, trainer_i, tiles_cfg, cli_tr, serve, rows, card):
+    """[graph]: the scan epoch's CUDA graph on the three training paths (the
+    [train] Trainer, a Trainer of GRAPH_TILES_FRAMES frames on the tiles
+    route, the [cli] IMAvatar Trainer with its tracking step), the fps test,
+    the served frame's graph on both routes, the kernel names the profiler
+    saw inside the replays, and peak memory with every graph's pool held."""
+    import torch
+
+    from fateavatar_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    seen = set()
+    out = {"train": graph_train("graph-train", trainer_i, card, seen)}
+    fps = trainer_i.fps_performance_test(100)
+    log(f"[graph] fps_performance_test(100): {fps:.1f} frames/s, {1e3 / fps:.3f} ms/frame "
+        f"(one captured forward of training frame 0, replayed) [{card}]")
+    tiles_tr = Trainer(s.cfg.name, s.model, s.params, s.state, s.loss_fn, s.optimizer,
+                       s.dataset(GRAPH_TILES_FRAMES, 0), None, maint_cfg=s.maint,
+                       seed=s.cfg.seed, render_cfg=tiles_cfg)
+    tiles_tr.epoch = 1
+    tiles_tr.train_epoch()         # per step: fills the device frame cache
+    out["tiles-train"] = graph_train("graph-tiles", tiles_tr, card, seen)
+    out["train-tracking"] = graph_train("graph-track", cli_tr, card, seen)
+    model, params, state, ws, rcfg, tcfg, cam, exprs, poses, delta = serve
+    for route, cfg in (("instances", rcfg), ("tiles", tcfg)):
+        out[f"serve-{route}"] = graph_serve(f"graph-serve-{route}", model, params, state, ws,
+                                            cfg, cam, exprs, poses, delta, card, seen)
+    for name in KERNELS:
+        hit = sorted(k for k in seen if name in k)
+        check(bool(hit), f"the profiler saw {name} inside a graph replay")
+        log(f"[graph] {name}: inside the replays as {hit}")
+        rows[name]["graph_launches_per_replay"] = {
+            path: o["per_replay"][name] for path, o in out.items()
+            if name in o.get("per_replay", {})}
+    log(f"[graph] peak device memory of the phase "
+        f"{max(o['peak_gib'] for o in out.values()):.3f} GiB (the largest of its parts'), "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated at its end with "
+        f"three Trainers and their graphs' pools held, {torch.cuda.memory_reserved() / 2**30:.3f} "
+        f"GiB reserved; phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log("[graph] summary " + json.dumps({
+        path: {k: (v if not isinstance(v, dict) else {kk: vv for kk, vv in v.items()
+                                                      if kk != "names"})
+               for k, v in o.items()} for path, o in out.items()} | {"fps": fps}))
 
 
 def main():
@@ -1571,6 +1916,7 @@ def main():
     from fateavatar_tpu_torch.train.loader import Reenactor, checkpoint_tree
     from fateavatar_tpu_torch.utils import cuda_build
     from fateavatar_tpu_torch.utils.config import load_config
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
 
     dev = "cuda"
     t_start = time.perf_counter()
@@ -1677,20 +2023,24 @@ def main():
         serve_s = time.perf_counter() - t0
         launches = {"blend_instances_fwd": bi.blend_instances.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        g = reenactor.last_graph
         for name, n in launches.items():
             rows[name]["launches"] = n
-            log(f"[serve] {name} launches in the serving path: {n}")
+            log(f"[serve] {name} launches in the serving path: {n} by the wrapper "
+                f"({WARMUP} warm-up calls + the capture), then {g.replays} replays of the "
+                f"served frame's CUDA graph x {g.launches_per_replay.get(name, 0)}")
             check(n > 0, f"{name} never launched on the main path")
-        check(launches["blend_instances_fwd"] == N_FRAMES,
-              "one blend launch per frame")
+        check(launches["blend_instances_fwd"] == WARMUP + 1 and g.replays == N_FRAMES
+              and g.launches_per_replay == {"blend_instances_fwd": 1},
+              "one graph replay per frame, one blend launch each")
         check(len(frames) == N_FRAMES and all(f.shape == (h, w, 3) for f in frames),
               "16 frames of 512x512x3")
         spread = float(np.std(np.stack(frames).astype(np.float32)))
         check(spread > 5.0, f"frames must not be flat (pixel std {spread:.2f})")
         log(f"[serve] {N_FRAMES} frames in {serve_s * 1e3:.3f} ms: "
             f"{serve_s * 1e3 / N_FRAMES:.3f} ms/frame (host clock, uint8 "
-            f"frames on the host), peak device memory {peak_gib:.3f} GiB, "
-            f"pixel std {spread:.2f}")
+            f"frames on the host, the graph's warm-up and capture included), peak "
+            f"device memory {peak_gib:.3f} GiB, pixel std {spread:.2f}")
 
         # per-frame latency, overflow and finiteness, frame by frame
         lat, overflow = [], []
@@ -1781,12 +2131,15 @@ def main():
         profile_top("4 forwards", lambda i: fateavatar_forward(
             model, params_r, state, e0, p0, cam, render_cfg=rcfg), 4, "frame", card)
 
-        tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta,
-                          rows, card)
+        tcfg = tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta,
+                                 rows, card)
         setup = train_setup(ws)
         trainer = train_phase(setup, gen, rows, card)
-        tiles_train_phase(setup, trainer, rows, card)
-        cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
+        tiles_train_cfg = tiles_train_phase(setup, trainer, rows, card)
+        cli_trainer = cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
+        graph_phase(setup, trainer, tiles_train_cfg, cli_trainer,
+                    (model, params, state, ws, rcfg, tcfg, cam, exprs, poses, delta),
+                    rows, card)
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -55,10 +55,14 @@ def batch_rigid_transform(
     parents = [int(p) for p in parents]
     B, J = joints.shape[:2]
     rel_joints = joints.clone()
-    rel_joints[:, 1:] -= joints[:, parents[1:]]
+    # parents one by one: an index list would be copied from the host, which
+    # a CUDA graph cannot capture
+    rel_joints[:, 1:] -= torch.stack([joints[:, p] for p in parents[1:]], dim=1)
 
-    bot = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                       device=rot_mats.device).expand(B, 1, 4)
+    # the homogeneous row [0, 0, 0, 1], made on the device (no host copy, so
+    # the forward can be captured in a CUDA graph)
+    bot = rot_mats.new_zeros((B, 1, 4))
+    bot[..., 3] = 1.0
 
     def tmat(R, t):
         return torch.cat([torch.cat([R, t[..., None]], dim=-1), bot], dim=-2)

@@ -36,9 +36,11 @@ def projection_matrix(znear: float, zfar: float, fovx: torch.Tensor,
     P[0, 2] = (right + left) / (right - left)
     P[1, 1] = 2.0 * znear / (top - bottom)
     P[1, 2] = (top + bottom) / (top - bottom)
-    P[2, 2] = zfar / (zfar - znear)
-    P[2, 3] = -(zfar * znear) / (zfar - znear)
-    P[3, 2] = 1.0
+    # fill_, not P[i, j] = float: assigning a Python number to one element
+    # copies it from the host, which a CUDA graph cannot capture
+    P[2, 2].fill_(zfar / (zfar - znear))
+    P[2, 3].fill_(-(zfar * znear) / (zfar - znear))
+    P[3, 2].fill_(1.0)
     return P
 
 

@@ -91,9 +91,12 @@ def laplacian_smoothing(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tenso
     ``Meshes.laplacian_packed`` as train/loss.py:173 applies it). Every edge
     of every face counts, so an edge shared by two faces counts twice, as in
     the JAX package. Returns [..., V, 3] residuals."""
-    edges = torch.cat([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]], dim=0)
-    src = torch.cat([edges[:, 0], edges[:, 1]])
-    dst = torch.cat([edges[:, 1], edges[:, 0]])
+    # the edges (0, 1), (1, 2), (2, 0) of every face, by column slices (an
+    # index list would be copied from the host, which a CUDA graph cannot
+    # capture)
+    a, b = faces, torch.roll(faces, -1, dims=1)
+    src = torch.cat([a[:, 0], a[:, 1], a[:, 2], b[:, 0], b[:, 1], b[:, 2]])
+    dst = torch.cat([b[:, 0], b[:, 1], b[:, 2], a[:, 0], a[:, 1], a[:, 2]])
     nv = verts.shape[-2]
     deg = torch.zeros((nv,), dtype=verts.dtype, device=verts.device).index_add_(
         0, src, torch.ones_like(src, dtype=verts.dtype))

@@ -137,8 +137,9 @@ def build_instance_lists(
         R0 = min(tail_r0, R)
         K = min(tail_k or max(256, n // 16), n)
         sel_idx = torch.argsort(-n_tiles_touched, stable=True)[:K]
-        sel = torch.zeros((n,), dtype=torch.bool, device=dev)
-        sel[sel_idx] = True
+        # index_fill_, not sel[sel_idx] = True: the latter copies its value
+        # from the host, which a CUDA graph cannot capture
+        sel = torch.zeros((n,), dtype=torch.bool, device=dev).index_fill_(0, sel_idx, True)
         capr = torch.where(sel, R, R0).to(torch.int32)
         touched_capped = torch.minimum(n_tiles_touched, capr)
         dropped = torch.sum(n_tiles_touched - touched_capped)

@@ -31,10 +31,24 @@ import torch
 
 from fateavatar_tpu_torch.ops.camera import Camera
 from fateavatar_tpu_torch.render import binning
-from fateavatar_tpu_torch.render.blend_instances import CHUNK, T_EPS, blend_instances
-from fateavatar_tpu_torch.render.blend_tiles import blend_tiles, tiles_to_image
+from fateavatar_tpu_torch.render.blend_instances import (
+    CHUNK,
+    T_EPS,
+    blend_instances,
+    blend_instances_bwd,
+)
+from fateavatar_tpu_torch.render.blend_tiles import blend_tiles, blend_tiles_bwd, tiles_to_image
 from fateavatar_tpu_torch.render.preprocess import preprocess
 from fateavatar_tpu_torch.render.splats import Gaussians
+
+# the wrappers of the port's four CUDA kernels, by kernel name; each counts
+# its kernel's launches in ``.launches``
+KERNEL_COUNTERS = {
+    "blend_instances_fwd": blend_instances,
+    "blend_instances_bwd": blend_instances_bwd,
+    "blend_tiles_fwd": blend_tiles,
+    "blend_tiles_bwd": blend_tiles_bwd,
+}
 
 
 @dataclass(frozen=True)

@@ -3,7 +3,9 @@
 Port of ``fateavatar_tpu/train/loader.py`` (train/loader.py:30-227 of the
 reference): rebuild a trained avatar from its workspace (checkpoint +
 identity_info.json) without the training dataset, and drive it with another
-subject's FLAME sequences.
+subject's FLAME sequences. ``Reenactor.reenact`` serves a sequence through
+one CUDA graph of the frame (``utils/graphs.py``), as the JAX package jits
+it; ``Loader.render_frame`` stays eager for one-off calls.
 """
 
 from __future__ import annotations
@@ -22,7 +24,10 @@ from fateavatar_tpu_torch.models.fateavatar import (
 from fateavatar_tpu_torch.render.render import RenderConfig
 from fateavatar_tpu_torch.train.checkpoints import CheckpointManager
 from fateavatar_tpu_torch.train.tracking import TrackingTables
+from fateavatar_tpu_torch.utils.graphs import Graph
 from fateavatar_tpu_torch.utils.logging import write_video
+
+DRAIN = 8   # frames per device -> host copy of a served sequence
 
 
 def checkpoint_tree(params, state, epoch: int = 0, global_step: int = 0) -> dict:
@@ -68,7 +73,11 @@ class Loader:
 class Reenactor(Loader):
     """Cross-identity reenactment (train/loader.py:140-227 +
     avatar_reenact.py:85-88): drive the destination avatar with the source
-    sequence's expressions, shifted by the canonical-expression delta."""
+    sequence's expressions, shifted by the canonical-expression delta.
+    ``last_graph`` is the Graph of the latest :meth:`reenact` call (its
+    replays and launches per replay)."""
+
+    last_graph: Optional[Graph] = None
 
     def reenact(
         self,
@@ -80,35 +89,57 @@ class Reenactor(Loader):
         fps: int = 25,
     ):
         """Render every frame; returns the uint8 [H, W, 3] frames. Raises
-        if a frame has a non-finite pixel."""
+        if a frame has a non-finite pixel.
+
+        The sequence's expressions (delta applied) and poses go to the
+        device once; one CUDA graph per call (JAX: one jitted program,
+        train/loader.py:98-101) renders the frame at a device cursor,
+        rounds and clips it to uint8 into a ring of DRAIN frames and
+        advances the cursor. Every DRAIN frames one copy brings the ring to
+        the host, after the non-finite check."""
+        dev = self.params.offset.device
         n_exp = self.model.flame.n_exp
-        frames: list = []
-        pending: list = []
-        finite = torch.ones((), dtype=torch.bool, device=self.params.offset.device)
-
-        def drain():
-            # one device->host copy per batch; frames queue on the device
-            # meanwhile
-            if not pending:
-                return
-            if not bool(finite):
-                raise FloatingPointError("a rendered frame has non-finite pixels")
-            batch = torch.stack(pending).cpu().numpy()
-            frames.extend(batch[i] for i in range(batch.shape[0]))
-            pending.clear()
-
-        for expr, pose in zip(src_expressions, src_poses):
-            e = np.zeros(n_exp, np.float32)
+        n = len(src_expressions)
+        exprs = np.zeros((n, n_exp), np.float32)
+        for f, expr in enumerate(src_expressions):
             m = min(n_exp, len(expr))
-            e[:m] = expr[:m]
-            if delta_exp is not None:
-                e[: len(delta_exp)] -= np.asarray(delta_exp, np.float32)[: len(e)]
-            img = self.render_frame(e, np.asarray(pose, np.float32), camera)
-            finite &= torch.isfinite(img).all()
-            pending.append(torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8))
-            if len(pending) >= 8:
-                drain()
-        drain()
+            exprs[f, :m] = expr[:m]
+        if delta_exp is not None:
+            d = min(n_exp, len(delta_exp))
+            exprs[:, :d] -= np.asarray(delta_exp, np.float32)[:d]
+        frames: list = []
+        if n == 0:
+            if out_path is not None:
+                write_video(out_path, frames, fps=fps)
+            return frames
+        expr_t = torch.from_numpy(exprs).to(dev)
+        pose_t = torch.from_numpy(np.stack([np.asarray(p, np.float32)
+                                            for p in src_poses])).to(dev)
+        cursor = torch.zeros((1,), dtype=torch.int64, device=dev)
+        ring = torch.empty((DRAIN, camera.height, camera.width, 3), dtype=torch.uint8,
+                           device=dev)
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+
+        @torch.no_grad()
+        def frame():
+            img = fateavatar_forward(
+                self.model, self.params, self.state, expr_t.index_select(0, cursor)[0],
+                pose_t.index_select(0, cursor)[0], camera,
+                render_cfg=self.render_cfg)["rgb_image"]
+            finite.logical_and_(torch.isfinite(img).all())
+            ring.index_copy_(0, torch.remainder(cursor, DRAIN),
+                             torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8)[None])
+            cursor.add_(1)
+
+        graph = self.last_graph = Graph(frame, [cursor, ring, finite], "the served frame")
+        for f in range(n):
+            graph()
+            k = f + 1 - len(frames)
+            if k == DRAIN or f + 1 == n:
+                if not bool(finite):
+                    raise FloatingPointError("a rendered frame has non-finite pixels")
+                batch = ring[:k].to("cpu", copy=True).numpy()
+                frames.extend(batch[i] for i in range(k))
         if out_path is not None:
             write_video(out_path, frames, fps=fps)
         return frames

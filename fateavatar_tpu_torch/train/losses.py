@@ -58,6 +58,13 @@ def _banded_blur_matrix(size: int, n: int) -> np.ndarray:
     return B
 
 
+@functools.lru_cache(maxsize=8)
+def _blur_matrix(size: int, n: int, device: torch.device) -> torch.Tensor:
+    """:func:`_banded_blur_matrix` on ``device``, copied there once: a copy
+    from the host on every call could not be captured in a CUDA graph."""
+    return torch.as_tensor(_banded_blur_matrix(size, n), device=device)
+
+
 def d_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11):
     """1 - SSIM with an 11x11 sigma-1.5 Gaussian window
     (tools/loss_utils/dssim.py:28-58), the separable blur as two banded
@@ -67,8 +74,8 @@ def d_ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11):
     x = img1.permute(0, 3, 1, 2)
     y = img2.permute(0, 3, 1, 2)
     b, c, h, w = x.shape
-    Bh = torch.as_tensor(_banded_blur_matrix(window_size, h), device=x.device)
-    Bw = torch.as_tensor(_banded_blur_matrix(window_size, w), device=x.device)
+    Bh = _blur_matrix(window_size, h, x.device)
+    Bw = _blur_matrix(window_size, w, x.device)
     s = torch.cat([x, y, x * x, y * y, x * y], dim=1).reshape(-1, h, w)
     blurred = torch.einsum("hH,cHw->chw", Bh, s)
     blurred = torch.einsum("chw,Ww->chW", blurred, Bw).reshape(b, 5 * c, h, w)
@@ -96,6 +103,15 @@ _VGG_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512)
 _BLOCK_ENDS = (2, 4, 7, 10)
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
 _IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+@functools.lru_cache(maxsize=8)
+def _imagenet_stats(device: torch.device):
+    """ImageNet mean and std as [1, 3, 1, 1] tensors on ``device``, copied
+    there once (a copy from the host per call could not be captured in a
+    CUDA graph)."""
+    return tuple(torch.tensor(v, device=device)[None, :, None, None]
+                 for v in (_IMAGENET_MEAN, _IMAGENET_STD))
 
 
 def vgg16_random_params(generator: torch.Generator, device="cuda",
@@ -181,8 +197,7 @@ def vgg_perceptual_loss(params, pred, gt, resize: bool = True, dtype=None):
         pred, gt = pred[None], gt[None]
     x = pred.permute(0, 3, 1, 2)
     y = gt.permute(0, 3, 1, 2)
-    mean = torch.tensor(_IMAGENET_MEAN, device=x.device)[None, :, None, None]
-    std = torch.tensor(_IMAGENET_STD, device=x.device)[None, :, None, None]
+    mean, std = _imagenet_stats(x.device)
     x = (x - mean) / std
     y = (y - mean) / std
     if resize:

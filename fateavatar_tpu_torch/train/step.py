@@ -7,13 +7,16 @@ statistics, the per-attribute Adam update, then densify / prune /
 opacity-reset when their intervals come due. The step counter lives on the
 host, so the intervals are plain Python ``if``s; the loss and every other
 aux value stay on the device, so a step never waits on the card.
+
+:func:`make_inplace_step` is the same step in place, on static buffers, for
+capture in a CUDA graph (the body of the JAX package's scan epoch).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -67,6 +70,12 @@ class MaintenanceConfig:
     min_opacity: float = 0.005
     max_points_num: int = 200_000
 
+    def due(self, step: int) -> bool:
+        """Whether the step that brings the count to ``step`` densifies,
+        prunes or resets opacity."""
+        return (step % self.densify_interval == 0 or step % self.prune_interval == 0
+                or step % self.opacity_reset_interval == 0)
+
 
 def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
@@ -79,11 +88,12 @@ def make_train_step(
     maint: MaintenanceConfig = MaintenanceConfig(),
     render_cfg: RenderConfig = RenderConfig(),
 ):
-    """Build the step: (TrainState, Frame) -> (TrainState, aux dict of
-    device scalars). Mirrors iteration_step_fateavatar (train/iteration.py:
-    21-89). The returned function also exposes ``grads(ts, frame)`` ->
-    (param grads, probe grad, forward output, loss dict), the step's
-    gradient phase alone."""
+    """Build the step: (TrainState, Frame, maintain=True) -> (TrainState,
+    aux dict of device scalars). Mirrors iteration_step_fateavatar
+    (train/iteration.py:21-89); ``maintain=False`` skips the maintenance
+    that would fall due (the in-place step runs it apart). The returned
+    function also exposes ``grads(ts, frame)`` -> (param grads, probe grad,
+    forward output, loss dict), the step's gradient phase alone."""
 
     def grads(ts: TrainState, frame: Frame):
         leaves = {k: v.detach().requires_grad_() for k, v in _fields(ts.params).items()}
@@ -103,7 +113,7 @@ def make_train_step(
             for (k, v), gk in zip(leaves.items(), g[:-1])})
         return param_grads, g[-1], out, losses
 
-    def step_fn(ts: TrainState, frame: Frame):
+    def step_fn(ts: TrainState, frame: Frame, maintain: bool = True):
         param_grads, probe_grad, out, losses = grads(ts, frame)
 
         # densification statistics from d(loss)/d(mean2d): the
@@ -117,7 +127,7 @@ def make_train_step(
         params = apply_updates(ts.params, updates)
         step = ts.step + 1
 
-        if step % maint.densify_interval == 0:           # train/iteration.py:63-72
+        if maintain and step % maint.densify_interval == 0:   # train/iteration.py:63-72
             p2, s2, touched = maintenance.uv_densify(
                 ts.generator, params, state, increase_num=maint.increase_num)
             o2 = zero_moment_rows(opt_state, touched, SPLAT_FIELDS)
@@ -126,9 +136,9 @@ def make_train_step(
             params, state, opt_state = (
                 _select(ok, a, b) for a, b in
                 ((p2, params), (s2, state), (o2, opt_state)))
-        if step % maint.prune_interval == 0:             # train/iteration.py:74-79
+        if maintain and step % maint.prune_interval == 0:     # train/iteration.py:74-79
             state = maintenance.prune_low_opacity(params, state, maint.min_opacity)
-        if step % maint.opacity_reset_interval == 0:     # train/iteration.py:81-85
+        if maintain and step % maint.opacity_reset_interval == 0:   # :81-85
             params = maintenance.reset_opacity(params)
             opt_state = zero_moment_field(opt_state, "opacity")
 
@@ -166,3 +176,67 @@ def init_train_state(params: FateAvatarParams, state: FateAvatarState,
         k: v.detach().clone() for k, v in _fields(state).items()})
     return TrainState(params=params, state=state, opt_state=optimizer.init(params),
                       step=0, generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+def train_state_tensors(ts: TrainState) -> list:
+    """Every tensor of ``ts`` in a fixed order: the parameters, the model
+    state, the Adam moments and the Adam step count."""
+    o = ts.opt_state
+    return [*_fields(ts.params).values(), *_fields(ts.state).values(),
+            *_fields(o.mu).values(), *_fields(o.nu).values(), o.count]
+
+
+def clone_train_state(ts: TrainState) -> TrainState:
+    """A TrainState owning copies of every tensor of ``ts`` (the static
+    buffers of the in-place step); it shares the generator."""
+    def copy(obj):
+        return dataclasses.replace(obj, **{k: v.clone() for k, v in _fields(obj).items()})
+
+    o = ts.opt_state
+    return TrainState(params=copy(ts.params), state=copy(ts.state),
+                      opt_state=MultiAdamState(mu=copy(o.mu), nu=copy(o.nu),
+                                               count=o.count.clone()),
+                      step=ts.step, generator=ts.generator)
+
+
+def copy_train_state_(dst: TrainState, src: TrainState):
+    """Copy every tensor of ``src`` into ``dst`` (a no-op where they are the
+    same tensor)."""
+    for d, s in zip(train_state_tensors(dst), train_state_tensors(src)):
+        d.copy_(s)
+
+
+# the per-step scalars an epoch of in-place steps records (the ys of the
+# JAX package's scan epoch), with their types
+EPOCH_AUX = {"loss": torch.float32, "psnr": torch.float32, "overflow": torch.int32}
+
+
+def make_inplace_step(step_fn: Callable, static: TrainState, frame_at: Callable,
+                      aux: dict, cursor: torch.Tensor):
+    """The step on static buffers, for capture in a CUDA graph: the body of
+    the JAX package's scan epoch (``make_train_step(..., return_raw=True)``).
+
+    ``run(step=None)`` builds its frame with ``frame_at(cursor)`` from
+    device-resident stacked frames at the device cursor ([1] int64), runs
+    ``step_fn`` on ``static``, copies the new TrainState's tensors into
+    ``static``, writes loss, psnr and overflow into ``aux`` ([n] tensors of
+    :data:`EPOCH_AUX`) at the cursor, advances the cursor and returns the
+    frame. Without ``step`` it reads no host value and runs no maintenance,
+    so one capture replays as every such step (the Adam step count lives
+    on the device); ``step`` (the steps taken before this one) runs the
+    maintenance that falls due, eagerly: densify draws from a
+    ``torch.Generator``. ``static.step`` is left to the caller."""
+
+    def run(step: Optional[int] = None):
+        frame = frame_at(cursor)
+        if step is None:
+            new, a = step_fn(static, frame, maintain=False)
+        else:
+            new, a = step_fn(dataclasses.replace(static, step=step), frame)
+        copy_train_state_(static, new)
+        for k, buf in aux.items():
+            buf.index_copy_(0, cursor, a[k].reshape(1).to(buf.dtype))
+        cursor.add_(1)
+        return frame
+
+    return run

@@ -61,10 +61,14 @@ class RowAdam:
         tables: TrackingTables,
         opt_state: RowAdamState,
         row_grads: TrackingTables,   # gradients for ONE row (no leading dim)
-        idx,                         # int or 0-d int tensor: the frame index
+        idx,                         # the frame index: an int, or a one-element
+                                     # int tensor on the tables' device
     ) -> Tuple[TrackingTables, RowAdamState]:
-        """SparseAdam step on a single row."""
-        idx1 = torch.as_tensor(idx, device=opt_state.count.device).reshape(1).long()
+        """SparseAdam step on a single row. A device index keeps the step free
+        of host values, so it can be captured in a CUDA graph."""
+        if not torch.is_tensor(idx):
+            idx = torch.tensor(idx)
+        idx1 = idx.to(opt_state.count.device).reshape(1).long()
         count = opt_state.count[idx1] + 1                     # [1]
         cf = count.to(torch.float32)
         c1 = 1.0 - self.b1 ** cf
@@ -132,6 +136,21 @@ class RowAdam:
             RowAdamState(mu=TrackingTables(**new_mu), nu=TrackingTables(**new_nu),
                          count=padded.index_copy(0, live_idx, count)[:n_rows]),
         )
+
+
+def tracking_tensors(tables: TrackingTables, state: RowAdamState) -> list:
+    """Every tensor of ``tables`` and of their RowAdam ``state``, in a fixed
+    order."""
+    return [*(getattr(t, f) for t in (tables, state.mu, state.nu) for f in FIELDS),
+            state.count]
+
+
+def clone_tracking(tables: TrackingTables, state: RowAdamState):
+    """Copies of ``tables`` and ``state`` (the static buffers of a CUDA
+    graph)."""
+    return (_map(torch.clone, tables),
+            RowAdamState(mu=_map(torch.clone, state.mu), nu=_map(torch.clone, state.nu),
+                         count=state.count.clone()))
 
 
 def tables_from_dataset(dataset, device="cuda") -> TrackingTables:

@@ -1,18 +1,24 @@
 """Trainer: host-side orchestration of the training step.
 
-Port of the per-step mode of ``fateavatar_tpu/train/trainer.py``
-(train/base.py:14-245 + train/trainer.py:61-632 of the reference): startup
-autosizing of the binning capacities, epochs of one step per frame over a
-prefetched dataset, per-frame tracking refinement for datasets that ask for
-it (IMAvatar), meters, evaluation with its metrics file, video and image,
-media snapshots, checkpoints and resume. Host <-> device traffic per step is
-one frame's metadata (the ground truth is cached on the device as uint8
-after its first upload); the loss values stay on the device and are fetched
-in batches of 50 steps.
+Port of ``fateavatar_tpu/train/trainer.py`` (train/base.py:14-245 +
+train/trainer.py:61-632 of the reference): startup autosizing of the
+binning capacities, epochs of one step per frame, per-frame tracking
+refinement for datasets that ask for it (IMAvatar), meters, evaluation with
+its metrics file, video and image, media snapshots, checkpoints and resume,
+and the fps test.
 
-Not ported yet: the scan-epoch mode (one dispatch per epoch; its CUDA
-counterpart would be CUDA graphs), data parallel, family adapters, the fps
-test.
+Two stepping modes, as in the JAX package. Per-step: one eager step per
+frame over a prefetched dataset; host <-> device traffic per step is one
+frame's metadata (the ground truth is cached on the device as uint8 after
+its first upload) and the loss values are fetched in batches of 50 steps.
+Scan epoch: once every frame is on the device, the JAX package runs an
+epoch as one compiled ``lax.scan``; here one step (with tracking: and its
+row refinement) is captured as a CUDA graph (``utils/graphs.py``) and
+replayed once per frame, the steps that densify, prune or reset opacity run
+eagerly between replays, and the per-step scalars come back in one fetch.
+The faster mode is kept once both have been measured.
+
+Not ported yet: data parallel and family adapters.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -41,20 +47,29 @@ from fateavatar_tpu_torch.train.datasets import FaceDataset, Prefetcher
 from fateavatar_tpu_torch.train.losses import as_float_rgb
 from fateavatar_tpu_torch.train.optim import MultiAdam, MultiAdamState
 from fateavatar_tpu_torch.train.step import (
+    EPOCH_AUX,
     Frame,
     MaintenanceConfig,
     TrainState,
+    clone_train_state,
+    copy_train_state_,
     init_train_state,
+    make_inplace_step,
     make_train_step,
+    train_state_tensors,
 )
 from fateavatar_tpu_torch.train.tracking import (
     RowAdam,
     RowAdamState,
     TrackingTables,
+    clone_tracking,
     make_batched_tracking_step,
     make_tracking_step,
+    row_gradients,
     tables_from_dataset,
+    tracking_tensors,
 )
+from fateavatar_tpu_torch.utils.graphs import Graph
 from fateavatar_tpu_torch.utils.logging import Logger, save_image, save_image_grid, write_video
 
 FLUSH_EVERY = 50   # steps between fetches of the device-side loss values
@@ -62,6 +77,26 @@ FLUSH_EVERY = 50   # steps between fetches of the device-side loss values
 
 def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+@dataclasses.dataclass
+class _ScanEpoch:
+    """A built scan epoch: ``body(step=None)`` is one step on the static
+    buffers below (with tracking: then its frame's row refinement) and
+    ``graph`` its capture. The Trainer's state moves into the buffers at the
+    start of a scan epoch and stays there after it."""
+
+    graph: Graph
+    body: Callable
+    ts: TrainState
+    aux: dict                  # EPOCH_AUX name -> [n]
+    cursor: torch.Tensor       # [1] int64: the frame the next step reads
+    tables: Optional[TrackingTables] = None
+    track_state: Optional[RowAdamState] = None
+
+    @property
+    def tracking(self) -> bool:
+        return self.tables is not None
 
 
 class Trainer:
@@ -107,8 +142,8 @@ class Trainer:
         self.bg_color = torch.as_tensor(bg_color, dtype=torch.float32, device=self.device)
         self.snapshot_interval = snapshot_interval
         self.lpips_weights_path = lpips_weights_path
-        # the JAX trainer's scan-epoch unroll; the per-step mode computes the
-        # same numbers, so it is only recorded here
+        # the JAX trainer's scan-epoch unroll; a CUDA graph replays one step
+        # per frame whatever it is, so it is only recorded here
         self.scan_unroll = max(1, int(scan_unroll))
         self.epoch = 0
         self.global_step = 0
@@ -165,6 +200,15 @@ class Trainer:
                 self.test_track_state = self.track_opt.init(self.test_tables)
             self._tracking_step = self._build_tracking_step()
             self._batched_tracking_step = self._build_tracking_step(batched=True)
+
+        # the scan-epoch mode (train/trainer.py:359-419, 466-541, 551-577)
+        self.last_epoch_aux: Optional[dict] = None
+        self._scan_frames: Optional[dict] = None
+        self._scan_epoch: Optional[_ScanEpoch] = None
+        self._scan_disabled = False
+        self._scan_checked = False
+        self._per_step_its: Optional[float] = None
+        self._scan_its: Optional[float] = None
 
     def log(self, msg: str):
         self.logger.log(msg)
@@ -237,12 +281,23 @@ class Trainer:
     def set_render_cfg(self, render_cfg: RenderConfig):
         """Swap the binning capacities mid-run (train/trainer.py:421-465):
         the train step is rebuilt on the new settings (and on the current
-        ``maint_cfg``). The tracking steps need no rebuild: their loss reads
+        ``maint_cfg``), and the scan epoch's graph, which closes over the old
+        ones, is dropped; its stacked frames stay, and the next scan epoch
+        captures anew. The tracking steps need no rebuild: their loss reads
         ``self.render_cfg`` at each call, where the JAX package's jitted
         steps close over the old value."""
         self.render_cfg = render_cfg
         self.train_step = make_train_step(self.model, self.loss_fn, self.optimizer,
                                           self.maint_cfg, render_cfg)
+        # the next scan epoch pays a capture again: it is not measured
+        self._scan_epoch = None
+        self._scan_checked = False
+
+    def _sync(self):
+        """Wait for the work queued on the device (nothing to wait for on
+        the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------------
     # training
@@ -255,6 +310,23 @@ class Trainer:
             self.save_checkpoint()
 
     def train_epoch(self):
+        """One epoch in scan mode where it is built and not switched off,
+        else per step (train/trainer.py:551-663). The first scan epoch pays
+        the capture; from the second on, scan mode is kept only while it
+        runs at least 0.9x the per-step mode's steady rate, as the JAX
+        package decides."""
+        # only the scan epoch fills this: no stale values after a switch
+        self.last_epoch_aux = None
+        scan = None if self._scan_disabled else self._maybe_scan_epoch()
+        if scan is not None:
+            self._train_epoch_scan(scan)
+            per_step, scan_its = self._per_step_its, self._scan_its
+            if per_step and scan_its and scan_its < 0.9 * per_step:
+                self._scan_disabled = True
+                self.log(f"[scan] per-step mode is faster on this device ({per_step:.1f} "
+                         f"vs {scan_its:.1f} it/s): switching back to per-step epochs")
+            self._scan_checked = True
+            return
         ds = self.train_dataset
         meters = {"loss": metrics_mod.LossMeter(), "psnr": metrics_mod.Meter("PSNR")}
         pending: list = []
@@ -280,10 +352,17 @@ class Trainer:
             pending.clear()
 
         t0 = time.perf_counter()
+        steps_done, t_steady = 0, None
         for sample in Prefetcher(ds, np.arange(len(ds))):
             frame = self._make_frame(sample, self.train_tables)
             self.ts, aux = self.train_step(self.ts, frame)
             self.global_step += 1
+            steps_done += 1
+            if steps_done == 3:
+                # the steady rate's start: the first steps pay one-time
+                # uploads and the kernels' first calls
+                self._sync()
+                t_steady = time.perf_counter()
             pending.append(aux)
             # tracking refinement on the SAME frame with the updated model
             # (train/trainer.py:173-176)
@@ -300,6 +379,8 @@ class Trainer:
         flush()
         dt = time.perf_counter() - t0
         n = len(ds)
+        if t_steady is not None and n > 3:
+            self._per_step_its = (n - 3) / max(time.perf_counter() - t_steady, 1e-9)
         alive = int(torch.sum(self.ts.state.alive))
         self.last_epoch_stats = {
             "epoch": self.epoch, "mode": "per-step", "its": n / max(dt, 1e-9),
@@ -309,6 +390,229 @@ class Trainer:
         self.log(f"[epoch {self.epoch}] {n} frames in {dt:.1f}s "
                  f"({n / max(dt, 1e-9):.2f} it/s) | loss={meters['loss'].measure():.5f} "
                  f"PSNR={meters['psnr'].measure():.2f} alive={alive}")
+
+    # ------------------------------------------------------------------
+    # the scan epoch (train/trainer.py:359-419, 466-541, 665-713)
+    # ------------------------------------------------------------------
+
+    def _maybe_scan_epoch(self) -> Optional[_ScanEpoch]:
+        """Build (once) the scan epoch: an epoch of one captured step (with
+        tracking: and its row refinement) replayed over device-resident
+        frames, the counterpart of the JAX package's one ``lax.scan`` program
+        per epoch. Eligible once the device frame cache holds every training
+        frame (the JAX package's other conditions, no data parallel and no
+        family adapter, hold: neither is ported). The frames are stacked on
+        the device once and the cache cleared, so one copy of the dataset is
+        held. Returns None while not eligible."""
+        scan = self._scan_epoch
+        if scan is not None and scan.tracking == self.tracking_enabled:
+            return scan
+        n = len(self.train_dataset)
+        if self._scan_frames is None:
+            if self._frame_cache is None or len(self._frame_cache) < n:
+                return None
+            self._scan_frames = self._stack_frames(n)
+            # evaluation on the train set and snapshots re-upload the frames
+            # they touch
+            self._frame_cache.clear()
+            what = "step and its row refinement" if self.tracking_enabled else "step"
+            how = ("one CUDA graph" if self.device.type == "cuda"
+                   else "one function (the CPU's plain version of the graph)")
+            self.log(f"[scan] epoch as {how} of one {what}, replayed over {n} "
+                     "device-resident frames")
+        self._scan_epoch = (self._build_scan_epoch_tracking() if self.tracking_enabled
+                            else self._build_scan_epoch_fn())
+        return self._scan_epoch
+
+    def _stack_frames(self, n: int) -> dict:
+        """The training frames stacked on the device in epoch order: the
+        cached uint8 ground truth ``rgb`` [n, H, W, 3], ``expression``,
+        ``flame_pose``, the camera's ``R`` and ``T``, ``fovx``, ``fovy`` and
+        the frame index ``idx``."""
+        cols = {k: [] for k in ("expression", "flame_pose", "R", "T", "fovx", "fovy")}
+        idxs, rgb = [], []
+        for i in range(n):
+            s = self.train_dataset.sample(i)
+            cam_pose = np.asarray(s["cam_pose"], np.float32)
+            for k, v in (("expression", s["expression"]), ("flame_pose", s["flame_pose"]),
+                         ("R", cam_pose[:3, :3].T), ("T", cam_pose[:3, 3]),
+                         ("fovx", s["fovx"]), ("fovy", s["fovy"])):
+                cols[k].append(np.asarray(v, np.float32))
+            idxs.append(s["idx"])
+            rgb.append(self._frame_cache[s["idx"]])
+        xs = {k: torch.from_numpy(np.stack(v)).to(self.device) for k, v in cols.items()}
+        xs["idx"] = torch.as_tensor(idxs, dtype=torch.int64).to(self.device)
+        xs["rgb"] = torch.stack(rgb)
+        return xs
+
+    def _frame_at(self, xs: dict, i: torch.Tensor,
+                  tables: Optional[TrackingTables] = None) -> Frame:
+        """The Frame at device index ``i`` ([1] int64) of the stacked frames
+        ``xs``, built on the device; with ``tables``, its expression, pose
+        and camera translation are the frame's tracked rows, as in
+        :meth:`_make_frame`."""
+        def at(x, j=i):
+            return x.index_select(0, j)[0]
+
+        if tables is None:
+            expr, pose, cam_t = at(xs["expression"]), at(xs["flame_pose"]), at(xs["T"])
+        else:
+            idx = xs["idx"].index_select(0, i)
+            expr, pose, cam_t = (at(t, idx) for t in
+                                 (tables.expression, tables.flame_pose, tables.cam_t))
+        cfg = self.model.cfg
+        camera = make_camera(at(xs["R"]), cam_t, at(xs["fovx"]), at(xs["fovy"]),
+                             cfg.img_width, cfg.img_height, device=self.device)
+        return Frame(expression=expr, flame_pose=pose, camera=camera, rgb=at(xs["rgb"]),
+                     bg_color=self.bg_color)
+
+    def _scan_buffers(self):
+        """The static TrainState (a copy of ``self.ts``), the per-step aux
+        buffers and the cursor of a scan epoch over the stacked frames."""
+        n = self._scan_frames["idx"].shape[0]
+        aux = {k: torch.zeros((n,), dtype=dt, device=self.device) for k, dt in EPOCH_AUX.items()}
+        return (clone_train_state(self.ts), aux,
+                torch.zeros((1,), dtype=torch.int64, device=self.device))
+
+    def _build_scan_epoch_fn(self) -> _ScanEpoch:
+        """One graph of one plain step (train/trainer.py:399-419); the camera
+        is built inside it from the stacked frames."""
+        xs = self._scan_frames
+        ts, aux, cursor = self._scan_buffers()
+        step = make_train_step(self.model, self.loss_fn, self.optimizer, self.maint_cfg,
+                               self.render_cfg)
+        body = make_inplace_step(step, ts, lambda i: self._frame_at(xs, i), aux, cursor)
+        graph = Graph(body, [*train_state_tensors(ts), *aux.values(), cursor],
+                      "the scan epoch's step")
+        return _ScanEpoch(graph=graph, body=body, ts=ts, aux=aux, cursor=cursor)
+
+    def _build_scan_epoch_tracking(self) -> _ScanEpoch:
+        """One graph of the main step and then its frame's row refinement
+        (train/trainer.py:466-541). Each frame is visited once per epoch, so
+        carrying the tables through the replays reproduces the per-step
+        loop: the step reads the rows ``tables.*[idx[cursor]]`` (its camera
+        from ``tables.cam_t``), then the rows' gradients of the frame's loss
+        under the updated model (``torch.autograd.grad`` with the rows as
+        its only inputs) and ``RowAdam.update_row`` at the device index."""
+        xs = self._scan_frames
+        ts, aux, cursor = self._scan_buffers()
+        tables, tstate = clone_tracking(self.train_tables, self.train_track_state)
+        step = make_inplace_step(
+            make_train_step(self.model, self.loss_fn, self.optimizer, self.maint_cfg,
+                            self.render_cfg),
+            ts, lambda i: self._frame_at(xs, i, tables), aux, cursor)
+
+        def body(host_step: Optional[int] = None):
+            i = cursor.clone()             # the step advances the cursor
+            frame = step(host_step)
+            idx = xs["idx"].index_select(0, i)
+            rows = [t.index_select(0, idx)[0]
+                    for t in (tables.expression, tables.flame_pose, tables.cam_t)]
+            const = (*(xs[k].index_select(0, i)[0] for k in ("R", "fovx", "fovy")),
+                     frame.rgb, ts.state, ts.params)
+            g = row_gradients(self._tracking_loss, *rows, const)
+            new_tables, new_state = self.track_opt.update_row(tables, tstate, g, idx)
+            for d, src in zip(tracking_tensors(tables, tstate),
+                              tracking_tensors(new_tables, new_state)):
+                d.copy_(src)
+
+        graph = Graph(body, [*train_state_tensors(ts), *aux.values(), cursor,
+                             *tracking_tensors(tables, tstate)],
+                      "the scan epoch's step and row refinement")
+        return _ScanEpoch(graph=graph, body=body, ts=ts, aux=aux, cursor=cursor,
+                          tables=tables, track_state=tstate)
+
+    def _load_scan_state(self, scan: _ScanEpoch):
+        """Move the Trainer's state (and its tracking tables) into the scan
+        epoch's static buffers, a no-op for tensors that already are them,
+        make them the Trainer's state, and rewind the cursor."""
+        copy_train_state_(scan.ts, self.ts)
+        scan.ts.step, scan.ts.generator = self.ts.step, self.ts.generator
+        self.ts = scan.ts
+        if scan.tracking:
+            for d, src in zip(tracking_tensors(scan.tables, scan.track_state),
+                              tracking_tensors(self.train_tables, self.train_track_state)):
+                d.copy_(src)
+            self.train_tables, self.train_track_state = scan.tables, scan.track_state
+        scan.cursor.zero_()
+
+    def _train_epoch_scan(self, scan: _ScanEpoch):
+        """One epoch as replays of ``scan.graph``, one per frame; a step
+        whose count hits a maintenance interval runs ``scan.body`` eagerly
+        on the same buffers instead (train/trainer.py:665-713). The per-step
+        loss, PSNR and overflow come to the host in one fetch at the end, as
+        ``last_epoch_aux``; snapshots are taken at epoch granularity."""
+        ds = self.train_dataset
+        n = len(ds)
+        t0 = time.perf_counter()
+        step_before = self.global_step
+        self._load_scan_state(scan)
+        first = self.ts.step
+        for j in range(n):
+            if self.maint_cfg.due(first + j + 1):
+                scan.body(first + j)
+            else:
+                scan.graph()
+        self.ts.step = first + n
+        self.global_step += n
+        # one fetch: float64 holds the float32 values and the counts exactly
+        loss, psnr, ovf = torch.stack([scan.aux[k].to(torch.float64) for k in
+                                       ("loss", "psnr", "overflow")]).cpu().numpy()
+        aux = {"loss": loss.astype(np.float32), "psnr": psnr.astype(np.float32),
+               "overflow": ovf.astype(np.int32)}
+        # a snapshot after the epoch that crosses a multiple of the interval
+        # (per-step mode takes it mid-epoch)
+        if (self.workspace is not None and step_before // self.snapshot_interval
+                != self.global_step // self.snapshot_interval):
+            self.save_snapshot(ds.sample(n - 1))
+        dt = time.perf_counter() - t0
+        # the first scan epoch pays the capture: only later ones are measured
+        if self._scan_checked:
+            self._scan_its = n / max(dt, 1e-9)
+        overflow = int(np.sum(aux["overflow"]))
+        if overflow > 0:
+            self.log(f"[WARN] {overflow} tile instances dropped by the binning caps "
+                     "in the epoch")
+        self.last_epoch_aux = aux
+        self.epoch_losses = [float(x) for x in aux["loss"]]
+        alive = int(torch.sum(self.ts.state.alive))
+        mean_loss, mean_psnr = float(np.mean(loss)), float(np.mean(psnr))
+        self.last_epoch_stats = {
+            "epoch": self.epoch, "mode": "scan", "its": n / max(dt, 1e-9),
+            "loss": mean_loss, "psnr": mean_psnr, "overflow": overflow, "alive": alive,
+        }
+        self.log(f"[epoch {self.epoch}] {n} frames in {dt:.1f}s "
+                 f"({n / max(dt, 1e-9):.2f} it/s, scan) | loss={mean_loss:.5f} "
+                 f"PSNR={mean_psnr:.2f} alive={alive}")
+
+    def fps_performance_test(self, n: int = 100) -> float:
+        """Forward-only render throughput (train/trainer.py:1053-1071 of the
+        JAX package): training frame 0's forward captured once as a CUDA
+        graph (on the CPU: the forward itself), then ``n`` replays, timed to
+        the end of the last. Returns frames per second."""
+        frame = self._make_frame(self.train_dataset.sample(0), None, cache=False)
+        cfg = self.model.cfg
+        img = torch.empty((cfg.img_height, cfg.img_width, 3), dtype=torch.float32,
+                          device=self.device)
+
+        def forward():
+            with torch.no_grad():
+                img.copy_(fateavatar_forward(
+                    self.model, self.ts.params, self.ts.state, frame.expression,
+                    frame.flame_pose, frame.camera, bg_color=self.bg_color,
+                    render_cfg=self.render_cfg)["rgb_image"])
+
+        graph = Graph(forward, [img], "the fps forward")
+        graph()                  # the capture, outside the timing
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            graph()
+        self._sync()
+        dt = time.perf_counter() - t0
+        fps = n / max(dt, 1e-9)
+        self.log(f"[fps] {fps:.1f} frames/s ({1000 * dt / n:.2f} ms/frame)")
+        return fps
 
     # ------------------------------------------------------------------
     # evaluation (train/trainer.py:271-381)

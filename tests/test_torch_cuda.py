@@ -1,7 +1,9 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
 blend's and the dense-list blend's forward and backward) against its plain
-PyTorch version on the card. They skip on a host without CUDA. They import
-nothing of JAX, so on a machine with a card and no JAX they run as
+PyTorch version on the card; and the CUDA graphs (the Trainer's scan epoch
+and the served frame) against eager steps and frames. They skip on a host
+without CUDA. They import nothing of JAX, so on a machine with a card and
+no JAX they run as
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
@@ -317,3 +319,199 @@ def test_tracking_step_kernels_match_plain():
         a, b = getattr(gk, f), getattr(gp, f)
         assert bool(torch.isfinite(a).all()) and float(b.norm()) > 0, f
         assert float((a - b).norm() / b.norm()) <= 1e-2, f
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: the Trainer's scan epoch and the served frame
+# ---------------------------------------------------------------------------
+
+G_RES = 64
+# epoch 2 of 4 frames (steps 5-8) densifies at step 6 and prunes at step 7,
+# eagerly between the graph's replays
+G_MAINT = dict(densify_interval=6, prune_interval=7, increase_num=64, max_points_num=2048)
+
+
+def _graph_avatar(dev):
+    import dataclasses
+
+    from fateavatar_tpu_torch.flame.loader import synthetic_flame
+    from fateavatar_tpu_torch.models import fateavatar as tfa
+    from fateavatar_tpu_torch.utils.obj_io import sphere_obj_mesh
+
+    flame = synthetic_flame(n_verts=96, n_shape=8, n_exp=6, seed=0, device=dev)
+    cfg = tfa.FateAvatarConfig(tex_size=32, capacity=2048, img_height=G_RES,
+                               img_width=G_RES, normal_offset=0.02)
+    m, p, s = tfa.init_fateavatar(sphere_obj_mesh(96), flame, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = dataclasses.replace(p, **{k: getattr(p, k) + sc * torch.randn(
+        getattr(p, k).shape, generator=gen, device=dev)
+        for k, sc in (("features_dc", 0.8), ("opacity", 1.5), ("offset", 1.0))})
+    return m, p, s
+
+
+def _graph_trainer(tracking, rcfg):
+    from fateavatar_tpu_torch.train import datasets as tdatasets
+    from fateavatar_tpu_torch.train import losses as tl
+    from fateavatar_tpu_torch.train import optim as topt
+    from fateavatar_tpu_torch.train.step import MaintenanceConfig
+    from fateavatar_tpu_torch.train.trainer import Trainer
+
+    m, p, s = _graph_avatar("cuda")
+    ds = tdatasets.SyntheticDataset(num_frames=4, img_res=(G_RES, G_RES), n_exp=6)
+    ds.optimize_tracking = tracking
+    loss = tl.FateAvatarLoss(tl.FateAvatarLossConfig(rgb_weight=1.0, scale_weight=0.1,
+                                                     laplacian_weight=1e5))
+    return Trainer("g", m, p, s, loss, topt.fateavatar_optimizers({}), ds,
+                   maint_cfg=MaintenanceConfig(**G_MAINT), render_cfg=rcfg,
+                   device_frame_cache="on")
+
+
+def _snapshot(tr):
+    from fateavatar_tpu_torch.train.step import clone_train_state
+    from fateavatar_tpu_torch.train.tracking import clone_tracking
+
+    track = (clone_tracking(tr.train_tables, tr.train_track_state) if tr.tracking_enabled
+             else None)
+    return clone_train_state(tr.ts), tr.ts.generator.get_state(), tr.global_step, track
+
+
+def _restore(tr, snap):
+    """The Trainer back at ``snap``, in tensors of its own."""
+    from fateavatar_tpu_torch.train.step import clone_train_state
+    from fateavatar_tpu_torch.train.tracking import clone_tracking
+
+    ts, gen, global_step, track = snap
+    tr.ts = clone_train_state(ts)
+    tr.ts.generator = torch.Generator(device="cuda")
+    tr.ts.generator.set_state(gen)
+    tr.global_step = global_step
+    if track is not None:
+        tr.train_tables, tr.train_track_state = clone_tracking(*track)
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route, tracking", [("instances", False), ("instances", True),
+                                             ("tiles", False)])
+def test_graph_epoch_matches_eager_epoch(route, tracking):
+    """From one state, the scan epoch's graph against eager steps: one step
+    (loss within 1e-6 relative: the forward kernels are deterministic; every
+    parameter field, and with tracking every table, within 1e-4 relative L2:
+    the backward sums with atomics) and a whole epoch with its maintenance
+    steps (every step's loss within 1e-3 relative). One launch of each blend
+    kernel per replay (two with the tracking step)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from fateavatar_tpu_torch.render.render import RenderConfig
+    from fateavatar_tpu_torch.train.step import train_state_tensors
+    from fateavatar_tpu_torch.train.tracking import tracking_tensors
+
+    rcfg = RenderConfig(binning="twotier", max_tiles_per_gaussian=64)
+    if route == "tiles":
+        rcfg = dataclasses.replace(rcfg, kernel="tiles", max_per_tile=2048)
+    tr = _graph_trainer(tracking, rcfg)
+    tr.epoch = 1
+    tr.train_epoch()                     # per step: fills the device frame cache
+    snap = _snapshot(tr)
+
+    # one eager step (and its tracking step), as the per-step epoch runs it
+    sample = tr.train_dataset.sample(0)
+    frame = tr._make_frame(sample, tr.train_tables)
+    ts1, aux1 = tr.train_step(tr.ts, frame)
+    if tracking:
+        pose = np.asarray(sample["cam_pose"], np.float32)
+        tables1, _ = tr._tracking_step(tr.train_tables, tr.train_track_state, sample["idx"],
+                                       (pose[:3, :3].T, sample["fovx"], sample["fovy"],
+                                        frame.rgb, ts1.state, ts1.params))
+    # the same step as the graph's first replay
+    _restore(tr, snap)
+    scan = tr._maybe_scan_epoch()
+    tr._load_scan_state(scan)
+    scan.graph()
+    torch.cuda.synchronize()
+    loss_e, loss_g = float(aux1["loss"]), float(scan.aux["loss"][0])
+    assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e), (loss_g, loss_e)
+    for a, b in zip(train_state_tensors(scan.ts)[:9], train_state_tensors(ts1)[:9]):
+        assert _rel_l2(a, b) <= 1e-4
+    if tracking:
+        for a, b in zip(tracking_tensors(scan.tables, scan.track_state)[:3],
+                        tracking_tensors(tables1, scan.track_state)[:3]):
+            assert _rel_l2(a, b) <= 1e-4
+    fwd, bwd = f"blend_{route}_fwd", f"blend_{route}_bwd"
+    per = 2 if tracking else 1
+    assert scan.graph.launches_per_replay == {fwd: per, bwd: per}
+
+    # a whole epoch each way from the same state
+    _restore(tr, snap)
+    tr._scan_disabled = True
+    tr.epoch = 2
+    tr.train_epoch()
+    eager = np.asarray(tr.epoch_losses)
+    assert tr.last_epoch_stats["mode"] == "per-step"
+    _restore(tr, snap)
+    tr._scan_disabled = False
+    replays = scan.graph.replays
+    tr.train_epoch()
+    graph = tr.last_epoch_aux["loss"]
+    assert tr.last_epoch_stats["mode"] == "scan" and tr._scan_epoch is scan
+    assert scan.graph.replays == replays + 2          # steps 6 and 7 ran eagerly
+    assert np.isfinite(graph).all() and abs(graph[0] - eager[0]) <= 1e-6 * abs(eager[0])
+    assert (np.abs(graph - eager) <= 1e-3 * np.abs(eager)).all(), (graph, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["instances", "tiles"])
+def test_served_frames_from_the_graph_equal_eager_frames(route, tmp_path):
+    """Reenactor.reenact through the graph against the eager loop
+    (render_frame, round, clip to uint8): the forward kernels are
+    deterministic, so the frames are equal bit for bit; one forward launch
+    per replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render.render import RenderConfig
+    from fateavatar_tpu_torch.train.checkpoints import CheckpointManager
+    from fateavatar_tpu_torch.train.loader import Reenactor, checkpoint_tree
+
+    m, p, s = _graph_avatar("cuda")
+    CheckpointManager(os.path.join(tmp_path, "checkpoints")).save(1, checkpoint_tree(p, s))
+    rcfg = RenderConfig(binning="twotier", max_tiles_per_gaussian=64, kernel=route,
+                        max_per_tile=2048)
+    rr = Reenactor(m, p, s, str(tmp_path), render_cfg=rcfg)
+    rng = np.random.default_rng(0)
+    exprs = (rng.normal(size=(10, 6)) * 0.3).astype(np.float32)
+    poses = (rng.normal(size=(10, 15)) * 0.05).astype(np.float32)
+    cam = make_camera(np.eye(3), [0.0, 0.0, 0.4], 0.8, 0.8, G_RES, G_RES, device="cuda")
+    frames = rr.reenact(exprs, poses, None, cam)
+    assert rr.last_graph.replays == 10 and rr.last_graph.launches_per_replay == {
+        f"blend_{route}_fwd": 1}
+    for e, pose, got in zip(exprs, poses, frames):
+        img = rr.render_frame(e, pose, cam)
+        want = torch.clamp(torch.round(img * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+        assert np.array_equal(got, want)
+    assert np.std(np.stack(frames).astype(np.float32)) > 1.0
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises():
+    """A function that waits on the device (``.item()``) cannot be
+    captured: the helper raises, naming the graph, and runs nothing eagerly
+    in its place; the card works on afterwards."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.utils.graphs import Graph
+
+    x = torch.zeros(4, device="cuda")
+    g = Graph(lambda: x.add_(x.sum().item() + 1.0), [x], "a function that syncs")
+    with pytest.raises(RuntimeError, match="capture of a function that syncs failed"):
+        g()
+    assert g.graph is None and g.replays == 0
+    assert x.tolist() == [0.0] * 4      # the warm-up calls were undone
+    assert torch.ones(3, device="cuda").sum().item() == 3.0
