@@ -37,7 +37,17 @@ weights), each through both routes of ``RenderConfig.kernel``:
   epoch each way from one state (maintenance steps eager in both), ms/step
   each way, the replays under the profiler; ``fps_performance_test``; and
   ``Reenactor.reenact``'s graph on both routes against the eager loop (bit
-  for bit), with ms/frame each way.
+  for bit), with ms/frame each way;
+* neural baking (``[bake]``): ``cli/train_neural_baking`` on the ``[cli]``
+  workspace (the UNet decoder from its fixed 512x512 const, the avatar
+  doubled to 265,536 splats, 2 epochs through the bake step's CUDA graph):
+  launches per replay and per eager step, falling losses, the texture and
+  baked-avatar files, one step's gradients with the kernels against the
+  plain blends, graph against eager from one state, ms/step each way (and
+  eagerly with cuDNN's TF32 on, which the port turns off), the stage split, the capture's cost, peak memory, and the
+  baked textures' render against the splat render; then texture editing
+  (``[edit]``): ``cli/avatar_edit_baked`` with a sticker written by the
+  port's PNG writer, the edited frame against the unedited one, ms/frame.
 
 Serving runs through ``Reenactor.reenact``'s CUDA graph: a wrapper counts the launches of the graph's warm-up calls and its capture,
 and the graph reports its replays and launches per replay.
@@ -159,6 +169,20 @@ GRAPH_EPOCH_RTOL = 1e-3
 GRAPH_TILES_FRAMES = 8    # the tiles route's graph epoch
 GRAPH_PROFILE = 8         # replays under the profiler
 SERVE_LONG = 3            # the longer served sequence, in N_FRAMES
+
+# the [bake] / [edit] phases: the UNet bake of the [cli] avatar through
+# cli/train_neural_baking, then cli/avatar_edit_baked with a sticker
+BAKE_EPOCHS = 2
+BAKE_ARGS = ["--decode_type", "UNet", "--bake_attribute", "color", "opacity",
+             "--reg_weight", "0.1", "--epochs", str(BAKE_EPOCHS)]
+# one bake step with the kernels vs with the plain blends: the UNet's
+# gradient (all its parameters as one vector) and the const's within 1e-2
+# relative L2, the bound of the training step's comparison (STEP_RTOL_L2)
+BAKE_GRAD_RTOL_L2 = STEP_RTOL_L2
+BAKE_PSNR_FRAMES = 3      # test frames of the baked vs splat render
+BAKE_PROFILE = 8          # replays under the profiler
+EDIT_FRAMES = 8           # --max_frames of the edit
+STICKER, STICKER_POS = 256, (128, 128)
 
 SEGMENTED = ("segmented walk: one work unit per (tile, 256-column segment); pass A "
              "products, entry transmittance folded in segment order, pass B exact walk")
@@ -1637,7 +1661,9 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
     IMAvatar layout on disk -> train_mono_avatar (one epoch with per-frame
     tracking, snapshots, the test rows' fit, eval, media, checkpoint) ->
     --resume to epoch 2 -> avatar_reenact on the test layout; then one
-    tracking step's row gradients, kernels vs plain blends."""
+    tracking step's row gradients, kernels vs plain blends. Returns the
+    Trainer, the workspace, the layout's root, and the CLI's config and
+    asset arguments."""
     import numpy as np
     import torch
 
@@ -1850,7 +1876,495 @@ def cli_phase(ws, model, params, state, rows, card, train_step_ms):
     log(f"[cli] peak device memory of the phase {phase_peak:.3f} GiB (the model's "
         f"init: its KNN takes the distances of 4,096 points to all at once); phase total "
         f"{time.perf_counter() - t_phase:.1f} s [{card}]")
-    return tr
+    return SimpleNamespace(trainer=tr, run=run, root=root, config=["--config", yaml],
+                           assets=assets)
+
+
+@contextmanager
+def recorded(owner, name, record):
+    """Wrap ``owner.name`` (a method or module function): each call appends
+    (kernel 1 launches, kernel 2 launches, seconds, peak GiB during the
+    call, the call's result) to ``record``, synchronized around it."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    orig = getattr(owner, name)
+
+    def inner(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f0, b0, t0 = bi.blend_instances.launches, bi.blend_instances_bwd.launches, \
+            time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((bi.blend_instances.launches - f0, bi.blend_instances_bwd.launches - b0,
+                       time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30,
+                       out))
+        return out
+
+    setattr(owner, name, inner)
+    try:
+        yield
+    finally:
+        setattr(owner, name, orig)
+
+
+def device_busy_ms(fn, n):
+    """Kernel time on the card per call of ``fn()`` (torch.profiler, ``n``
+    calls after one warm-up), without the host's gaps between launches."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler saw device time")
+    return us / n / 1e3
+
+
+def bake_stage_split(baker, frame, card):
+    """Device busy ms (profiler) and CUDA-event ms of eager calls, forward
+    and backward where the stage has a backward, of the bake step's stages
+    on ``frame``: the UNet, the texture lookup, FLAME and the splat
+    binding, render (kernels 1 and 2), the loss, Adam; and the UNet with
+    cuDNN's TF32 the other way; the step's state restored after."""
+    import torch
+
+    from fateavatar_tpu_torch.models import uv_decoder as uvd
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render.render import render
+
+    model, net, dev = baker.model, baker.net, baker.device
+    snap = baker.snapshot()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cfg = model.avatar.cfg
+    cam = make_camera(frame["R"], frame["T"], frame["fovx"], frame["fovy"], cfg.img_width,
+                      cfg.img_height, device=dev)
+    with torch.no_grad():
+        tex = net(baker.const, True)
+    g_tex = torch.randn(tex.shape, generator=gen, device=dev)
+    params = list(net.parameters())
+
+    def unet():
+        out = net(baker.const, True)
+        torch.autograd.grad(out, [*params, baker.const], g_tex, allow_unused=True)
+
+    raw, act = uvd.decode_textures(model, net, baker.const.detach(), train=False)
+    act = {k: v.detach().requires_grad_() for k, v in act.items()}
+    dec = uvd.sample_attributes(model, act)
+    g_dec = {k: torch.randn(v.shape, generator=gen, device=dev) for k, v in dec.items()}
+
+    def lookup():
+        d = uvd.sample_attributes(model, act)
+        torch.autograd.grad([d[k] for k in d], list(act.values()), [g_dec[k] for k in d])
+
+    values = uvd._merge_with_priors(model, {k: v.detach() for k, v in dec.items()})
+
+    def flame():
+        with torch.no_grad():
+            uvd._assemble_gaussians(model, values, frame["expression"], frame["flame_pose"])
+
+    gs = uvd._assemble_gaussians(model, values, frame["expression"], frame["flame_pose"])[0]
+    leaves = {f: getattr(gs, f).detach().requires_grad_()
+              for f in ("xyz", "scaling", "rotation", "opacity", "features_dc")}
+    gs = dataclasses.replace(gs, **leaves)
+    img = render(cam, gs, frame["bg"], config=baker.render_cfg)["render"]
+    g_img = torch.randn(img.shape, generator=gen, device=dev)
+
+    def rend():
+        out = render(cam, gs, frame["bg"], config=baker.render_cfg)["render"]
+        torch.autograd.grad(out, list(leaves.values()), g_img)
+
+    with torch.no_grad():
+        fwd = uvd.uv_decoder_forward(model, net, baker.const, frame["expression"],
+                                     frame["flame_pose"], cam, bg_color=frame["bg"],
+                                     render_cfg=baker.render_cfg, train=False)
+    pred = fwd["rgb_image"].detach().requires_grad_()
+
+    def loss():
+        out = baker.loss_fn({**fwd, "rgb_image": pred}, {"rgb": frame["rgb"]})
+        torch.autograd.grad(out["loss"], pred)
+
+    grads = [torch.randn(p.shape, generator=gen, device=dev) * 1e-3 for p in baker.trainables]
+    stages = (("UNet", unet), ("lookup", lookup), ("FLAME + binding", flame), ("render", rend),
+              ("loss", loss), ("Adam", lambda: baker.adam_(grads)))
+    busy = {name: device_busy_ms(fn, 5) for name, fn in stages}
+    ms = {name: cuda_ms(fn, reps=10) for name, fn in stages}
+    baker.restore(snap)
+    tf32 = torch.backends.cudnn.allow_tf32
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                    allow_tf32=not tf32):
+        unet_alt = device_busy_ms(unet, 5)
+    baker.restore(snap)
+    log("[bake] stage split, forward + backward where the stage has one, device busy ms "
+        "(profiler, kernel time of 5 calls each): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in busy.items())
+        + f"; sum {sum(busy.values()):.3f}; the UNet with cuDNN TF32 {'off' if tf32 else 'on'} "
+        f"{unet_alt:.3f}; CUDA-event ms of 10 eager calls each (host gaps included): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" [{card}]")
+    return busy, unet_alt
+
+
+def bake_phase(cli, rows, card):
+    """[bake]: cli/train_neural_baking (UNet, colour and opacity baked,
+    reg 0.1 on colour, 2 epochs) on the [cli] phase's IMAvatar workspace
+    with the yaml's loss and its random VGG16 weights; the launches of
+    kernels 1 and 2 per bake step (the CLI's captured step: per replay, and
+    per eager step), per-epoch losses, overflow, the files, the exported
+    avatar through fateavatar_forward; one step with the kernels vs the
+    plain blends; the graph vs eager from one state (one step, an epoch);
+    ms/step each way (and eagerly with cuDNN's TF32 the other way), the
+    stage split, the replays
+    under the profiler, the capture's cost, peak memory (the KNN, the
+    step), and the baked textures' render against the splat render.
+    Returns the baker."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import train_neural_baking
+    from fateavatar_tpu_torch.models import uv_decoder as uvd
+    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train.baker import UVBaker
+    from fateavatar_tpu_torch.train.checkpoints import load_pytree
+    from fateavatar_tpu_torch.train.loader import Loader
+    from fateavatar_tpu_torch.train.losses import FateAvatarLoss
+    from fateavatar_tpu_torch.utils.graphs import WARMUP, Graph
+    from fateavatar_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    run = cli.run
+    args = [*cli.config, "--device", "cuda", "--workspace", run, *BAKE_ARGS,
+            f"dataset.root_path={cli.root}", *cli.assets]
+    log(f"[bake] train_neural_baking {args[2:]}; cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}, matmul TF32 {torch.backends.cuda.matmul.allow_tf32} "
+        "(the port's settings, made on import)")
+    built, epochs = [], []
+    # ---- the bake path: counts to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    with recorded(uvd, "build_uv_decoder", built), recorded(UVBaker, "bake_epoch", epochs):
+        baker = train_neural_baking.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+    g = baker.graph
+    steps = BAKE_EPOCHS * len(baker.dataset)
+    m = baker.model.face_index.shape[0]
+    b = built[0]
+    log(f"[bake] build_uv_decoder: M {m} splats ({int(baker.model.alive.sum())} alive), sample "
+        f"radius {float(baker.model.sample_radius):.3e}, scaling mean "
+        f"{float(baker.model.mean_scaling):.4f} std {float(baker.model.std_scaling):.4f}; "
+        f"{b[2]:.2f} s, peak device memory {b[3]:.3f} GiB (the KNN's 4,096 x {m} distances "
+        f"per chunk) [{card}]")
+    per_epoch = [e[4] for e in epochs]      # bake_epoch returns its stats
+    log(f"[bake] CLI run {run_s:.1f} s: {steps} steps in {BAKE_EPOCHS} epochs; per epoch "
+        + "; ".join(f"loss {s['loss']:.5f} reg {s['reg_loss']:.5f} overflow {s['overflow']} "
+                    f"{s['its']:.2f} it/s ({e[0]} / {e[1]} wrapper launches, peak "
+                    f"{e[3]:.3f} GiB)" for s, e in zip(per_epoch, epochs))
+        + f"; kernel launches by the wrapper {fwd} forward, {bwd} backward ({WARMUP} warm-up "
+        f"calls + the capture), then {g.replays} replays x {g.launches_per_replay}")
+    losses = [s["loss"] for s in per_epoch]
+    check(len(per_epoch) == BAKE_EPOCHS and all(np.isfinite(losses))
+          and all(np.isfinite(baker.epoch_losses)), "finite bake losses")
+    check(losses[-1] < losses[0], f"bake loss falls over the epochs {losses}")
+    check(all(s["overflow"] == 0 for s in per_epoch), "overflow 0 in the bake")
+    check(g.replays == steps and g.launches_per_replay == {"blend_instances_fwd": 1,
+                                                           "blend_instances_bwd": 1}
+          and fwd == bwd == WARMUP + 1, "one launch of kernels 1 and 2 per replay of the "
+          "bake step, one replay per step")
+    files = [os.path.join(run, "textures", f"texture_epoch{BAKE_EPOCHS}.npz"),
+             os.path.join(run, "bake_snapshots", f"texture_epoch{BAKE_EPOCHS}.png"),
+             os.path.join(run, "checkpoints_baked", "baked.npz")]
+    check(all(os.path.exists(f) for f in files), "the bake's files")
+    with np.load(files[0]) as data:
+        shapes = {k: data[k].shape for k in data.files}
+    png = read_png(files[1]).shape
+    check(shapes == {k: (512, 512, c) for k, c in uvd.TEXTURE_CHANNELS.items()}
+          and png == (512, 3 * 512, 3), "texture dump shapes")
+    p_exp, s_exp = uvd.export_avatar_params(baker.model, baker.net, baker.const)
+    back = load_pytree(files[2], {"params": p_exp, "state": s_exp})
+    check(all(torch.equal(getattr(back["params"], f.name), getattr(p_exp, f.name))
+              for f in dataclasses.fields(p_exp)), "baked.npz reads back the export")
+
+    test_ds = cli.trainer.test_dataset
+    avatar = baker.model.avatar
+    cfg = avatar.cfg
+
+    def camera_of(s):
+        pose = np.asarray(s["cam_pose"], np.float32)
+        return make_camera(pose[:3, :3].T, pose[:3, 3], s["fovx"], s["fovy"], cfg.img_width,
+                           cfg.img_height, device="cuda")
+
+    s0 = test_ds.sample(0)
+    e0 = torch.as_tensor(s0["expression"], device="cuda")
+    p0 = torch.as_tensor(s0["flame_pose"], device="cuda")
+    with torch.no_grad():
+        img = fateavatar_forward(avatar, back["params"], back["state"], e0, p0,
+                                 camera_of(s0))["rgb_image"]
+    check(bool(torch.isfinite(img).all()), "the exported avatar renders finite")
+    log(f"[bake] files: {[os.path.relpath(f, run) for f in files]}; texture shapes {shapes}, "
+        f"snapshot {png[1]}x{png[0]}; baked.npz read back equal to the export, rendered "
+        f"through fateavatar_forward: finite, pixel std {float(img.std()):.4f}")
+
+    # ---- one step, kernels vs plain blends, float32 VGG, deterministic
+    # cuDNN without TF32: only the blends differ between the two
+    frame = baker._prep(baker.dataset.sample(0))
+    snap = baker.snapshot()
+    loss_fn = baker.loss_fn
+    baker.loss_fn = FateAvatarLoss(dataclasses.replace(loss_fn.cfg, vgg_dtype=None),
+                                   vgg_params=loss_fn.vgg_params)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=False):
+        gk = baker.grads(frame)[0]
+        baker.restore(snap)
+        with swapped_blend(bi.blend_instances_plain):
+            gp = baker.grads(frame)[0]
+        baker.restore(snap)
+    baker.loss_fn = loss_fn
+    n_net = len(gk) - 1
+    flat = [torch.cat([x.reshape(-1) for x in gl[:n_net]]) for gl in (gk, gp)]
+    err_net, err_const = rel_l2(flat[0], flat[1]), rel_l2(gk[-1], gp[-1])
+    names = [n for n, _ in baker.net.named_parameters()]
+    worst = sorted(((rel_l2(a, b), n) for n, a, b in zip(names, gk, gp)), reverse=True)[:3]
+    log(f"[bake] one step, kernels vs plain blends: UNet gradient rel L2 {err_net:.1e}, const "
+        f"{err_const:.1e} (bound {BAKE_GRAD_RTOL_L2}); largest per tensor "
+        + ", ".join(f"{n} {e:.1e}" for e, n in worst))
+    check(err_net <= BAKE_GRAD_RTOL_L2 and err_const <= BAKE_GRAD_RTOL_L2,
+          "bake step gradients kernels vs plain blends")
+
+    # ---- graph vs eager from one state: one step, then an epoch
+    zero_counts()
+    baker.eager = True
+    aux_e = baker.step(frame)
+    state_e = baker.snapshot()
+    eager_launches = (bi.blend_instances.launches, bi.blend_instances_bwd.launches)
+    baker.restore(snap)
+    baker.eager = False
+    aux_g = baker.step(frame)
+    loss_e, loss_g = float(aux_e[0]), float(aux_g[0])
+    rel0 = abs(loss_g - loss_e) / abs(loss_e)
+    n_state = len(baker.trainables) + len(baker.stats)
+    errs = [rel_l2(a, b) for a, b in zip(baker.snapshot()[:n_state], state_e[:n_state])]
+    log(f"[bake] one step eager vs a replay from one state: loss {loss_e:.8f} vs {loss_g:.8f} "
+        f"(rel {rel0:.1e}, bound {GRAPH_LOSS0_RTOL}); trainables and BatchNorm statistics "
+        f"after it: largest rel L2 {max(errs):.1e} (bound {GRAPH_STEP_RTOL_L2}); the eager "
+        f"step launches kernels 1 / 2 {eager_launches}")
+    check(eager_launches == (1, 1), "one launch of kernels 1 and 2 per eager bake step")
+    check(rel0 <= GRAPH_LOSS0_RTOL, f"bake step loss graph vs eager {rel0:.2e}")
+    check(max(errs) <= GRAPH_STEP_RTOL_L2, "bake state after one step graph vs eager")
+    def fresh_graph(name):
+        return Graph(baker._step, [*baker.state_tensors(), baker._aux], name)
+
+    # an epoch each way from the same state, twice: as the bake runs (bf16
+    # VGG, cuDNN's own algorithms), printed; then gated with float32 VGG and
+    # deterministic cuDNN in a graph captured under those settings, so that
+    # the atomics of kernel 2 and of the gathers' transposes are what is
+    # left to reorder sums (the random UNet, bf16 VGG and Adam amplify any
+    # reordering: on the H100 two eager epochs from one state drift up to
+    # ~1e-3 apart in the bake's own settings, PERF.md)
+    n = len(baker.dataset)
+    ep = {}
+
+    def compare(tag):
+        for mode in ("eager", "eager-again", "graph"):
+            baker.restore(snap)
+            baker.eager = mode != "graph"
+            ep[f"{tag}-{mode}"] = timed(baker.bake_epoch, n)
+            ep[f"{tag}-{mode}-losses"] = np.asarray(baker.epoch_losses)
+        baker.eager = False
+        base = ep[f"{tag}-eager-losses"]
+        return (np.abs(ep[f"{tag}-graph-losses"] - base) / np.abs(base),
+                np.abs(ep[f"{tag}-eager-again-losses"] - base) / np.abs(base))
+
+    def fmt(r):
+        return [float(f"{x:.1e}") for x in r]
+
+    rel_b, rel_be = compare("bake")
+    baker.loss_fn = FateAvatarLoss(dataclasses.replace(loss_fn.cfg, vgg_dtype=None),
+                                   vgg_params=loss_fn.vgg_params)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=torch.backends.cudnn.allow_tf32):
+        baker.graph = fresh_graph("the bake step (float32 VGG, deterministic cuDNN)")
+        rel, rel_ee = compare("det")
+    baker.loss_fn, baker.graph = loss_fn, g
+    log(f"[bake] epochs of {n} steps from one state, per-step loss rel diff: as the bake runs, "
+        f"graph vs eager {fmt(rel_b)} (max {rel_b.max():.1e}), eager vs eager again "
+        f"{fmt(rel_be)} (max {rel_be.max():.1e}); float32 VGG and deterministic cuDNN, graph "
+        f"vs eager {fmt(rel)} (max {rel.max():.1e}, bound {GRAPH_EPOCH_RTOL}), eager vs eager "
+        f"again {fmt(rel_ee)} (max {rel_ee.max():.1e}); ms/step as the bake runs, host clock / "
+        f"CUDA events: eager {ep['bake-eager'][0]:.3f} / {ep['bake-eager'][1]:.3f}, graph "
+        f"{ep['bake-graph'][0]:.3f} / {ep['bake-graph'][1]:.3f} "
+        f"({ep['bake-eager'][0] / ep['bake-graph'][0]:.2f}x) [{card}]")
+    check(bool(np.isfinite(ep["bake-graph-losses"]).all()) and rel.max() <= GRAPH_EPOCH_RTOL,
+          "bake epoch losses graph vs eager")
+
+    # ---- timings: steady epochs in turns, TF32 off (eager), the capture
+    # cuDNN's TF32 the other way round for one eager epoch: a measurement
+    # only (the port sets it off on import)
+    tf32 = torch.backends.cudnn.allow_tf32
+    alt = f"TF32 {'off' if tf32 else 'on'}"
+    t = {}
+    for i, mode in enumerate(("graph", "eager", "eager-alt", "graph")):
+        baker.restore(snap)
+        baker.eager = mode != "graph"
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False,
+                                        allow_tf32=tf32 != (mode == "eager-alt")):
+            t[i] = timed(baker.bake_epoch, len(baker.dataset))
+    baker.eager = False
+    baker.restore(snap)
+    baker.graph = fresh_graph("the bake step")
+    with torch.no_grad():
+        for k, buf in baker._in.items():
+            buf.copy_(frame[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    baker.graph()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    replay = timed(lambda: [baker.graph() for _ in range(10)], 10)
+    log(f"[bake] ms/step (host clock / CUDA events, epochs of {len(baker.dataset)} steps in "
+        f"turns): graph {t[0][0]:.3f} / {t[0][1]:.3f}, eager {t[1][0]:.3f} / {t[1][1]:.3f}, "
+        f"eager with cuDNN {alt} {t[2][0]:.3f} / {t[2][1]:.3f}, graph {t[3][0]:.3f} / "
+        f"{t[3][1]:.3f}; replays alone {replay[0]:.3f} / {replay[1]:.3f}; a new graph's "
+        f"warm-up, capture and first replay {capture_ms:.1f} ms (capture cost about "
+        f"{capture_ms - replay[0]:.1f} ms) [{card}]")
+    torch.cuda.reset_peak_memory_stats()
+    baker.restore(snap)
+    baker.eager = True
+    baker.step(frame)
+    baker.eager = False
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # ---- stage split, the replays under the profiler
+    baker.restore(snap)
+    stages, unet_alt = bake_stage_split(baker, frame, card)
+    prof = profile_top(f"{BAKE_PROFILE} bake replays", lambda i: baker.graph(), BAKE_PROFILE,
+                       "replay", card)
+    check(any("blend" in k for k in prof["names"]), "the blend kernels inside the bake replays")
+    baker.restore(snap)
+
+    # ---- the baked textures' render vs the splat render (the JAX package's
+    # validation protocol, scripts/validate_tpu_training.py:412-503)
+    loader = Loader(avatar, cli.trainer.ts.params, cli.trainer.ts.state, run)
+    _, act = baker.textures()
+    psnrs, net_psnrs = [], []
+    with torch.no_grad():
+        for i in np.linspace(0, len(test_ds) - 1, BAKE_PSNR_FRAMES).astype(int):
+            s = test_ds.sample(int(i))
+            e = torch.as_tensor(s["expression"], device="cuda")
+            p = torch.as_tensor(s["flame_pose"], device="cuda")
+            cam = camera_of(s)
+            splat = fateavatar_forward(avatar, loader.params, loader.state, e, p,
+                                       cam)["rgb_image"]
+            baked = uvd.render_from_texture_dict(baker.model, act, e, p, cam)["rgb_image"]
+            net_img = uvd.uv_decoder_forward(baker.model, baker.net, baker.const, e, p, cam,
+                                             train=False)["rgb_image"]
+            for img_b, out in ((baked, psnrs), (net_img, net_psnrs)):
+                out.append(float(-10 * torch.log10(torch.mean((img_b - splat) ** 2))))
+    log(f"[bake] baked textures' render vs the splat render on {BAKE_PSNR_FRAMES} test "
+        f"frames: PSNR {[round(x, 3) for x in psnrs]} (mean {np.mean(psnrs):.3f} dB); the "
+        f"network's eval-mode render {[round(x, 3) for x in net_psnrs]} (printed, not gated: "
+        f"{steps} steps are not a converged bake)")
+    for name in ("blend_instances_fwd", "blend_instances_bwd"):
+        rows[name]["bake_launches"] = {"cli_run_wrapper": fwd if name.endswith("fwd") else bwd,
+                                       "replays": steps, "per_eager_step": 1}
+        rows[name].setdefault("graph_launches_per_replay", {})["bake-step"] = \
+            g.launches_per_replay.get(name, 0)
+    log(f"[bake] peak device memory: build_uv_decoder {b[3]:.3f} GiB, an eager step "
+        f"{step_peak:.3f} GiB (the UNet's 512^2 activations), the CLI's epochs "
+        f"{max(e[3] for e in epochs):.3f} GiB; phase total {time.perf_counter() - t_phase:.1f} s "
+        f"[{card}]")
+    return {"baker": baker, "graph_ms": t[3], "eager_ms": t[1], "eager_tf32_toggled_ms": t[2],
+            "replay_ms": replay, "capture_ms": capture_ms, "stages": stages,
+            "unet_tf32_toggled_ms": unet_alt, "profile": {k: v for k, v in prof.items()
+                                                   if k != "names"},
+            "psnr": psnrs, "net_psnr": net_psnrs, "knn_peak_gib": b[3],
+            "step_peak_gib": step_peak, "epoch_loss": losses}
+
+
+def edit_phase(cli, card):
+    """[edit]: cli/avatar_edit_baked on the baked workspace with a sticker
+    and a disc mask written by the port's PNG writer (--max_frames 8): the
+    video, the edited colour texture changed inside the sticker's square
+    only, a test frame's edited render against the unedited one, one
+    forward launch per frame, ms/frame."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import avatar_edit_baked
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train.baker import UVEditor
+    from fateavatar_tpu_torch.utils.png import write_png
+
+    t_phase = time.perf_counter()
+    run = cli.run
+    yy, xx = np.mgrid[:STICKER, :STICKER]
+    checker = ((yy // 32 + xx // 32) % 2).astype(bool)
+    sticker = np.where(checker[..., None], [255, 0, 255], [0, 255, 0]).astype(np.uint8)
+    r = STICKER / 2
+    disc = (yy - r + 0.5) ** 2 + (xx - r + 0.5) ** 2 <= r * r
+    paths = [os.path.join(os.path.dirname(run), n) for n in ("sticker.png", "mask.png")]
+    write_png(paths[0], sticker)
+    write_png(paths[1], np.repeat((disc * 255).astype(np.uint8)[..., None], 3, axis=-1))
+    args = [*cli.config, "--device", "cuda", "--workspace", run, "--sticker", paths[0],
+            "--sticker_mask", paths[1], "--sticker_pos", *map(str, STICKER_POS),
+            "--max_frames", str(EDIT_FRAMES), f"dataset.root_path={cli.root}", *cli.assets]
+    anim = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with recorded(UVEditor, "run_animation", anim):
+        editor = avatar_edit_baked.main(args)
+    run_s = time.perf_counter() - t0
+    fwd, _, anim_s, anim_peak, frames = anim[0]
+    n = len(frames)
+    media = os.path.join(run, "media")
+    video = [f for f in ("edit_sticker.mp4", "edit_sticker.gif")
+             if os.path.exists(os.path.join(media, f))]
+    check(len(video) == 1 and n == min(EDIT_FRAMES, len(cli.trainer.test_dataset))
+          and all(np.isfinite(f).all() for f in frames), "the edit's frames and video")
+    check(fwd == n and bi.blend_instances_bwd.launches == 0,
+          "one forward launch per edited frame, no backward")
+
+    with np.load(sorted(glob.glob(os.path.join(run, "textures", "texture_epoch*.npz")))[-1]) as d:
+        raw = {k: torch.from_numpy(d[k]).cuda() for k in d.files}
+    plain = UVEditor(editor.model, raw, render_cfg=editor.render_cfg)
+    changed = (editor.act_textures["color"] - plain.act_textures["color"]).abs().sum(-1) > 0
+    ys, xs = torch.nonzero(changed, as_tuple=True)
+    (y0, x0), side = STICKER_POS, STICKER
+    check(ys.numel() > 0 and int(ys.min()) >= y0 and int(ys.max()) < y0 + side
+          and int(xs.min()) >= x0 and int(xs.max()) < x0 + side,
+          "the sticker changes the colour texture inside its square only")
+    s = cli.trainer.test_dataset.sample(0)
+    cfg = editor.model.avatar.cfg
+    pose = np.asarray(s["cam_pose"], np.float32)
+    cam = make_camera(pose[:3, :3].T, pose[:3, 3], s["fovx"], s["fovy"], cfg.img_width,
+                      cfg.img_height, device="cuda")
+    img_e = editor.render(s["expression"], s["flame_pose"], cam)
+    img_p = plain.render(s["expression"], s["flame_pose"], cam)
+    diff = (img_e - img_p).abs().amax(-1)
+    log(f"[edit] avatar_edit_baked {args[2:]}: {run_s:.1f} s; {n} frames, {fwd} forward "
+        f"launches; wrote media/{video[0]}; texels changed {int(changed.sum())} inside the "
+        f"{side}x{side} square at {STICKER_POS}; test frame 0 edited vs unedited: max "
+        f"|diff| {float(diff.max()):.4f}, {int((diff > 1e-3).sum())} pixels changed")
+    check(float(diff.max()) > 1e-3, "the edited render differs from the unedited one")
+    log(f"[edit] {anim_s * 1e3 / n:.3f} ms/frame (run_animation: eager render, host copy, "
+        f"{n} frames, the video write included), peak device memory {anim_peak:.3f} GiB; "
+        f"phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"ms_per_frame": anim_s * 1e3 / n, "frames": n, "pixels_changed":
+            int((diff > 1e-3).sum())}
 
 
 def graph_phase(s, trainer_i, tiles_cfg, cli_tr, serve, rows, card):
@@ -2136,10 +2650,14 @@ def main():
         setup = train_setup(ws)
         trainer = train_phase(setup, gen, rows, card)
         tiles_train_cfg = tiles_train_phase(setup, trainer, rows, card)
-        cli_trainer = cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
-        graph_phase(setup, trainer, tiles_train_cfg, cli_trainer,
+        cli = cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
+        graph_phase(setup, trainer, tiles_train_cfg, cli.trainer,
                     (model, params, state, ws, rcfg, tcfg, cam, exprs, poses, delta),
                     rows, card)
+        bake = bake_phase(cli, rows, card)
+        edit = edit_phase(cli, card)
+        log("[bake] summary " + json.dumps({k: v for k, v in bake.items() if k != "baker"}
+                                           | {"edit": edit}))
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

@@ -189,23 +189,21 @@ def init_fateavatar(
     return model, params, state
 
 
-def build_gaussians(
-    model: FateAvatarModel,
-    params: FateAvatarParams,
-    state: FateAvatarState,
-    expression: torch.Tensor,   # [n_exp]
-    flame_pose: torch.Tensor,   # [15]
-):
-    """FLAME-drive the splats (FateAvatar.forward, fateavatar.py:210-258):
-    verts -> per-face frame/scale/normal -> gather per splat -> barycentric
-    position + shell offset; quaternion compose; log-scale shift by the face
-    scale ratio. Returns (gaussians, verts, verts_orig)."""
+def bind_splats(model: FateAvatarModel, expression: torch.Tensor, flame_pose: torch.Tensor,
+                face_index: torch.Tensor, bary_coords: torch.Tensor,
+                delta_shapedirs: torch.Tensor, delta_posedirs: torch.Tensor,
+                delta_vertex: torch.Tensor):
+    """FLAME LBS (with the personalization deltas the config enables) and
+    each splat's face frame: verts -> per-face frame/scale/normal -> one row
+    gather per splat -> barycentric position. Returns (pos [N, 3], face
+    quaternion [N, 4], face normal [N, 3], face scale ratio [N, 1], verts,
+    verts_orig)."""
     cfg = model.cfg
     verts, _, _ = flame_forward(
         model.flame, expression[None], flame_pose[None],
-        delta_shapedirs=params.delta_shapedirs if cfg.delta_blendshape else None,
-        delta_posedirs=params.delta_posedirs if cfg.delta_blendshape else None,
-        delta_vertex=params.delta_vertex if cfg.delta_vertex else None,
+        delta_shapedirs=delta_shapedirs if cfg.delta_blendshape else None,
+        delta_posedirs=delta_posedirs if cfg.delta_blendshape else None,
+        delta_vertex=delta_vertex if cfg.delta_vertex else None,
     )
     verts_orig, _, _ = flame_forward(model.flame, expression[None], flame_pose[None])
     v = verts[0]
@@ -222,12 +220,27 @@ def build_gaussians(
     face_packed = torch.cat([
         face_quat, face_normals, ratio, tri.reshape(F, 9),
     ], dim=1)                                                 # [F, 17]
-    gp = gather_rows(face_packed, state.face_index)           # [N, 17]
-    g_quat = gp[:, 0:4]
-    g_normal = gp[:, 4:7]
-    g_ratio = gp[:, 7:8]
+    gp = gather_rows(face_packed, face_index)                 # [N, 17]
     tri_n = gp[:, 8:17].reshape(-1, 3, 3)
-    pos = torch.einsum("nk,nkd->nd", state.bary_coords, tri_n)  # [N, 3]
+    pos = torch.einsum("nk,nkd->nd", bary_coords, tri_n)      # [N, 3]
+    return pos, gp[:, 0:4], gp[:, 4:7], gp[:, 7:8], verts, verts_orig
+
+
+def build_gaussians(
+    model: FateAvatarModel,
+    params: FateAvatarParams,
+    state: FateAvatarState,
+    expression: torch.Tensor,   # [n_exp]
+    flame_pose: torch.Tensor,   # [15]
+):
+    """FLAME-drive the splats (FateAvatar.forward, fateavatar.py:210-258):
+    :func:`bind_splats`, then the shell offset along the face normal,
+    quaternion compose, and the log-scale shift by the face scale ratio.
+    Returns (gaussians, verts, verts_orig)."""
+    cfg = model.cfg
+    pos, g_quat, g_normal, g_ratio, verts, verts_orig = bind_splats(
+        model, expression, flame_pose, state.face_index, state.bary_coords,
+        params.delta_shapedirs, params.delta_posedirs, params.delta_vertex)
 
     xyz = pos + g_normal * cfg.normal_offset * torch.tanh(params.offset)
     rot = quat_multiply(g_quat, params.rotation)

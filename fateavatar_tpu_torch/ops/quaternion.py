@@ -80,3 +80,13 @@ def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
     # small-angle safe scale: angle / sin(angle/2) -> 2 as angle -> 0
     scale = torch.where(vnorm < 1e-6, torch.full_like(vnorm, 2.0), angle / vnorm)
     return v * scale[..., None]
+
+
+def axis_angle_to_quat(aa: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Axis-angle -> wxyz quaternion; the norm is taken of ``aa + eps``, as
+    in the JAX package, so a zero rotation gives (1, 0, 0, 0)."""
+    angle = torch.linalg.norm(aa + eps, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    w = torch.cos(half)
+    xyz = aa / angle * torch.sin(half)
+    return torch.cat([w, xyz], dim=-1)

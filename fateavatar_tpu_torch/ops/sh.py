@@ -22,6 +22,11 @@ def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     return (rgb - 0.5) / C0
 
 
+def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
+    """Degree-0 SH coefficient -> RGB (the inverse of :func:`rgb_to_sh`)."""
+    return sh * C0 + 0.5
+
+
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH colour BEFORE the +0.5 shift / clamp. ``sh`` [..., K, 3] with
     K >= (degree+1)^2, ``dirs`` [..., 3] unit view directions."""

@@ -62,7 +62,9 @@ class Graph:
     def capture(self):
         """Warm up (the buffers restored after each call), then capture.
         Raises, naming the graph, when the capture fails."""
-        saved = [b.clone() for b in self.buffers]
+        # no_grad: a buffer may be a parameter that requires grad
+        with torch.no_grad():
+            saved = [b.clone() for b in self.buffers]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -70,8 +72,9 @@ class Graph:
             for _ in range(WARMUP):
                 self.fn()
                 # each warm-up call starts from the caller's state
-                for b, v in zip(self.buffers, saved):
-                    b.copy_(v)
+                with torch.no_grad():
+                    for b, v in zip(self.buffers, saved):
+                        b.copy_(v)
         main.wait_stream(side)
         del saved
         before = {k: c.launches for k, c in KERNEL_COUNTERS.items()}

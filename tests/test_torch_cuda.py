@@ -499,11 +499,150 @@ def test_served_frames_from_the_graph_equal_eager_frames(route, tmp_path):
     assert np.std(np.stack(frames).astype(np.float32)) > 1.0
 
 
+# ---------------------------------------------------------------------------
+# neural baking: the bake step's graph, the lookup's transpose, the editor
+# ---------------------------------------------------------------------------
+
+def _bake_setup(decode_type="UNet"):
+    """A small decoder of ``_graph_avatar`` (64 fresh samples) on the card:
+    a UNet from a 32x32 const (the CLI's 512^2 one is fixed), or the
+    512^2 feature map; a UVBaker over 4 synthetic frames."""
+    from fateavatar_tpu_torch.models import unet as tunet
+    from fateavatar_tpu_torch.models import uv_decoder as tuvd
+    from fateavatar_tpu_torch.train import datasets as tdatasets
+    from fateavatar_tpu_torch.train import losses as tl
+    from fateavatar_tpu_torch.train.baker import UVBaker
+
+    m, p, s = _graph_avatar("cuda")
+    dec, net, const = tuvd.build_uv_decoder(m, p, s, decode_type=decode_type,
+                                            fresh_samples=64, seed=0)
+    if decode_type == "UNet":
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        net = tunet.UNet(11, 11, device="cuda", generator=gen)
+        const = torch.rand((1, 32, 32, 11), generator=gen, device="cuda") * 2 - 1
+    ds = tdatasets.SyntheticDataset(num_frames=4, img_res=(G_RES, G_RES), n_exp=6)
+    loss = tl.FateAvatarLoss(tl.FateAvatarLossConfig(rgb_weight=1.0, scale_weight=0.1,
+                                                     laplacian_weight=1e5))
+    return UVBaker(dec, net, const, loss, ds, reg_weight=0.1,
+                   reg_attribute=("color", "opacity"))
+
+
+@pytest.mark.cuda
+def test_bake_step_graph_matches_eager():
+    """From one state, the bake step eagerly and as the graph's replay: the
+    first loss within 1e-6 relative, every trainable and BatchNorm
+    statistic after the step within 1e-4 relative L2, an epoch's losses
+    within 1e-3; one launch of kernels 1 and 2 per replay and per eager
+    step; the replays count the steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    baker = _bake_setup()
+    frame = baker._prep(baker.dataset.sample(1))
+    snap = baker.snapshot()
+    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+    baker.eager = True
+    loss_e = float(baker.step(frame)[0])
+    assert (tblend.blend_instances.launches - f0, tblend.blend_instances_bwd.launches - b0) \
+        == (1, 1)
+    after_e = baker.snapshot()
+    baker.restore(snap)
+    baker.eager = False
+    loss_g = float(baker.step(frame)[0])
+    assert baker.graph.launches_per_replay == {"blend_instances_fwd": 1,
+                                               "blend_instances_bwd": 1}
+    assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e)
+    n = len(baker.trainables) + len(baker.stats)
+    for a, b in zip(baker.snapshot()[:n], after_e[:n]):
+        assert _rel_l2(a, b) <= 1e-4
+    losses = {}
+    for mode in ("eager", "graph"):
+        baker.restore(snap)
+        baker.eager = mode == "eager"
+        baker.bake_epoch()
+        losses[mode] = np.asarray(baker.epoch_losses)
+    assert baker.graph.replays == 1 + len(baker.dataset)
+    rel = np.abs(losses["graph"] - losses["eager"]) / np.abs(losses["eager"])
+    assert np.isfinite(losses["graph"]).all() and rel.max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_texture_lookup_transpose_matches_indexing_backward():
+    """texture_lookup's gather from the flattened texture, whose backward
+    is an index_add_, against the plain per-corner indexing (backward
+    through index_put_ with accumulation) on the card: values equal,
+    texture gradients within 1e-5 of the largest (the two sum colliding
+    texels in other orders)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.models.uv_decoder import texture_lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tex = torch.randn((64, 48, 12), generator=gen, device="cuda")
+    uv = torch.rand((20000, 2), generator=gen, device="cuda") * 1.2 - 0.1
+    cot = torch.randn((20000, 12), generator=gen, device="cuda")
+
+    def plain(texture):
+        h, w = texture.shape[:2]
+        x = torch.clamp(uv[:, 0], 0, 1) * (w - 1)
+        y = torch.clamp(uv[:, 1], 0, 1) * (h - 1)
+        x0, y0 = torch.floor(x).long(), torch.floor(y).long()
+        x1, y1 = torch.clamp(x0 + 1, max=w - 1), torch.clamp(y0 + 1, max=h - 1)
+        fx, fy = (x - x0)[:, None], (y - y0)[:, None]
+        return (texture[y0, x0] * (1 - fx) * (1 - fy) + texture[y0, x1] * fx * (1 - fy)
+                + texture[y1, x0] * (1 - fx) * fy + texture[y1, x1] * fx * fy)
+
+    outs = []
+    for fn in (texture_lookup, lambda t: plain(t)):
+        t = tex.clone().requires_grad_()
+        v = fn(t, uv) if fn is texture_lookup else fn(t)
+        (g,) = torch.autograd.grad((v * cot).sum(), t)
+        outs.append((v.detach(), g))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert (outs[0][1] - outs[1][1]).abs().max() <= 1e-5 * outs[1][1].abs().max()
+
+
+@pytest.mark.cuda
+def test_editor_frame_against_the_unedited_avatar():
+    """An unedited editor's frame equals the decoder's own eval-mode render
+    of the same textures; a sticker changes the colour texture inside its
+    square only and changes the frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.models import uv_decoder as tuvd
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.train.baker import UVEditor
+
+    baker = _bake_setup("feature_map")
+    raw, _ = baker.textures()
+    editor = UVEditor(baker.model, raw)
+    cam = make_camera(np.eye(3, dtype=np.float32), np.array([0, 0, 0.4], np.float32), 0.8,
+                      0.8, G_RES, G_RES, device="cuda")
+    expr, pose = np.zeros(6, np.float32), np.zeros(15, np.float32)
+    base = editor.render(expr, pose, cam)
+    with torch.no_grad():
+        ref = tuvd.uv_decoder_forward(baker.model, baker.net, baker.const,
+                                      torch.zeros(6, device="cuda"),
+                                      torch.zeros(15, device="cuda"), cam,
+                                      train=False)["rgb_image"]
+    assert torch.equal(base, ref)
+    before = editor.act_textures["color"].clone()
+    rng = np.random.default_rng(0)
+    editor.sticker_editing(rng.random((128, 128, 3)).astype(np.float32),
+                           np.ones((128, 128), np.float32), position=(192, 192), scale=1.0)
+    changed = (editor.act_textures["color"] - before).abs().sum(-1) > 0
+    ys, xs = torch.nonzero(changed, as_tuple=True)
+    assert ys.numel() and int(ys.min()) >= 192 and int(ys.max()) < 320
+    assert int(xs.min()) >= 192 and int(xs.max()) < 320
+    assert float((editor.render(expr, pose, cam) - base).abs().max()) > 1e-3
+
+
 @pytest.mark.cuda
 def test_a_failed_capture_raises():
     """A function that waits on the device (``.item()``) cannot be
     captured: the helper raises, naming the graph, and runs nothing eagerly
-    in its place; the card works on afterwards."""
+    in its place; the card works on afterwards. (It stays the file's last
+    test: the failed capture leaves PyTorch's default CUDA generator in its
+    capture state, so a later draw from it raises.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from fateavatar_tpu_torch.utils.graphs import Graph
@@ -515,3 +654,4 @@ def test_a_failed_capture_raises():
     assert g.graph is None and g.replays == 0
     assert x.tolist() == [0.0] * 4      # the warm-up calls were undone
     assert torch.ones(3, device="cuda").sum().item() == 3.0
+
