@@ -11,7 +11,11 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from fateavatar_tpu_torch.flame.loader import load_flame_pickle, make_flame
+from fateavatar_tpu_torch.flame.loader import (
+    load_flame_pickle,
+    load_landmark_embedding,
+    make_flame,
+)
 from fateavatar_tpu_torch.models.fateavatar import FateAvatarConfig, init_fateavatar
 from fateavatar_tpu_torch.render.render import RenderConfig
 from fateavatar_tpu_torch.train.datasets import FaceDataset, construct_dataset
@@ -49,18 +53,22 @@ def construct_flame(cfg: Config, dataset=None, device="cuda"):
     """FLAME from the user-supplied pickle (common.py:62-75). With a
     dataset, its n_shape / n_exp, identity shape and mean expression are
     baked in; without one (inference from a workspace): n_shape 100, n_exp
-    50, no identity shape, zero canonical expression."""
+    50, no identity shape, zero canonical expression. The landmark
+    embedding comes from ``assets.landmark_embedding_path`` where it is set
+    (the completion pipeline's keypoints need it)."""
     if dataset is not None:
         n_shape, n_exp = dataset.n_shape, dataset.n_exp
         shape_params, canonical_exp = dataset.shape_params, dataset.mean_expression
     else:
         n_shape, n_exp, shape_params, canonical_exp = 100, 50, None, None
     flame_data = load_flame_pickle(cfg.assets.flame_model_path)
+    lmk_path = cfg.assets.landmark_embedding_path
     return make_flame(
         flame_data, n_shape=n_shape, n_exp=n_exp,
         shape_params=shape_params,
         canonical_expression=canonical_exp,
         canonical_pose=cfg.dataset.canonical_pose,
+        landmark_embedding=load_landmark_embedding(lmk_path) if lmk_path else None,
         device=device,
     )
 

@@ -3,7 +3,9 @@
 Port of the forward part of ``fateavatar_tpu/flame/flame.py``
 (``batch_rigid_transform``, ``lbs``, ``euler_xyz_matrix``,
 ``apply_world_transform``, ``flame_forward``), with the learned
-personalization deltas (delta_shapedirs / delta_posedirs / delta_vertex).
+personalization deltas (delta_shapedirs / delta_posedirs / delta_vertex),
+and the 68-point landmarks: static (``flame_landmarks``) and with the
+yaw-binned jaw contour (``flame_landmarks_dynamic``).
 
 FLAME joint layout (5 joints): 0 root/global, 1 neck, 2 jaw, 3 left eye,
 4 right eye. ``full_pose`` is [B, 15] axis-angle stacked in that order.
@@ -11,6 +13,7 @@ FLAME joint layout (5 joints): 0 root/global, 1 neck, 2 jaw, 3 left eye,
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -38,6 +41,13 @@ class FlameModel:
     n_exp: int
     canonical_exp: Optional[torch.Tensor] = None    # [1, n_exp]
     canonical_pose: Optional[torch.Tensor] = None   # [1, 15]
+    # 68-point landmark embedding (FLAME.py:66-93): the static full-68 set
+    # ordered [17 contour ++ 51 static], and the dynamic contour table
+    # (79 yaw bins x 17 points, benchmark/nersemble/FLAME.py:213-260)
+    lmk_faces_idx: Optional[torch.Tensor] = None            # [L] int64
+    lmk_bary_coords: Optional[torch.Tensor] = None          # [L, 3]
+    dynamic_lmk_faces_idx: Optional[torch.Tensor] = None    # [79, 17] int64
+    dynamic_lmk_bary_coords: Optional[torch.Tensor] = None  # [79, 17, 3]
 
     @property
     def num_verts(self) -> int:
@@ -176,3 +186,81 @@ def flame_forward(
     if world_transform is not None:
         verts = apply_world_transform(verts, world_transform)
     return verts, pose_feature, A
+
+
+def vertices2landmarks(vertices: torch.Tensor, faces: torch.Tensor,
+                       lmk_faces_idx: torch.Tensor,
+                       lmk_bary_coords: torch.Tensor) -> torch.Tensor:
+    """Barycentric landmark extraction (flame/lbs.py:352-385).
+
+    vertices [B, V, 3], faces [F, 3], lmk_faces_idx [L], lmk_bary [L, 3]
+    -> [B, L, 3]."""
+    lmk_verts = vertices[:, faces[lmk_faces_idx]]        # [B, L, 3, 3]
+    return torch.einsum("blfk,lf->blk", lmk_verts, lmk_bary_coords)
+
+
+def flame_landmarks(model: FlameModel, vertices: torch.Tensor) -> torch.Tensor:
+    """68-point landmarks of already-posed FLAME vertices [B, V, 3]: the
+    completion pipeline's keypoints, exact on the avatar's own mesh."""
+    if model.lmk_faces_idx is None:
+        raise ValueError("the FLAME model has no landmark embedding "
+                         "(assets.landmark_embedding_path)")
+    return vertices2landmarks(vertices, model.faces, model.lmk_faces_idx,
+                              model.lmk_bary_coords)
+
+
+def _neck_kin_chain(model: FlameModel, neck_idx: int = 1):
+    """Joint chain neck -> root (FLAME.py:87-93)."""
+    chain, cur = [], neck_idx
+    while cur != -1:
+        chain.append(cur)
+        cur = model.parents[cur]
+    return tuple(chain)
+
+
+def rot_mat_to_euler_y(rot_mats: torch.Tensor) -> torch.Tensor:
+    """Yaw angle from a rotation matrix (flame/lbs.py:344-350):
+    atan2(-R[2,0], hypot(R[0,0], R[1,0]))."""
+    sy = torch.sqrt(rot_mats[..., 0, 0] ** 2 + rot_mats[..., 1, 0] ** 2)
+    return torch.atan2(-rot_mats[..., 2, 0], sy)
+
+
+def find_dynamic_lmk_idx_and_bcoords(model: FlameModel, full_pose: torch.Tensor):
+    """Yaw-binned jaw-contour selection (benchmark/nersemble/FLAME.py:213-260):
+    the neck chain's rotations from ``full_pose`` [B, 15] composed, the
+    relative yaw as a rounded degree bin clamped to [-39, 39] (negative yaws
+    map to rows 40..78), and that row of the 79x17 contour table."""
+    B = full_pose.shape[0]
+    chain = _neck_kin_chain(model)
+    aa = full_pose.reshape(B, -1, 3)[:, list(chain)]             # [B, C, 3]
+    rot_mats = axis_angle_to_matrix(aa)                          # [B, C, 3, 3]
+    rel = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device).expand(B, 3, 3)
+    for i in range(len(chain)):
+        rel = rot_mats[:, i] @ rel
+    return dynamic_lmk_rows_from_rot(model, rel)
+
+
+def dynamic_lmk_rows_from_rot(model: FlameModel, rel: torch.Tensor):
+    """Contour-row selection from a composed relative rotation [B, 3, 3]
+    (a detector on an orbit render sees the camera azimuth as head yaw).
+    Returns (faces [B, 17], bary [B, 17, 3])."""
+    y_deg = torch.round(torch.clamp_max(
+        -rot_mat_to_euler_y(rel) * 180.0 / math.pi, 39.0)).to(torch.int64)
+    y_idx = torch.where(y_deg < 0, torch.where(y_deg < -39, 78, 39 - y_deg), y_deg)
+    return model.dynamic_lmk_faces_idx[y_idx], model.dynamic_lmk_bary_coords[y_idx]
+
+
+def flame_landmarks_dynamic(model: FlameModel, vertices: torch.Tensor,
+                            full_pose: torch.Tensor) -> torch.Tensor:
+    """68 landmarks with the yaw-dependent jaw contour: [17 dynamic contour
+    ++ 51 static] per batch row (benchmark/nersemble/FLAME.py:319-325); the
+    static full-68 set where the model has no dynamic table."""
+    if model.dynamic_lmk_faces_idx is None:
+        return flame_landmarks(model, vertices)
+    B = vertices.shape[0]
+    dyn_faces, dyn_bary = find_dynamic_lmk_idx_and_bcoords(model, full_pose)
+    faces_idx = torch.cat([dyn_faces, model.lmk_faces_idx[-51:].expand(B, 51)], dim=1)
+    bary = torch.cat([dyn_bary, model.lmk_bary_coords[-51:].expand(B, 51, 3)], dim=1)
+    lmk_verts = vertices[torch.arange(B, device=vertices.device)[:, None, None],
+                         model.faces[faces_idx]]                 # [B, 68, 3, 3]
+    return torch.einsum("blfk,blf->blk", lmk_verts, bary)

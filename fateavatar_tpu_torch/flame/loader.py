@@ -5,9 +5,13 @@ Port of ``fateavatar_tpu/flame/loader.py``:
 * :func:`load_flame_pickle` reads the official ``generic_model.pkl`` without
   the ``chumpy`` package — a minimal stub module is registered so the legacy
   pickle deserializes into numpy arrays.
+* :func:`load_landmark_embedding` reads the reference's
+  ``landmark_embedding.npy`` (its ``full_lmk_*`` and ``dynamic_lmk_*``
+  entries), which :func:`make_flame` attaches to the model.
 * :func:`synthetic_flame_data` / :func:`synthetic_flame` build an
   internally-consistent random head model (same numpy draws as the JAX
-  package for the same seed), so the port runs without the licensed assets.
+  package for the same seed, the landmark embedding included), so the port
+  runs without the licensed assets.
 """
 
 from __future__ import annotations
@@ -91,6 +95,37 @@ def load_flame_pickle(path: str):
     }
 
 
+def _tensor_to_np(x):
+    """Entries of landmark_embedding.npy may be pickled torch tensors."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def load_landmark_embedding(path: str):
+    """Read the reference's ``landmark_embedding.npy`` (FLAME.py:66-93): a
+    pickled dict with the full-68 set (ordered [17 contour ++ 51 static]) and
+    the dynamic contour table (79 yaw bins x 17), or plain [L, 4] rows of
+    (face, b0, b1, b2). Returns (faces_idx [68] int32, bary [68, 3] float32,
+    dynamic_faces [79, 17] int32 or None, dynamic_bary [79, 17, 3] float32
+    or None). The file is a user-supplied asset; only load files you trust."""
+    raw = np.load(path, allow_pickle=True)
+    if raw.dtype == object:
+        raw = raw[()]
+    dyn_faces = dyn_bary = None
+    if isinstance(raw, dict):
+        faces = _tensor_to_np(raw["full_lmk_faces_idx"]).reshape(-1)
+        bary = _tensor_to_np(raw["full_lmk_bary_coords"]).reshape(-1, 3)
+        if "dynamic_lmk_faces_idx" in raw:
+            dyn_faces = _tensor_to_np(raw["dynamic_lmk_faces_idx"]).reshape(79, -1).astype(np.int32)
+            dyn_bary = _tensor_to_np(raw["dynamic_lmk_bary_coords"]).reshape(
+                79, dyn_faces.shape[1], 3).astype(np.float32)
+    else:
+        faces = raw[:, 0]
+        bary = raw[:, 1:4]
+    return faces.astype(np.int32), bary.astype(np.float32), dyn_faces, dyn_bary
+
+
 def make_flame(
     flame_data: dict,
     n_shape: int,
@@ -99,12 +134,15 @@ def make_flame(
     canonical_expression: Optional[np.ndarray] = None,
     canonical_pose: float = 0.0,
     factor: float = 1.0,
+    landmark_embedding: Optional[tuple] = None,
     device="cuda",
 ) -> FlameModel:
     """Assemble a :class:`FlameModel` the way flame/FLAME.py:56-129 does:
     slice shapedirs to [n_shape | 300:300+n_exp], bake the identity shape
     into v_template, reshape posedirs to [P, V*3], record the canonical
-    expression / jaw pose. The assembly is numpy, as in the JAX package."""
+    expression / jaw pose, attach ``landmark_embedding`` (the tuple of
+    :func:`load_landmark_embedding`). The assembly is numpy, as in the JAX
+    package."""
     v_template = flame_data["v_template"].astype(np.float32) * factor
     shapedirs_full = flame_data["shapedirs"].astype(np.float32)
     total_shape = shapedirs_full.shape[-1]
@@ -138,6 +176,10 @@ def make_flame(
     def t(x, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
 
+    lmk = list(landmark_embedding or ()) + [None] * 4
+    lmk = [None if x is None else t(x, torch.int64 if i % 2 == 0 else torch.float32)
+           for i, x in enumerate(lmk[:4])]
+
     return FlameModel(
         v_template=t(v_template),
         shapedirs=t(shapedirs),
@@ -150,6 +192,10 @@ def make_flame(
         n_exp=n_exp,
         canonical_exp=t(canonical_exp),
         canonical_pose=t(cpose),
+        lmk_faces_idx=lmk[0],
+        lmk_bary_coords=lmk[1],
+        dynamic_lmk_faces_idx=lmk[2],
+        dynamic_lmk_bary_coords=lmk[3],
     )
 
 
@@ -216,6 +262,7 @@ def synthetic_flame(
 ) -> FlameModel:
     """A small FLAME-shaped random model (5 joints, sphere-ish mesh) for
     tests and self-contained runs."""
-    data, _ = synthetic_flame_data(n_verts=n_verts, n_exp=n_exp, seed=seed)
+    data, lmk = synthetic_flame_data(n_verts=n_verts, n_exp=n_exp, seed=seed)
     return make_flame(data, n_shape=n_shape, n_exp=n_exp,
-                      canonical_pose=canonical_pose, device=device)
+                      canonical_pose=canonical_pose, landmark_embedding=lmk,
+                      device=device)

@@ -22,7 +22,12 @@ import math
 
 import torch
 
-from fateavatar_tpu_torch.models.fateavatar import FateAvatarParams, FateAvatarState
+from fateavatar_tpu_torch.models.fateavatar import (
+    FateAvatarModel,
+    FateAvatarParams,
+    FateAvatarState,
+)
+from fateavatar_tpu_torch.ops import sampling
 from fateavatar_tpu_torch.render.splats import inverse_sigmoid
 
 SPLAT_FIELDS = ("offset", "features_dc", "features_rest", "scaling",
@@ -150,3 +155,52 @@ def reset_opacity(params: FateAvatarParams) -> FateAvatarParams:
     zeroes the opacity Adam moments."""
     cur = torch.sigmoid(params.opacity)
     return dataclasses.replace(params, opacity=inverse_sigmoid(torch.clamp_max(cur, 0.01)))
+
+
+def add_default_points(model: FateAvatarModel, params: FateAvatarParams,
+                       state: FateAvatarState, seed: int = 0):
+    """Re-seed a full set of template splats (tex_size^2, the UV chart
+    sampled with numpy seed ``seed``) into dead slots, before full-head
+    completion fine-tuning: the back of the head was pruned during monocular
+    training (fateavatar.py:739-812, train/completor.py:153). New splats
+    start at zero offset and colour, the init scale, identity rotation and
+    opacity 0.1. Returns (params, state, touched [N] bool); the caller zeroes
+    the touched rows' Adam moments."""
+    n = state.alive.shape[0]
+    n_new = model.cfg.tex_size * model.cfg.tex_size
+    face_index_np, bary_np = sampling.uniform_sampling_barycoords(
+        n_new, model.uvcoords.cpu().numpy(), model.uvfaces.cpu().numpy(), seed=seed)
+    slots, valid = _free_slots(state.alive, n_new)
+    k = slots.shape[0]
+    dev = state.alive.device
+
+    def write(dst, vals):
+        return _write(dst, slots, vals[:k])
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=torch.float32, device=dev)
+
+    rot = torch.zeros((n_new, 4), device=dev)
+    rot[:, 0] = 1.0
+    new_params = dataclasses.replace(
+        params,
+        offset=write(params.offset, full((n_new, 1), 0.0)),
+        features_dc=write(params.features_dc, full((n_new, 1, 3), 0.0)),
+        features_rest=write(params.features_rest,
+                            full((n_new,) + tuple(params.features_rest.shape[1:]), 0.0)),
+        scaling=write(params.scaling, model.scale_init.to(dev).expand(n_new, 3)),
+        rotation=write(params.rotation, rot),
+        opacity=write(params.opacity, inverse_sigmoid(full((n_new, 1), 0.1))),
+    )
+    new_state = dataclasses.replace(
+        state,
+        face_index=write(state.face_index, torch.from_numpy(face_index_np).to(dev)),
+        bary_coords=write(state.bary_coords, torch.from_numpy(bary_np).to(dev)),
+        alive=_write(state.alive, slots, valid),
+        sample_flag=write(state.sample_flag, full((n_new,), 1.0)),
+        xyz_gradient_accum=torch.zeros_like(state.xyz_gradient_accum),
+        denom=torch.zeros_like(state.denom),
+        max_radii2d=torch.zeros_like(state.max_radii2d),
+    )
+    touched = _write(torch.zeros((n,), dtype=torch.bool, device=dev), slots, valid)
+    return new_params, new_state, touched

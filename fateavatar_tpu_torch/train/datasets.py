@@ -87,7 +87,17 @@ def load_rgb(path: str, img_res, bg_color: str = "black",
 
 
 def load_mask(path: str, img_res) -> np.ndarray:
-    raise NotImplementedError(f"load_mask({path!r}): {_FLASHAVATAR}")
+    """A mask as float32 [H, W] in [0, 1], as the JAX package's PIL reader
+    gives it: grey by PIL's "L" luma (R 19595, G 38470, B 7471 of 65536,
+    rounded; alpha ignored, grey kept exact), resized to ``img_res`` (read as
+    (width, height), as PIL takes it) by PIL's default bicubic filter.
+    Exact at the native size and resized. PNG only; a 16-bit PNG keeps its
+    high byte here, where PIL clips the 16-bit value."""
+    rgb = png.read_png(path)[..., :3].astype(np.uint32)
+    grey = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
+            >> 16).astype(np.uint8)
+    grey = png.resize_bicubic_u8(grey, img_res[0], img_res[1])
+    return grey.astype(np.float32) / 255.0
 
 
 def _intrinsics_and_fov(focal_cxcy):

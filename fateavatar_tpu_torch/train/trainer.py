@@ -174,6 +174,7 @@ class Trainer:
             self.log(f"[cache] dataset ~{est_bytes >> 20} MiB exceeds the 4 GiB "
                      "device-frame budget; streaming uploads per step")
 
+        self.autosized = render_cfg.autosize
         if render_cfg.autosize:
             # measure the dataset's tile occupancy on its first frames and
             # size instance_budget / R / tail_k from it (render/autosize.py)

@@ -7,13 +7,16 @@ transforms ``loader.cc`` asks libpng for: 16-bit samples keep their high
 byte, palettes expand to RGB, a tRNS chunk becomes an alpha channel, and
 grey expands to RGB. So a decoded image has 3 or 4 channels of uint8.
 :func:`resize_to_rgba` is ``resize_to_rgba`` of ``loader.cc`` with the same
-float32 operations in the same order. Non-interlaced PNGs of every colour
+float32 operations in the same order; :func:`resize_bicubic_u8` is PIL's
+default ``Image.resize`` of a grey image (bicubic, fixed point), for the
+masks. Non-interlaced PNGs of every colour
 type and bit depth are read; anything else raises ``ValueError`` naming the
 file. :func:`write_png` writes 8-bit grey, RGB or RGBA with filter 0.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 import zlib
 
@@ -196,6 +199,64 @@ def resize_to_rgba(img: np.ndarray, width: int, height: int) -> np.ndarray:
     out = np.ones((height, width, 4), f32)
     out[..., :c] = v[..., :4]
     return out
+
+
+# PIL's 8-bit resampling (libImaging/Resample.c): coefficients in fixed
+# point with 22 fractional bits, rounding, clipping to [0, 255]
+_PRECISION_BITS = 22
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _pil_taps(n_in: int, n_out: int):
+    """PIL's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
+    bicubic filter: (source index [n_out, k], int64 weight [n_out, k])."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    idx = np.zeros((n_out, ksize), np.int64)
+    wts = np.zeros((n_out, ksize), np.int64)
+    for xx in range(n_out):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), n_in) - xmin
+        w = _bicubic((np.arange(xmax) + xmin - center + 0.5) / filterscale)
+        ww = w.sum()
+        if ww != 0.0:
+            w = w / ww
+        idx[xx, :xmax] = xmin + np.arange(xmax)
+        wts[xx, :xmax] = np.trunc(np.where(w < 0, -0.5, 0.5) + w * (1 << _PRECISION_BITS))
+    return idx, wts
+
+
+def _resample_rows(img: np.ndarray, n_out: int) -> np.ndarray:
+    """One pass along axis 1 of uint8 [H, W] (PIL's ImagingResampleHorizontal
+    / Vertical_8bpc)."""
+    idx, wts = _pil_taps(img.shape[1], n_out)
+    acc = np.full((img.shape[0], n_out), 1 << (_PRECISION_BITS - 1), np.int64)
+    src = img.astype(np.int64)
+    for k in range(idx.shape[1]):
+        acc += src[:, idx[:, k]] * wts[:, k]
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bicubic_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """PIL's ``Image.resize((width, height))`` of a grey uint8 [H, W] image
+    with its default filter (bicubic, a = -0.5, support scaled when
+    shrinking): the horizontal pass, then the vertical, each rounded to
+    uint8, as PIL does. Bit-exact with PIL."""
+    out = img
+    if width != img.shape[1]:
+        out = _resample_rows(out, width)
+    if height != img.shape[0]:
+        out = _resample_rows(out.T, height).T
+    return np.ascontiguousarray(out)
 
 
 def decode_image(path: str, width: int, height: int):

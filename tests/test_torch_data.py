@@ -250,7 +250,8 @@ def test_insta_reader_matches_jax(tmp_path):
 
 def test_construct_dataset_and_datasets(tmp_path):
     """Type inference from the path, the config's subsample and cache
-    (cli/common.construct_datasets), and the FlashAvatar inputs refused."""
+    (cli/common.construct_datasets), the FlashAvatar inputs refused, and
+    load_mask on a layout's frame against the JAX package's."""
     rng = np.random.default_rng(7)
     root = str(tmp_path / "IMAvatar" / "subj")
     _imavatar_layout(root, rng, "train", 4)
@@ -273,8 +274,12 @@ def test_construct_dataset_and_datasets(tmp_path):
     assert train._cache == {}
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         tdatasets.IMAvatarDataset(root, "train", (RES, RES), is_flashavatar=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tdatasets.load_mask(train.records[0].image_path, (RES, RES))
+    # load_mask is ported (the completion slice): PIL's grey and bicubic,
+    # bit-equal with the JAX package's reader
+    path = train.records[0].image_path
+    for res in ((RES, RES), (RES // 2, RES + 3)):
+        np.testing.assert_array_equal(tdatasets.load_mask(path, res),
+                                      jdatasets.load_mask(path, res))
 
 
 def test_misc_matches_jax(tmp_path):

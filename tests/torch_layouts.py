@@ -1,6 +1,7 @@
 """On-disk dataset layouts for the readers, written from given arrays:
 IMAvatar (``<root>/<subj>_<mode>/flame_params.json`` + ``matted/<i>.png``)
-and INSTA (``transforms_<mode>.json`` + ``images/`` + ``flame/*/<i>.txt``).
+and INSTA (``transforms_<mode>.json`` + ``images/`` + ``flame/*/<i>.txt``),
+and a FLAME landmark embedding with a face layout on a head mesh's front.
 Shared by the CPU tests and chip_smoke.py; numpy only, with the PNG writer
 passed in (PIL in the tests, the port's own where PIL is absent)."""
 
@@ -90,3 +91,70 @@ def write_insta(root, mode, images, c2w, rng, write_png, n_exp=100, n_shape=300)
             "w": w, "h": h}
     with open(os.path.join(root, f"transforms_{mode}.json"), "w") as fh:
         json.dump(meta, fh)
+
+
+def face_layout_68(eye_dx=40.0, mouth_dy=60.0) -> np.ndarray:
+    """A frontal 68-point layout in image pixels around (0, 0), y down:
+    jaw contour 0-16 from (-90, 10) through the chin, brows, nose, eyes
+    (rings around (+-eye_dx, 0)) and mouth (corners at (+-25, mouth_dy)),
+    the points ``tests/test_alignment.py::_frontal_landmarks`` places."""
+    lm = np.zeros((68, 2))
+    t = np.linspace(np.pi, 0, 17)
+    lm[0:17] = np.stack([90 * np.cos(t), 10 + 100 * np.sin(t) * (t > 0)], -1)
+    lm[0], lm[16] = [-90, 10], [90, 10]
+    lm[17:22] = np.stack([np.linspace(-65, -15, 5), np.full(5, -25.0)], -1)
+    lm[22:27] = np.stack([np.linspace(15, 65, 5), np.full(5, -25.0)], -1)
+    lm[27:31] = np.stack([np.zeros(4), np.linspace(-10, 20, 4)], -1)
+    lm[31:36] = np.stack([np.linspace(-12, 12, 5), np.full(5, 30.0)], -1)
+    lm[33] = [0, 30]
+    ring = np.stack([np.cos(np.arange(6) * np.pi / 3), np.sin(np.arange(6) * np.pi / 3)], -1)
+    lm[36:42] = [-eye_dx, 0] + 8 * ring
+    lm[42:48] = [eye_dx, 0] + 8 * ring
+    mouth = np.stack([np.cos(np.arange(20) * np.pi / 10), np.sin(np.arange(20) * np.pi / 10)],
+                     -1)
+    lm[48:68] = [0, mouth_dy] + mouth * [25, 8]
+    lm[48], lm[54] = [-25, mouth_dy], [25, mouth_dy]
+    return lm
+
+
+def face_landmark_embedding(verts, faces, scale):
+    """A landmark embedding that puts :func:`face_layout_68` on the front
+    (+z) of a head mesh: each point (x, -y) * ``scale`` in world units is
+    cast along -z onto the front-most triangle it hits, with its barycentric
+    weights. The dynamic contour table repeats the static contour in all 79
+    yaw bins. Returns (faces [68], bary [68, 3], dyn_faces [79, 17],
+    dyn_bary [79, 17, 3]), the tuple ``load_landmark_embedding`` returns."""
+    v = np.asarray(verts, np.float64)
+    f = np.asarray(faces, np.int64)
+    tri = v[f]                                         # [F, 3, 3]
+    pts = face_layout_68() * [1.0, -1.0] * scale       # [68, 2] world x, y
+    a, b, c = tri[:, 0, :2], tri[:, 1, :2], tri[:, 2, :2]
+    det = (b[:, 1] - c[:, 1]) * (a[:, 0] - c[:, 0]) + (c[:, 0] - b[:, 0]) * (a[:, 1] - c[:, 1])
+    det = np.where(np.abs(det) < 1e-12, np.nan, det)
+    out_f, out_b = [], []
+    for p in pts:
+        l0 = ((b[:, 1] - c[:, 1]) * (p[0] - c[:, 0]) + (c[:, 0] - b[:, 0]) * (p[1] - c[:, 1])) / det
+        l1 = ((c[:, 1] - a[:, 1]) * (p[0] - c[:, 0]) + (a[:, 0] - c[:, 0]) * (p[1] - c[:, 1])) / det
+        l2 = 1 - l0 - l1
+        bary = np.stack([l0, l1, l2], -1)
+        inside = np.all(bary >= -1e-9, axis=-1)
+        z = np.where(inside, np.einsum("fk,fk->f", bary, tri[:, :, 2]), -np.inf)
+        i = int(np.argmax(z))
+        if not np.isfinite(z[i]):
+            raise ValueError(f"landmark {p} misses the mesh")
+        out_f.append(i)
+        out_b.append(bary[i])
+    lmk_f = np.asarray(out_f, np.int32)
+    lmk_b = np.clip(np.asarray(out_b, np.float32), 0, 1)
+    lmk_b /= lmk_b.sum(-1, keepdims=True)
+    return (lmk_f, lmk_b, np.tile(lmk_f[:17], (79, 1)), np.tile(lmk_b[:17], (79, 1, 1)))
+
+
+def write_landmark_embedding(path, embedding):
+    """Save ``embedding`` as the reference's ``landmark_embedding.npy``: a
+    pickled dict with its ``full_lmk_*`` and ``dynamic_lmk_*`` entries."""
+    faces, bary, dyn_faces, dyn_bary = embedding
+    np.save(path, np.array({"full_lmk_faces_idx": faces, "full_lmk_bary_coords": bary,
+                            "dynamic_lmk_faces_idx": dyn_faces,
+                            "dynamic_lmk_bary_coords": dyn_bary}, dtype=object),
+            allow_pickle=True)
