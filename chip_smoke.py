@@ -1005,6 +1005,22 @@ def train_phase(s, gen, rows, card):
     return trainer
 
 
+def device_union_us(prof):
+    """Microseconds the card was busy in a torch.profiler run: the union of
+    the intervals of every kernel, copy and fill it saw (overlaps counted
+    once)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
 def profile_top(label, fn, n, unit, card):
     """Wall and device-busy time of ``n`` calls of ``fn`` under
     torch.profiler, and the 10 kernels that took the most device time."""
@@ -1021,17 +1037,20 @@ def profile_top(label, fn, n, unit, card):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
-    busy_us = sum(e.self_device_time_total for e in kernels)
+    sum_us = sum(e.self_device_time_total for e in kernels)
+    busy_us = device_union_us(prof)
     n_launch = sum(e.count for e in kernels)
     check(busy_us > 0, f"the profiler saw device time in {label}")
     log(f"[profile] {label}: wall {wall_us / n / 1e3:.3f} ms/{unit}, device busy "
-        f"{busy_us / n / 1e3:.3f} ms/{unit} ({busy_us / wall_us:.1%}; idle "
-        f"{1 - busy_us / wall_us:.1%}), {n_launch / n:.0f} kernels/{unit} (under the "
+        f"{busy_us / n / 1e3:.3f} ms/{unit} (the union of the device intervals; "
+        f"{busy_us / wall_us:.1%}, idle {1 - busy_us / wall_us:.1%}; their sum "
+        f"{sum_us / n / 1e3:.3f}), {n_launch / n:.0f} kernels/{unit} (under the "
         f"profiler) [{card}]")
     for e in kernels[:10]:
         log(f"[profile]   {e.self_device_time_total / n / 1e3:8.4f} ms/{unit} "
             f"x{e.count // n:<4d} {e.key[:90]}")
     return {"wall_ms": wall_us / n / 1e3, "busy_ms": busy_us / n / 1e3,
+            "kernel_sum_ms": sum_us / n / 1e3,
             "idle": 1 - busy_us / wall_us, "kernels": n_launch / n,
             "names": {e.key for e in kernels}}
 
@@ -1946,6 +1965,108 @@ def device_busy_ms(fn, n):
     return us / n / 1e3
 
 
+def busy_union_ms(fn):
+    """One call of ``fn()`` under torch.profiler: its wall ms and the ms
+    the card was busy in it (``device_union_us``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy_us = device_union_us(prof)
+    check(busy_us > 0, "the profiler saw device time")
+    return wall_us / 1e3, busy_us / 1e3
+
+
+@contextmanager
+def deterministic_sums():
+    """Every sum of a step in one fixed order, its forward values as they
+    were: torch's deterministic algorithms (``index_add_`` as a sorted
+    ``index_put_``, cuBLAS on a fixed workspace) and ``F.interpolate``'s
+    bilinear backward, which torch has only with atomics, as products with
+    the resampling matrices' transposes (the matrices are the forward's own
+    weights: ``F.interpolate`` of an identity along one axis, checked
+    against the forward the first time a pair is used). Yields a list that holds,
+    on exit, the ops torch still flagged as nondeterministic (warned, not
+    raised, so that the comparison runs and says which). Restored on
+    exit."""
+    import warnings
+
+    import torch
+    import torch.nn.functional as F
+
+    orig = F.interpolate
+    mats = {}
+
+    def matrix(n_in, n_out, kw, device):
+        key = (n_in, n_out, kw["mode"], kw["align_corners"], kw["antialias"], device)
+        if key not in mats:
+            # rows resampled, columns at scale 1 (weight 1 on the column)
+            eye = torch.eye(n_in, device=device)[None, None]
+            mats[key] = orig(eye, size=(n_out, n_in), mode=kw["mode"],
+                             align_corners=kw["align_corners"],
+                             antialias=kw["antialias"])[0, 0].contiguous()   # [n_out, n_in]
+        return mats[key]
+
+    checked = set()
+
+    class Resample(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, kw):
+            y = orig(x, **kw)
+            ctx.mh = matrix(x.shape[2], y.shape[2], kw, x.device)
+            ctx.mw = matrix(x.shape[3], y.shape[3], kw, x.device)
+            pair = (tuple(x.shape), tuple(y.shape), kw["antialias"])
+            capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
+            if pair not in checked and not capturing:
+                err = float((ctx.mh @ x @ ctx.mw.T - y).abs().max())
+                check(err <= 1e-5 * (float(y.abs().max()) + 1e-12),
+                      f"the resampling matrices reproduce F.interpolate {pair}: {err:.1e}")
+                checked.add(pair)
+            return y
+
+        @staticmethod
+        def backward(ctx, gy):
+            return ctx.mh.T @ gy @ ctx.mw, None
+
+    def interpolate(x, size=None, scale_factor=None, mode="nearest", align_corners=None,
+                    recompute_scale_factor=None, antialias=False):
+        kw = {"size": size, "scale_factor": scale_factor, "mode": mode,
+              "align_corners": align_corners, "recompute_scale_factor": recompute_scale_factor,
+              "antialias": antialias}
+        if mode != "bilinear" or not (torch.is_grad_enabled() and x.requires_grad):
+            return orig(x, **kw)
+        return Resample.apply(x, kw)
+
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.utils.deterministic.fill_uninitialized_memory,
+             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
+    flagged = []
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.utils.deterministic.fill_uninitialized_memory = False
+    F.interpolate = interpolate
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield flagged
+        flagged.extend(sorted({str(w.message)[:100] for w in caught
+                               if "determinis" in str(w.message)}))
+    finally:
+        F.interpolate = orig
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
+        if saved[3] is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
+
+
 def bake_stage_split(baker, frame, card):
     """Device busy ms (profiler) and CUDA-event ms of eager calls, forward
     and backward where the stage has a backward, of the bake step's stages
@@ -2182,12 +2303,14 @@ def bake_phase(cli, rows, card):
         return Graph(baker._step, [*baker.state_tensors(), baker._aux], name)
 
     # an epoch each way from the same state, twice: as the bake runs (bf16
-    # VGG, cuDNN's own algorithms), printed; then gated with float32 VGG and
-    # deterministic cuDNN in a graph captured under those settings, so that
-    # the atomics of kernel 2 and of the gathers' transposes are what is
-    # left to reorder sums (the random UNet, bf16 VGG and Adam amplify any
-    # reordering: on the H100 two eager epochs from one state drift up to
-    # ~1e-3 apart in the bake's own settings, PERF.md)
+    # VGG, cuDNN's own algorithms, atomics), printed; then gated with
+    # float32 VGG, deterministic cuDNN and every other sum in a fixed order
+    # (deterministic_sums), in a graph captured under those settings. The
+    # random UNet, bf16 VGG and Adam amplify any reordering of a sum: on the
+    # H100 two eager epochs from one state drift up to 3.6e-3 apart in the
+    # bake's own settings (PERF.md), past the gate's bound, so the gated
+    # pair runs where two eager epochs agree, and that agreement is gated
+    # too.
     n = len(baker.dataset)
     ep = {}
 
@@ -2209,29 +2332,25 @@ def bake_phase(cli, rows, card):
     baker.loss_fn = FateAvatarLoss(dataclasses.replace(loss_fn.cfg, vgg_dtype=None),
                                    vgg_params=loss_fn.vgg_params)
     with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
-                                    allow_tf32=torch.backends.cudnn.allow_tf32):
-        baker.graph = fresh_graph("the bake step (float32 VGG, deterministic cuDNN)")
+                                    allow_tf32=torch.backends.cudnn.allow_tf32), \
+            deterministic_sums() as flagged:
+        baker.graph = fresh_graph("the bake step (float32 VGG, every sum in a fixed order)")
         rel, rel_ee = compare("det")
     baker.loss_fn, baker.graph = loss_fn, g
     log(f"[bake] epochs of {n} steps from one state, per-step loss rel diff: as the bake runs, "
         f"graph vs eager {fmt(rel_b)} (max {rel_b.max():.1e}), eager vs eager again "
-        f"{fmt(rel_be)} (max {rel_be.max():.1e}); float32 VGG and deterministic cuDNN, graph "
-        f"vs eager {fmt(rel)} (max {rel.max():.1e}, bound {GRAPH_EPOCH_RTOL}), eager vs eager "
-        f"again {fmt(rel_ee)} (max {rel_ee.max():.1e}); ms/step as the bake runs, host clock / "
-        f"CUDA events: eager {ep['bake-eager'][0]:.3f} / {ep['bake-eager'][1]:.3f}, graph "
+        f"{fmt(rel_be)} (max {rel_be.max():.1e}); float32 VGG, deterministic cuDNN and every "
+        f"sum in a fixed order, graph vs eager {fmt(rel)} (max {rel.max():.1e}, bound "
+        f"{GRAPH_EPOCH_RTOL}), eager vs eager again {fmt(rel_ee)} (max {rel_ee.max():.1e}, "
+        f"bound {GRAPH_EPOCH_RTOL / 10:.0e}); ops torch still flagged nondeterministic there: "
+        f"{flagged or 'none'}; ms/step as the bake runs, host clock / CUDA events: eager "
+        f"{ep['bake-eager'][0]:.3f} / {ep['bake-eager'][1]:.3f}, graph "
         f"{ep['bake-graph'][0]:.3f} / {ep['bake-graph'][1]:.3f} "
         f"({ep['bake-eager'][0] / ep['bake-graph'][0]:.2f}x) [{card}]")
-    # the gate reads the steps where two eager epochs agree to a tenth of
-    # its bound: past them the sum-order noise of the atomics (in the
-    # gathers' transposes and the UNet's upsampling backward), amplified by
-    # Adam on the random UNet, can grow past the bound itself (eager vs
-    # eager 3.6e-3 by step 12 on an H100, PERF.md)
-    sound = int(np.argmax(np.append(rel_ee, np.inf) > GRAPH_EPOCH_RTOL / 10))
-    log(f"[bake] the epoch gate reads steps 0-{sound - 1}, where eager vs eager stays within "
-        f"{GRAPH_EPOCH_RTOL / 10:.0e}: graph vs eager max {rel[:sound].max():.1e}")
-    check(sound >= min(3, n), "two eager epochs agree on the first 3 steps")
-    check(bool(np.isfinite(ep["bake-graph-losses"]).all())
-          and rel[:sound].max() <= GRAPH_EPOCH_RTOL, "bake epoch losses graph vs eager")
+    check(rel_ee.max() <= GRAPH_EPOCH_RTOL / 10,
+          "two eager bake epochs from one state agree with every sum in a fixed order")
+    check(bool(np.isfinite(ep["bake-graph-losses"]).all()) and rel.max() <= GRAPH_EPOCH_RTOL,
+          "bake epoch losses graph vs eager")
 
     # ---- timings: steady epochs in turns, TF32 off (eager), the capture
     # cuDNN's TF32 the other way round for one eager epoch: a measurement
@@ -2302,8 +2421,9 @@ def bake_phase(cli, rows, card):
         f"network's eval-mode render {[round(x, 3) for x in net_psnrs]} (printed, not gated: "
         f"{steps} steps are not a converged bake)")
     for name in ("blend_instances_fwd", "blend_instances_bwd"):
-        rows[name]["bake_launches"] = {"cli_run_wrapper": fwd if name.endswith("fwd") else bwd,
-                                       "replays": steps, "per_eager_step": 1}
+        rows[name]["bake_launches"] = {
+            "cli_run_wrapper": fwd if name.endswith("fwd") else bwd, "replays": steps,
+            "per_eager_step": eager_launches[0 if name.endswith("fwd") else 1]}
         rows[name].setdefault("graph_launches_per_replay", {})["bake-step"] = \
             g.launches_per_replay.get(name, 0)
     log(f"[bake] peak device memory: build_uv_decoder {b[3]:.3f} GiB, an eager step "
@@ -2599,15 +2719,18 @@ def pseudo_phase(cli, rows, card):
           and out["masks"].mean() > 0, "pasted views and masks")
 
     t = pti_step_ms(prov, PTI_TIMED)
-    one = dataclasses.replace(prov.pti_cfg, w_steps=1, pti_steps=1)
+    timed_cfg = dataclasses.replace(prov.pti_cfg, w_steps=PTI_TIMED, pti_steps=PTI_TIMED)
     from fateavatar_tpu_torch.completion.eg3d import pti
 
-    busy = {"w": device_busy_ms(lambda: pti.project_w(
-        prov.params, prov.cfg, one, prov.targets, prov.target_labels,
-        torch.Generator(device="cuda").manual_seed(0), prov.vgg_params), 1),
-        "g": device_busy_ms(lambda: pti.pti_finetune(
-            prov.params, prov.cfg, one, prov.ws, prov.targets, prov.target_labels,
-            prov.vgg_params), 1)}
+    # the device busy share of the same 3-step calls as the step times
+    # (TF32 off), profiled once more: one call's union of device intervals
+    # over its own wall time
+    busy = {"w": busy_union_ms(lambda: pti.project_w(
+        prov.params, prov.cfg, timed_cfg, prov.targets, prov.target_labels,
+        torch.Generator(device="cuda").manual_seed(0), prov.vgg_params)),
+        "g": busy_union_ms(lambda: pti.pti_finetune(
+            prov.params, prov.cfg, timed_cfg, prov.ws, prov.targets, prov.target_labels,
+            prov.vgg_params))}
     orbit_ms = st["①"][2] * 1e3 / PSEUDO_VIEWS
     eg3d_ms = st["⑥"][2] * 1e3 / PSEUDO_VIEWS
     log(f"[pseudo] ms per W step {t[('w', False)][0]:.1f} (TF32 on: {t[('w', True)][0]:.1f}), "
@@ -2618,18 +2741,20 @@ def pseudo_phase(cli, rows, card):
         f"G {st['⑤G'][3]:.2f} GiB; ms per orbit view: avatar render (stage ①, PNG "
         f"written) {orbit_ms:.2f}, EG3D re-render at {prov.cfg.sr_resolution}^2 (stage ⑥) "
         f"{eg3d_ms:.2f}; "
-        f"alignment {st['③'][2]:.2f} s, paste-back {st['⑦'][2]:.2f} s; device busy per "
-        f"step (profiler, one step): W {busy['w']:.1f} ms ({busy['w'] / t[('w', False)][0]:.0%}"
-        f" of its wall time; the W stage's statistics of {prov.pti_cfg.w_avg_samples} z "
-        f"included), G {busy['g']:.1f} ms ({busy['g'] / t[('g', False)][0]:.0%}); phase total "
-        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+        f"alignment {st['③'][2]:.2f} s, paste-back {st['⑦'][2]:.2f} s; one {PTI_TIMED}-step "
+        f"call each under the profiler, wall / device busy (union of the device intervals): W "
+        f"{busy['w'][0]:.1f} / {busy['w'][1]:.1f} ms (busy {busy['w'][1] / busy['w'][0]:.1%}, "
+        f"idle {1 - busy['w'][1] / busy['w'][0]:.1%}; the W stage's statistics of "
+        f"{prov.pti_cfg.w_avg_samples} z included), G {busy['g'][0]:.1f} / {busy['g'][1]:.1f} "
+        f"ms (busy {busy['g'][1] / busy['g'][0]:.1%}, idle {1 - busy['g'][1] / busy['g'][0]:.1%})"
+        f"; phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
     rows["blend_instances_fwd"]["pseudo_launches"] = fwd
     rows["blend_instances_bwd"]["pseudo_launches"] = bwd
     return {"dir": pdir, "aligned": n_al, "targets": int(prov.targets.shape[0]),
             "w_ms": t[("w", False)][0], "w_ms_tf32": t[("w", True)][0],
             "g_ms": t[("g", False)][0], "g_ms_tf32": t[("g", True)][0],
             "w_peak_gib": st["⑤W"][3], "g_peak_gib": st["⑤G"][3], "orbit_ms": orbit_ms,
-            "w_busy_ms": busy["w"], "g_busy_ms": busy["g"],
+            "w_call_wall_busy_ms": busy["w"], "g_call_wall_busy_ms": busy["g"],
             "eg3d_view_ms": eg3d_ms, "w_losses": lw, "g_losses": lg, "device": dev_check,
             "run_s": run_s}
 
@@ -2804,8 +2929,9 @@ def complete_phase(cli, pseudo, rows, card):
     log(f"[complete] full-head bake step through its graph on a pseudo frame: "
         f"{t_step[-1]:.2f} ms/step ({COMPLETE_TIMED} replays, host clock, synchronized); "
         f"phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
-    for name, n, b in (("blend_instances_fwd", fwd, bfwd), ("blend_instances_bwd", bwd, bbwd)):
-        rows[name]["complete_launches"] = {"cli_run": n, "per_step": 1}
+    for name, n, b, a in (("blend_instances_fwd", fwd, bfwd, aug[1]),
+                          ("blend_instances_bwd", bwd, bbwd, aug[2])):
+        rows[name]["complete_launches"] = {"cli_run": n, "per_step": a / len(kinds)}
         rows[name]["fullhead_bake_launches"] = {"wrapper": b, "replays": replays,
                                                 "per_replay": per_replay.get(name, 0)}
     return {"ms_real": ms["real"], "ms_pseudo": ms["pseudo"], "alive": alive,

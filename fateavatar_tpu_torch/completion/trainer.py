@@ -24,7 +24,6 @@ from fateavatar_tpu_torch.completion.camera_sampler import orbit_cameras, sample
 from fateavatar_tpu_torch.models import maintenance
 from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
 from fateavatar_tpu_torch.ops.camera import make_camera
-from fateavatar_tpu_torch.render.autosize import autosize_render_config
 from fateavatar_tpu_torch.train.datasets import FaceDataset, FrameRecord, load_mask
 from fateavatar_tpu_torch.train.optim import zero_moment_rows
 from fateavatar_tpu_torch.train.trainer import Trainer
@@ -87,13 +86,11 @@ class CompletionTrainer(Trainer):
     def add_default_points(self, seed: int = 0):
         """Re-seed template splats into free capacity before the fine-tune
         (completor.py:153, fateavatar.py:739-812); their Adam moments start
-        at zero. Where the binning capacities were autosized, they are
-        probed again on the re-seeded avatar over every real and pseudo view
-        and only grown (``set_render_cfg``, the JAX Trainer's adaptive
-        swap): the probe at construction saw the avatar before its
-        checkpoint and the re-seed, and its caps drop instances (1,056,225
-        over the 24 steps of chip_smoke.py's full-width fine-tune on an
-        H100)."""
+        at zero. The autosized binning capacities are then probed again
+        over every real and pseudo view and only grown
+        (``Trainer.regrow_caps``): sized for the splats before the re-seed,
+        they drop instances (1,056,225 over the 24 steps of
+        chip_smoke.py's full-width fine-tune on an H100)."""
         params, state, touched = maintenance.add_default_points(
             self.model, self.ts.params, self.ts.state, seed=seed)
         opt_state = zero_moment_rows(self.ts.opt_state, touched, maintenance.SPLAT_FIELDS)
@@ -101,18 +98,12 @@ class CompletionTrainer(Trainer):
         self.logger.log(f"[completion] re-seeded template splats, "
                         f"alive={int(torch.sum(state.alive))}")
         if self.autosized:
-            # every real and pseudo view, the caps only grown
             ds, pd = self.train_dataset, self.pseudo_dataset
             bg = np.zeros(3, np.float32)
             probes = [self._make_frame(ds.sample(i), cache=False) for i in range(len(ds))]
             if pd is not None:
                 probes += [self.pseudo_frame(pd.sample(i), bg) for i in range(len(pd))]
-            cfg = self.render_cfg
-            new = autosize_render_config(self.model, params, state, probes, cfg,
-                                         probe_views=len(probes), log_fn=self.log)
-            self.set_render_cfg(dataclasses.replace(cfg, **{
-                k: max(getattr(cfg, k), getattr(new, k))
-                for k in ("instance_budget", "max_tiles_per_gaussian", "tail_k")}))
+            self.regrow_caps(probes)
 
     def pseudo_frame(self, p: dict, bg: np.ndarray):
         """A pseudo sample as a Frame on background ``bg`` [3]: the ground

@@ -178,10 +178,8 @@ class Trainer:
         if render_cfg.autosize:
             # measure the dataset's tile occupancy on its first frames and
             # size instance_budget / R / tail_k from it (render/autosize.py)
-            probes = [self._make_frame(train_dataset.sample(i), cache=False)
-                      for i in range(min(4, len(train_dataset)))]
             render_cfg = autosize_render_config(
-                model, params, state, probes,
+                model, params, state, self._probe_frames(),
                 dataclasses.replace(render_cfg, autosize=False), log_fn=self.log)
         self.render_cfg = render_cfg
         self.maint_cfg = maint_cfg
@@ -293,6 +291,29 @@ class Trainer:
         # the next scan epoch pays a capture again: it is not measured
         self._scan_epoch = None
         self._scan_checked = False
+
+    def _probe_frames(self) -> list:
+        """The views autosize probes: the first 4 training frames."""
+        return [self._make_frame(self.train_dataset.sample(i), cache=False)
+                for i in range(min(4, len(self.train_dataset)))]
+
+    def regrow_caps(self, frames: Optional[list] = None):
+        """Probe the autosized binning capacities again on the current
+        splats over ``frames`` (default: the probe views of construction)
+        and grow each one that falls short; none shrinks. The probe at
+        construction saw the avatar before a checkpoint was restored or
+        splats were re-seeded. Nothing to do unless the capacities were
+        autosized."""
+        if not self.autosized:
+            return
+        frames = self._probe_frames() if frames is None else frames
+        cfg = self.render_cfg
+        new = autosize_render_config(self.model, self.ts.params, self.ts.state, frames, cfg,
+                                     probe_views=len(frames), log_fn=self.log)
+        grown = {k: max(getattr(cfg, k), getattr(new, k))
+                 for k in ("instance_budget", "max_tiles_per_gaussian", "tail_k")}
+        if any(v != getattr(cfg, k) for k, v in grown.items()):
+            self.set_render_cfg(dataclasses.replace(cfg, **grown))
 
     def _sync(self):
         """Wait for the work queued on the device (nothing to wait for on
@@ -804,6 +825,7 @@ class Trainer:
                 self.test_tables = TrackingTables(**tree["test_tables"])
                 self.test_track_state = _track_state(tree["test_track_state"])
         self.log(f"[ckpt] restored step {self.global_step}")
+        self.regrow_caps()
 
 
 def _track_state_tree(s: RowAdamState) -> dict:

@@ -31,6 +31,7 @@ from fateavatar_tpu.utils.obj_io import sphere_obj_mesh
 from fateavatar_tpu_torch import convert
 from fateavatar_tpu_torch.models import maintenance as tmaint
 from fateavatar_tpu_torch.ops.camera import make_camera
+from fateavatar_tpu_torch.render.autosize import autosize_render_config
 from fateavatar_tpu_torch.render.render import RenderConfig
 from fateavatar_tpu_torch.train import datasets as tdatasets
 from fateavatar_tpu_torch.train import losses as tl
@@ -543,8 +544,21 @@ def test_trainer_epochs_checkpoint_resume_eval(tmp_path):
     assert tr.last_epoch_stats["overflow"] == 0
     assert all(np.isfinite(tr.epoch_losses))
     resumed = trainer()
+    caps = ("instance_budget", "max_tiles_per_gaussian", "tail_k")
+    before = {k: getattr(resumed.render_cfg, k) for k in caps}
     resumed.load_checkpoint()
     assert resumed.global_step == 8 and resumed.epoch == 2
+    # the caps were probed again on the restored splats and only grown
+    probe = autosize_render_config(model, resumed.ts.params, resumed.ts.state,
+                                   resumed._probe_frames(), resumed.render_cfg)
+    for k in caps:
+        got = getattr(resumed.render_cfg, k)
+        assert got == max(before[k], getattr(probe, k)), k
+    big = dataclasses.replace(resumed.render_cfg, instance_budget=4 * before["instance_budget"])
+    resumed.set_render_cfg(big)
+    resumed.regrow_caps()
+    assert resumed.render_cfg == big
+    resumed.set_render_cfg(dataclasses.replace(big, **before))
     assert torch.equal(resumed.ts.opt_state.mu.opacity, tr.ts.opt_state.mu.opacity)
     assert torch.equal(resumed.ts.opt_state.count, tr.ts.opt_state.count)
     assert torch.equal(resumed.ts.generator.get_state(), tr.ts.generator.get_state())
