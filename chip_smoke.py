@@ -62,7 +62,20 @@ weights), each through both routes of ``RenderConfig.kernel``:
   and 2, one pseudo step's gradients against the plain blends, the
   full-head checkpoint, the orbit and six fixed-view videos, ms per real
   and pseudo step; and a full-head bake epoch (``UVBaker.bake`` with the
-  pseudo set) through the bake step's graph.
+  pseudo set) through the bake step's graph;
+* the baselines (``[baselines]``): ``cli/train_baseline --model <family>
+  --epochs 1``, then ``--resume --epochs 2`` and the test evaluation, for
+  GaussianAvatars, FlashAvatar, SplattingAvatar and MonoGaussianAvatar at
+  their yamls' sizes on the ``[cli]`` workspace (tracking on): the render
+  caps from ``autosize.size_caps`` over a probe of the first run's Trainer
+  where the yaml's overflow, and the maintenance intervals that fire inside
+  the runs, printed as overrides; launches per step, densify and walk
+  events, resume, the eval files; MonoGaussianAvatar upsampled to its
+  100,000 points and trained at that size (its own caps); a walk of a
+  seeded in-plane displacement at full width; ms per eager step with and
+  without tracking, peak memory, a profile of three steps, one step's
+  gradients against the plain blends at the timed size, and both against
+  the same step with the blends in float64.
 
 Serving runs through ``Reenactor.reenact``'s CUDA graph: a wrapper counts the launches of the graph's warm-up calls and its capture,
 and the graph reports its replays and launches per replay.
@@ -2984,6 +2997,518 @@ def graph_phase(s, trainer_i, tiles_cfg, cli_tr, serve, rows, card):
                for k, v in o.items()} for path, o in out.items()} | {"fps": fps}))
 
 
+# ---------------------------------------------------------------------------
+# [baselines]: the four baseline families through cli/train_baseline
+# ---------------------------------------------------------------------------
+
+BASELINES = ("gaussianavatars", "flashavatar", "splattingavatar", "monogaussianavatar")
+# overrides that make each family's maintenance fire inside the runs' 12 + 12
+# steps (the yamls' intervals never do): GA densifies at steps 6, 12, 18 and
+# 24 (from step 4, every 6; a threshold of 0 selects every visible splat:
+# the yaml's 1e-4 against the statistic's 2 / W scaling selects none on this
+# data), SplattingAvatar walks every 6 steps. MonoGaussianAvatar's
+# upsample runs after the CLI, at BASELINE_MONO_EPOCH.
+BASELINE_EVERY, BASELINE_FROM = 6, 4
+BASELINE_OVERRIDES = {
+    "gaussianavatars": [f"training.densify_from_iter={BASELINE_FROM}",
+                        f"training.densify_interval={BASELINE_EVERY}",
+                        "training.densify_grad_threshold=0.0"],
+    "flashavatar": [],
+    "splattingavatar": [f"training.triangle_walk_interval={BASELINE_EVERY}"],
+    "monogaussianavatar": [],
+}
+# an epoch past UPSAMPLE_SCHEDULE, a multiple of the upsample frequency: its
+# target is max_points (100,000 in the yaml)
+BASELINE_MONO_EPOCH = 60
+# the test rows' tracking fit of Trainer.evaluate (its default optim_epoch)
+EVAL_FIT = 50
+# ``size_caps``' slack over a probe taken before any step: the splats grow
+# as they train, and on the [cli] workspace (NVIDIA H100) FlashAvatar's grow
+# from its init probe's 45,546 instances to 78,419 within 12 steps, which
+# size_caps' own 1.08 and autosize_render_config's one-shot 1.5 both drop;
+# 2x the init probe held over all the phase's steps, as did R at 2x the
+# widest splat
+GROWTH = {"safety": 2.0, "r_slack": 2.0}
+# the in-plane displacement of the card's walk check, in this FLAME's units
+# (its edges are ~5e-3 long)
+WALK_UVD = 0.01
+
+
+@contextmanager
+def maintenance_events(events):
+    """Record each call of the baselines' maintenance (GA's densify and
+    prune, SplattingAvatar's walk, MonoGaussianAvatar's prune and upsample)
+    with the alive splats before and after; syncs only there."""
+    from fateavatar_tpu_torch.models.baselines import gaussianavatars as GA
+    from fateavatar_tpu_torch.models.baselines import monogaussianavatar as MA
+    from fateavatar_tpu_torch.models.baselines import splattingavatar as SA
+
+    def densify(fn):
+        def inner(params, state, *a, **kw):
+            p, s, touched = fn(params, state, *a, **kw)
+            events.append(("densify", int(state.alive.sum()), int(s.alive.sum()),
+                           int(touched.sum())))
+            return p, s, touched
+        return inner
+
+    def walk(fn):
+        def inner(model, params, state):
+            p, s = fn(model, params, state)
+            moved = state.alive & (s.sample_fidxs != state.sample_fidxs)
+            events.append(("walk", int(state.alive.sum()), int(moved.sum()),
+                           float((s.sample_bary - state.sample_bary).abs().max())))
+            return p, s
+        return inner
+
+    def upsample(fn):
+        def inner(params, state, *a, **kw):
+            p, s, touched = fn(params, state, *a, **kw)
+            events.append(("upsample", int(state.alive.sum()),
+                           int((state.alive & state.visible).sum()), int(s.alive.sum())))
+            return p, s, touched
+        return inner
+
+    patched = [(GA, "densify_and_prune", densify), (SA, "walking_on_triangles", walk),
+               (MA, "prune_and_upsample", upsample)]
+    orig = [getattr(mod, name) for mod, name, _ in patched]
+    for (mod, name, wrap), fn in zip(patched, orig):
+        setattr(mod, name, wrap(fn))
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(patched, orig):
+            setattr(mod, name, fn)
+
+
+def flat_grads(g) -> dict:
+    """{field or field.weight name: tensor} of a params dataclass whose
+    fields may be dicts of tensors (the networks)."""
+    out = {}
+    for f in dataclasses.fields(g):
+        v = getattr(g, f.name)
+        out.update({f"{f.name}.{k}": x for k, x in v.items()} if isinstance(v, dict)
+                   else {f.name: v})
+    return out
+
+
+def probe_views(tr, ts=None):
+    """(most instances, most tiles a splat spans) over the training views:
+    ``autosize.probe_gaussians`` on the splats the family's forward renders
+    from ``ts`` (default the Trainer's own), with no gradient."""
+    import torch
+
+    from fateavatar_tpu_torch.models.baselines import flashavatar as FA
+    from fateavatar_tpu_torch.models.baselines import gaussianavatars as GA
+    from fateavatar_tpu_torch.models.baselines import monogaussianavatar as MA
+    from fateavatar_tpu_torch.models.baselines import splattingavatar as SA
+    from fateavatar_tpu_torch.render.autosize import probe_gaussians
+
+    ts = ts or tr.ts
+    mod = {"gaussianavatars": GA, "flashavatar": FA, "splattingavatar": SA,
+           "monogaussianavatar": MA}[tr.adapter.name]
+    counts, orig = [], mod.render
+
+    def probing(camera, gaussians, *a, **kw):
+        counts.append(probe_gaussians(camera, gaussians))
+        return orig(camera, gaussians, *a, **kw)
+
+    mod.render = probing
+    try:
+        with torch.no_grad():
+            for i in range(len(tr.train_dataset)):
+                f = tr._make_frame(tr.train_dataset.sample(i), cache=False)
+                tr._forward(ts.params, ts.state, f.expression, f.flame_pose, f.camera)
+    finally:
+        mod.render = orig
+    return max(c[0] for c in counts), max(c[1] for c in counts)
+
+
+def render_caps(tr, upsample_epoch=None):
+    """The render caps a Trainer's steps need, as ``render.*`` overrides ([]
+    where the config's suffice): ``autosize.size_caps`` of what
+    :func:`probe_views` measures, with the slack its training's growth
+    needs (GROWTH), each cap overridden only where it exceeds the config's
+    (the synthetic FLAME's crumpled faces stretch GA's face-bound splats,
+    MonoGaussianAvatar's carry the init radius 0.084, 40% of this FLAME's
+    head). The adapter closes over the render config, as the JAX package's
+    does, so caps come from the command line and a Trainer that needs them
+    is built again. ``upsample_epoch``: probe a copy of MonoGaussianAvatar's
+    state through ``mono_epoch_maintenance`` at that epoch, the size its
+    later steps reach (its generator restored after, so the upsample that
+    follows draws the same)."""
+    import torch
+
+    from fateavatar_tpu_torch.render import binning
+    from fateavatar_tpu_torch.render.autosize import size_caps
+    from fateavatar_tpu_torch.train import baseline_steps as BS
+
+    ts = tr.ts
+    if upsample_epoch is not None:
+        rng = ts.generator.get_state()
+        ts = BS.mono_epoch_maintenance(ts, tr.model, upsample_epoch)
+        ts.generator.set_state(rng)
+    total, max_t = probe_views(tr, ts)
+    cfg = tr.render_cfg
+    grid = binning.tile_grid(tr.model.cfg.img_width, tr.model.cfg.img_height)
+    # the splat slots: the rows of the params' first field
+    n_slots = getattr(ts.params, dataclasses.fields(ts.params)[0].name).shape[0]
+    default_m = cfg.instance_budget or min(4 * n_slots, n_slots * cfg.max_tiles_per_gaussian)
+    sized = size_caps(total, max_t, n_slots, grid[0] * grid[1], cfg, **GROWTH)
+    caps = {k: getattr(sized, k) for k, have in (("max_tiles_per_gaussian",
+                                                   cfg.max_tiles_per_gaussian),
+                                                  ("instance_budget", default_m))
+            if getattr(sized, k) > have}
+    alive = getattr(ts.state, "alive", None)
+    n_alive = n_slots if alive is None else int(alive.sum())
+    log(f"[baselines] {tr.adapter.name} probe at {n_alive} splats over "
+        f"{len(tr.train_dataset)} training views: instances up to {total} "
+        f"(budget {default_m}), tiles per splat up to {max_t} (R "
+        f"{cfg.max_tiles_per_gaussian}, {grid[0] * grid[1]} tiles) -> size_caps "
+        f"R {sized.max_tiles_per_gaussian}, budget {sized.instance_budget}")
+    del ts
+    torch.cuda.empty_cache()
+    return [f"render.{k}={v}" for k, v in caps.items()]
+
+
+def splat_walk(tr, card):
+    """The triangle walk at full width on the card: the trained
+    SplattingAvatar with a seeded in-plane uvd of std WALK_UVD committed by
+    ``walking_on_triangles``: splats crossing into other faces, barycentrics
+    on the simplex, dead rows unmoved, ms (host clock, synchronized)."""
+    import torch
+
+    from fateavatar_tpu_torch.models.baselines import splattingavatar as SA
+
+    p, s = tr.ts.params, tr.ts.state
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xy = torch.randn(p.uvd[:, :2].shape, generator=gen, device="cuda") * WALK_UVD
+    p = dataclasses.replace(p, uvd=torch.cat([xy, p.uvd[:, 2:]], dim=1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p2, s2 = SA.walking_on_triangles(tr.model, p, s)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    moved = int((s.alive & (s2.sample_fidxs != s.sample_fidxs)).sum())
+    dead_still = bool((s2.sample_fidxs[~s.alive] == s.sample_fidxs[~s.alive]).all())
+    simplex = float((s2.sample_bary[s.alive].sum(-1) - 1).abs().max())
+    log(f"[baselines] splattingavatar walk of a seeded uvd.xy (std {WALK_UVD}) over "
+        f"{int(s.alive.sum())} alive splats: {moved} crossed into another face, "
+        f"|sum(bary) - 1| <= {simplex:.1e}, dead rows unmoved {dead_still}, uvd.xy zeroed "
+        f"{bool((p2.uvd[:, :2] == 0).all())}; {ms:.3f} ms [{card}]")
+    check(moved > 0 and dead_still and simplex < 1e-5 and bool((p2.uvd[:, :2] == 0).all()),
+          "splattingavatar: the walk crosses faces, keeps barycentrics on the simplex")
+    return {"moved": moved, "ms": ms}
+
+
+def blend_float64(inst, starts, bg, grid):
+    """render()'s instance blend through the plain versions in float64
+    (inputs cast up, outputs and gradients cast back to float32): the
+    yardstick both float32 blends are read against."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    class Float64Blend(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, inst, bg):
+            x = inst.double()
+            s, e = starts[:-1].long(), starts[1:].long()
+            img, t_final, _, _ = bi.blend_windows(x, x[9], s, e, bg.double(), grid, bi.CHUNK)
+            ctx.save_for_backward(x, img, t_final)
+            return img.float(), t_final.float()
+
+        @staticmethod
+        def backward(ctx, g_img, g_tfin):
+            x, img, t_final = ctx.saved_tensors
+            s, e = starts[:-1].long(), starts[1:].long()
+            g_img = g_img.double()
+            g = bi.backward_windows(x, x[9], s, e, img, t_final, g_img, g_tfin.double(), grid,
+                                    bi.CHUNK, bi.ROW)
+            return g.float(), torch.einsum("tdp,tp->d", g_img, t_final).float()
+
+    return Float64Blend.apply(inst, bg)
+
+
+def baseline_family(fam, cli, bws, card):
+    """One family: cli/train_baseline --epochs 1 (its main without the
+    evaluation: parse_args, build_trainer, train), then main itself with
+    --resume --epochs 2 and the test evaluation; the gates; then
+    (MonoGaussianAvatar) the upsample to max_points; ms per eager step with
+    and without tracking; one step's gradients with the kernels against the
+    plain blends at that size. Returns the family's summary and its
+    launches."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import train_baseline
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.train import baseline_steps as BS
+    from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.utils.png import read_png
+
+    t_fam = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    tag = f"[baselines] {fam}"
+    yaml = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", f"{fam}.yaml")
+    args = ["--model", fam, "--config", yaml, "--device", "cuda",
+            f"dataset.root_path={cli.root}", *cli.assets[:2], f"workspace={bws}",
+            *BASELINE_OVERRIDES[fam]]
+    # ---- the first run's Trainer, probed as built; built again with the
+    # caps where it needs them
+    t0 = time.perf_counter()
+    tr = train_baseline.build_trainer(train_baseline.parse_args(["--epochs", "1", *args]))
+    caps = render_caps(tr)
+    if caps:
+        del tr
+        torch.cuda.empty_cache()
+        args += caps
+        tr = train_baseline.build_trainer(train_baseline.parse_args(["--epochs", "1", *args]))
+    over = [*BASELINE_OVERRIDES[fam], *caps]
+    log(f"{tag} overrides: {over} (probe and build {time.perf_counter() - t0:.1f} s)")
+    names = ("train_epoch", "optimize_tracking", "evaluate")
+    launches = {"blend_instances_fwd": 0, "blend_instances_bwd": 0}
+    events, runs = [], []
+    with maintenance_events(events):
+        for epochs, extra in ((1, []), (2, ["--resume"])):
+            record = []
+            # ---- the baseline CLI: counts to 0 just before, read just after
+            bi.blend_instances.launches = 0
+            bi.blend_instances_bwd.launches = 0
+            t0 = time.perf_counter()
+            with counted(Trainer, names, record):
+                if extra:
+                    tr = train_baseline.main(["--epochs", str(epochs), *extra, *args])
+                else:
+                    tr.train(epochs)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+            launches["blend_instances_fwd"] += fwd
+            launches["blend_instances_bwd"] += bwd
+            runs.append(tr)
+            rec = {n: [r for r in record if r[0] == n] for n in names}
+            steps, n_test = len(tr.train_dataset), len(tr.test_dataset)
+            ep = rec["train_epoch"][0]
+            stats = tr.last_epoch_stats
+            log(f"{tag} run {len(runs)} (--epochs {epochs}{' --resume' if extra else ''}): "
+                f"{run_s:.1f} s; epoch {tr.epoch} per-step loss "
+                f"{[round(x, 5) for x in tr.epoch_losses]}; mean {stats['loss']:.5f}, PSNR "
+                f"{stats['psnr']:.3f}, alive {stats['alive']}, overflow {stats['overflow']}; "
+                f"launches per step forward {ep[1] / steps:g}, backward {ep[2] / steps:g} "
+                f"(train step + tracking step); in all {fwd} forward, {bwd} backward")
+            check(all(np.isfinite(tr.epoch_losses)) and len(tr.epoch_losses) == steps,
+                  f"{fam}: finite loss every step")
+            if stats["overflow"]:
+                log(f"{tag} overflow: the probe over the training views now counts up to "
+                    f"{probe_views(tr)[0]} instances; budget {tr.render_cfg.instance_budget}")
+            check(stats["overflow"] == 0, f"{fam}: overflow {stats['overflow']}")
+            check(ep[1] == ep[2] == 2 * steps, f"{fam}: a step launches kernels 1 and 2 "
+                  "twice (the train step, then the tracking step)")
+            if not extra:
+                check(not rec["evaluate"] and fwd == bwd == 2 * steps,
+                      f"{fam}: launch totals of run 1 (no evaluation)")
+                continue
+            opt, ev = rec["optimize_tracking"][0], rec["evaluate"][0]
+            log(f"{tag} run 2: optimize_tracking {opt[1]} / {opt[2]} launches, evaluate "
+                f"{ev[1] - opt[1]} forward, {ev[3]:.1f} s")
+            check(opt[1] == opt[2] == EVAL_FIT * n_test and ev[1] - opt[1] == n_test
+                  and ev[2] == opt[2], f"{fam}: the test rows' fit and one eval forward "
+                  "per test frame")
+            check(fwd == 2 * steps + (EVAL_FIT + 1) * n_test
+                  and bwd == 2 * steps + EVAL_FIT * n_test, f"{fam}: launch totals of run 2")
+            media = os.path.join(bws, f"baseline_{fam}", "media")
+            with open(os.path.join(media, "metrics", f"test_epoch{epochs}.json")) as fh:
+                summary = json.load(fh)["summary"]
+            video = [f for f in (f"test_epoch{epochs}.mp4", f"test_epoch{epochs}.gif")
+                     if os.path.exists(os.path.join(media, "eval_videos", f))]
+            frame0 = os.path.join(media, "eval_images", f"test_epoch{epochs}_frame0.png")
+            check(all(np.isfinite(v) for v in summary.values()) and len(video) == 1
+                  and read_png(frame0).shape == (tr.model.cfg.img_height,
+                                                  2 * tr.model.cfg.img_width, 3),
+                  f"{fam}: eval metrics and media of run 2")
+            log(f"{tag} run 2: eval psnr {summary['psnr']:.4f} ssim "
+                f"{summary['ssim']:.4f} l1 {summary['l1']:.5f}; media "
+                f"metrics/test_epoch{epochs}.json, eval_videos/{video[0]}, "
+                f"eval_images/test_epoch{epochs}_frame0.png")
+    tr = runs[1]
+    first, last = runs[0].last_epoch_stats["loss"], tr.last_epoch_stats["loss"]
+    check(tr.global_step == tr.ts.step == 2 * steps and tr.epoch == 2,
+          f"{fam}: resumed from step {steps} to {2 * steps}")
+    check(last < first, f"{fam}: epoch mean loss {first:.5f} -> {last:.5f} falls")
+    for ev in events:
+        log(f"{tag} {ev[0]}: " + {
+            "densify": "alive {1} -> {2}, {3} slots written",
+            "walk": "alive {1}, {2} splats crossed into another face, largest barycentric "
+                    "change {3:.3f}",
+            "upsample": "alive {1}, visible {2}, -> {3}"}[ev[0]].format(*ev))
+    due = [k for k in range(1, 2 * steps + 1) if k % BASELINE_EVERY == 0]
+    if fam == "gaussianavatars":
+        due = [k for k in due if k >= BASELINE_FROM]
+        check(len(events) == len(due) and all(ev[2] > ev[1] for ev in events),
+              f"{fam}: densify at steps {due} adds splats")
+    if fam == "splattingavatar":
+        # the forward reads uvd.z only (splattingavatar.py:224 of the JAX
+        # package), so uvd.xy gets no gradient and these walks commit nothing
+        check(len(events) == len(due) and all(ev[2] == 0 for ev in events),
+              f"{fam}: the walk at steps {due}, with nothing to commit")
+        out_walk = splat_walk(tr, card)
+
+    out = {"first_epoch_loss": first, "last_epoch_loss": last, "alive": tr._alive(),
+           "eval_psnr": summary["psnr"], "overrides": over}
+    if fam == "splattingavatar":
+        out["walk"] = out_walk
+    if fam == "monogaussianavatar":
+        # ---- the upsample to max_points, then steps at that size: the caps
+        # of that size, on a Trainer built with them that resumes run 2
+        caps = render_caps(tr, BASELINE_MONO_EPOCH)
+        if caps:
+            over += caps
+            log(f"{tag} overrides at {tr.model.cfg.max_points} points: {caps}")
+            del tr, runs
+            torch.cuda.empty_cache()
+            tr = train_baseline.build_trainer(train_baseline.parse_args(
+                ["--epochs", "2", *args, *caps]))
+            tr.load_checkpoint()
+        events.clear()
+        with maintenance_events(events):
+            tr.ts = BS.mono_epoch_maintenance(tr.ts, tr.model, BASELINE_MONO_EPOCH)
+        check(tr._alive() == tr.model.cfg.max_points,
+              f"{fam}: upsampled to max_points ({tr._alive()})")
+        log(f"{tag} mono_epoch_maintenance(epoch {BASELINE_MONO_EPOCH}): alive {events[0][1]}, "
+            f"visible {events[0][2]} -> {events[0][3]}; radius now "
+            f"{float(tr.ts.state.radius):.5f}")
+    # ---- ms per eager step: an epoch with tracking, then one without (the
+    # maintenance that falls due runs in it)
+    t_ms = {}
+    for label, enabled in (("with tracking", True), ("without tracking", False)):
+        tr.tracking_enabled = enabled
+        torch.cuda.synchronize()
+        # ---- a timed epoch: counts to 0 just before, read just after
+        bi.blend_instances.launches = 0
+        bi.blend_instances_bwd.launches = 0
+        t0 = time.perf_counter()
+        tr.train_epoch()
+        torch.cuda.synchronize()
+        t_ms[label] = (time.perf_counter() - t0) * 1e3 / steps
+        fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+        launches["blend_instances_fwd"] += fwd
+        launches["blend_instances_bwd"] += bwd
+        per = 2 if enabled else 1
+        check(fwd == bwd == per * steps, f"{fam}: {per} launch(es) of kernels 1 and 2 per "
+              f"step {label} ({fwd}, {bwd} in {steps} steps)")
+        check(tr.last_epoch_stats["overflow"] == 0 and np.isfinite(tr.last_epoch_stats["loss"]),
+              f"{fam}: the timed epoch {label}: overflow 0, finite loss")
+    tr.tracking_enabled = True
+    out["alive"] = tr._alive()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    samples = [tr.train_dataset.sample(i) for i in range(3)]
+
+    def step_and_track(i):
+        sample = samples[i]
+        frame = tr._make_frame(sample, tr.train_tables)
+        tr.ts, _ = tr.train_step(tr.ts, frame)
+        pose = np.asarray(sample["cam_pose"], np.float32)
+        tr.train_tables, tr.train_track_state = tr._tracking_step(
+            tr.train_tables, tr.train_track_state, sample["idx"],
+            (pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb, tr.ts.state,
+             tr.ts.params))
+
+    prof = profile_top(f"{fam}: 3 train steps, each with its tracking step", step_and_track,
+                       3, "step", card)
+    out["profile"] = {k: v for k, v in prof.items() if k != "names"}
+    log(f"{tag} ms/step {t_ms['with tracking']:.3f} with tracking, "
+        f"{t_ms['without tracking']:.3f} without (an epoch of {steps} steps each, host clock, "
+        f"synchronized, at {tr._alive()} alive); peak device memory {peak:.3f} GiB [{card}]")
+
+    # the caps' margin at the end: the probe again over the training views
+    total, max_t = probe_views(tr)
+    budget = tr.render_cfg.instance_budget
+    log(f"{tag} after the timed epochs: instances up to {total} of the budget "
+        f"{budget or 'default'}" + (f" ({budget / total:.2f}x)" if budget else "")
+        + f", tiles per splat up to {max_t} of R {tr.render_cfg.max_tiles_per_gaussian}")
+
+    # ---- one step's gradients, kernels vs plain blends, at the size the
+    # timed epochs ran (Mono's 100,000 points)
+    frame = tr._make_frame(tr.train_dataset.sample(0), tr.train_tables)
+    depth = []
+
+    def recording(inst, starts, bg, grid):
+        depth.append((int(starts[-1]), int((starts[1:] - starts[:-1]).max())))
+        return bi.blend_instances(inst, starts, bg, grid)
+
+    with swapped_blend(recording):
+        gk = tr.train_step.grads(tr.ts, frame)
+    t0 = time.perf_counter()
+    with swapped_blend(bi.blend_instances_plain):
+        gp = tr.train_step.grads(tr.ts, frame)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    worst = []
+    a, b = flat_grads(gk[0]), flat_grads(gp[0])
+    if gk[1] is not None:
+        a["probe"], b["probe"] = gk[1], gp[1]
+    for k in a:
+        x, y = a[k], b[k]
+        check(torch.equal(torch.isnan(x), torch.isnan(y)), f"{fam}: NaN gradients at the "
+              f"same elements of {k}")
+        ok = ~torch.isnan(y)
+        x, y = x[ok], y[ok]
+        if y.numel() == 0 or float(y.abs().max()) == 0.0:
+            check(x.numel() == 0 or float(x.abs().max()) == 0.0, f"{fam}: gradient {k} one side 0")
+            continue
+        l2, mx = float((x - y).norm() / y.norm()), float((x - y).abs().max() / y.abs().max())
+        worst.append((k, l2, mx))
+        check(l2 <= STEP_RTOL_L2 and mx <= STEP_RTOL_MAX,
+              f"{fam}: step gradient {k} kernels vs plain rel L2 {l2:.2e}, max {mx:.2e}")
+    top = sorted(worst, key=lambda w: -w[1])[:6]
+    log(f"{tag} one step at {tr._alive() or 'all'} splats, kernels vs plain blends: frame "
+        f"0's {depth[0][0]} instances, the deepest tile {depth[0][1]}; loss "
+        f"{gk[3]['loss'].item():.7f} vs {gp[3]['loss'].item():.7f}; {len(worst)} gradient "
+        f"tensors, the largest rel L2 / max: "
+        + ", ".join(f"{k} {l2:.1e}/{mx:.1e}" for k, l2, mx in top)
+        + f"; the plain step {plain_s:.2f} s")
+    # ---- the same step with the blends in float64 (a reading, no gate):
+    # how far each float32 blend's gradients are from it
+    with swapped_blend(blend_float64):
+        g64 = flat_grads(tr.train_step.grads(tr.ts, frame)[0])
+    far = {}
+    for side, g in (("kernels", a), ("plain", b)):
+        rel = [(k, float((g[k] - g64[k]).nan_to_num().norm() / g64[k].nan_to_num().norm()))
+               for k in g64 if float(g64[k].nan_to_num().norm()) > 0.0]
+        far[side] = max(rel, key=lambda r: r[1])
+    log(f"{tag} the same step with the blends in float64: the largest gradient rel L2 from "
+        f"it, kernels {far['kernels'][1]:.2e} ({far['kernels'][0]}), plain float32 "
+        f"{far['plain'][1]:.2e} ({far['plain'][0]})")
+    out["float64_rel_l2"] = {side: r[1] for side, r in far.items()}
+    torch.cuda.empty_cache()
+    out.update(ms_step_tracking=t_ms["with tracking"], ms_step=t_ms["without tracking"],
+               peak_gib=peak, worst_rel_l2=max(w[1] for w in worst), launches=launches,
+               grads_instances=depth[0][0], grads_deepest_tile=depth[0][1],
+               seconds=time.perf_counter() - t_fam)
+    return out
+
+
+def baselines_phase(cli, rows, card):
+    """The four baseline families through ``cli/train_baseline`` at the yamls'
+    sizes on the ``[cli]`` IMAvatar workspace (12 + 4 frames at 512x512,
+    tracking on); their launches are added to kernels 1 and 2's."""
+    import torch
+
+    t_phase = time.perf_counter()
+    bws = os.path.join(os.path.dirname(cli.run), "baselines")
+    summary = {}
+    for fam in BASELINES:
+        summary[fam] = baseline_family(fam, cli, bws, card)
+        torch.cuda.empty_cache()
+    for name in ("blend_instances_fwd", "blend_instances_bwd"):
+        by_family = {f: s["launches"][name] for f, s in summary.items()}
+        rows[name]["launches"] += sum(by_family.values())
+        rows[name]["launches_baselines"] = by_family
+    log(f"[baselines] phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log("[baselines] summary " + json.dumps(summary))
+    return summary
+
+
 def main():
     import torch
 
@@ -3233,6 +3758,7 @@ def main():
         pseudo = pseudo_phase(cli, rows, card)
         complete = complete_phase(cli, pseudo, rows, card)
         log("[complete] summary " + json.dumps({"pseudo": pseudo, "complete": complete}))
+        baselines_phase(cli, rows, card)
 
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))

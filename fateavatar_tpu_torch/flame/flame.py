@@ -4,8 +4,9 @@ Port of the forward part of ``fateavatar_tpu/flame/flame.py``
 (``batch_rigid_transform``, ``lbs``, ``euler_xyz_matrix``,
 ``apply_world_transform``, ``flame_forward``), with the learned
 personalization deltas (delta_shapedirs / delta_posedirs / delta_vertex),
-and the 68-point landmarks: static (``flame_landmarks``) and with the
-yaw-binned jaw contour (``flame_landmarks_dynamic``).
+the 68-point landmarks: static (``flame_landmarks``) and with the
+yaw-binned jaw contour (``flame_landmarks_dynamic``), and the per-point
+morphing of MonoGaussianAvatar (``forward_pts`` / ``inverse_pts``).
 
 FLAME joint layout (5 joints): 0 root/global, 1 neck, 2 jaw, 3 left eye,
 4 right eye. ``full_pose`` is [B, 15] axis-angle stacked in that order.
@@ -264,3 +265,64 @@ def flame_landmarks_dynamic(model: FlameModel, vertices: torch.Tensor,
     lmk_verts = vertices[torch.arange(B, device=vertices.device)[:, None, None],
                          model.faces[faces_idx]]                 # [B, 68, 3, 3]
     return torch.einsum("blfk,blf->blk", lmk_verts, bary)
+
+
+# ---------------------------------------------------------------------------
+# Per-point morphing (MonoGaussianAvatar path, flame/lbs.py:103-188)
+# ---------------------------------------------------------------------------
+
+def blend_shapes_pts(betas: torch.Tensor, shape_disps: torch.Tensor) -> torch.Tensor:
+    """[N, S] x [N, 3, S] -> [N, 3] (lbs.py:210-230)."""
+    return torch.einsum("ml,mkl->mk", betas, shape_disps)
+
+
+def pose_correctives_pts(pose_feature: torch.Tensor, posedirs: torch.Tensor) -> torch.Tensor:
+    """[N, 36] x [N, 36, 3] -> [N, 3] (lbs.py:232-235)."""
+    return torch.einsum("mi,mik->mk", pose_feature, posedirs)
+
+
+def _blend_transforms(transformations: torch.Tensor, lbs_weights: torch.Tensor):
+    n, J = lbs_weights.shape
+    return torch.einsum("mj,mjpq->mpq", lbs_weights, transformations.reshape(n, J, 4, 4))
+
+
+def forward_skinning_pts(pnts: torch.Tensor, transformations: torch.Tensor,
+                         lbs_weights: torch.Tensor) -> torch.Tensor:
+    """Skin individual points with per-point joint weights (lbs.py:125-151)."""
+    T = _blend_transforms(transformations, lbs_weights)
+    return torch.einsum("mpq,mq->mp", T[:, :3, :3], pnts) + T[:, :3, 3]
+
+
+def inverse_skinning_pts(pnts: torch.Tensor, transformations: torch.Tensor,
+                         lbs_weights: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`forward_skinning_pts` (lbs.py:154-178). A blend of
+    rigid transforms has the bottom row (0, 0, 0, s), s the weights' sum, so
+    its inverse is [[A^-1, -A^-1 t / s], [0, 1 / s]]: A^-1 as the adjugate
+    over the determinant, where the JAX package inverts the 4x4 by LU (the
+    same value up to rounding; no solver call, so a CUDA graph can capture
+    it)."""
+    T = _blend_transforms(transformations, lbs_weights)
+    A, t = T[:, :3, :3], T[:, :3, 3]
+    c0, c1, c2 = A[:, :, 0], A[:, :, 1], A[:, :, 2]
+    adj_t = torch.stack([torch.linalg.cross(c1, c2), torch.linalg.cross(c2, c0),
+                         torch.linalg.cross(c0, c1)], dim=1)       # rows of adj(A)
+    det = torch.sum(c0 * adj_t[:, 0], dim=-1)
+    a_inv = adj_t / det[:, None, None]
+    p = torch.einsum("mpq,mq->mp", a_inv, pnts)
+    return p - torch.einsum("mpq,mq->mp", a_inv, t) / T[:, 3, 3:4]
+
+
+def forward_pts(pnts_c, betas, transformations, pose_feature,
+                shapedirs, posedirs, lbs_weights):
+    """Canonical points -> posed points (lbs.py:103-121)."""
+    pnts = pnts_c + blend_shapes_pts(betas, shapedirs)
+    pnts = pnts + pose_correctives_pts(pose_feature, posedirs)
+    return forward_skinning_pts(pnts, transformations, lbs_weights)
+
+
+def inverse_pts(pnts_p, betas, transformations, pose_feature,
+                shapedirs, posedirs, lbs_weights):
+    """Posed points -> canonical points (lbs.py:180-188)."""
+    pnts = inverse_skinning_pts(pnts_p, transformations, lbs_weights)
+    pnts = pnts - blend_shapes_pts(betas, shapedirs)
+    return pnts - pose_correctives_pts(pose_feature, posedirs)

@@ -1,8 +1,9 @@
-"""Triangle-mesh geometry ops used by ``init_fateavatar`` and
-``build_gaussians``.
+"""Triangle-mesh geometry ops used by ``init_fateavatar``,
+``build_gaussians`` and the baselines.
 
-Port of the corresponding part of ``fateavatar_tpu/ops/mesh.py`` (and its
-``laplacian_smoothing``, the regularizer of training).
+Port of the corresponding part of ``fateavatar_tpu/ops/mesh.py``: face
+frames and normals, vertex normals, face areas, barycentric reweighting and
+``laplacian_smoothing`` (the regularizer of training).
 """
 
 from __future__ import annotations
@@ -55,6 +56,25 @@ def compute_face_orientation(verts: torch.Tensor, faces: torch.Tensor,
         s1 = torch.abs(_dot(a2, v2 - v0))
         return orientation, (s0 + s1) / 2.0
     return orientation, None
+
+
+def compute_vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Area-weighted unit vertex normals (mesh_compute.py:61-80): each face's
+    unnormalized normal added to its three vertices (one ``index_add_`` per
+    corner, as the JAX package adds them), (0, 0, 1) where the sum vanishes."""
+    fn = compute_face_normals(verts, faces)                  # [..., F, 3]
+    dim = verts.dim() - 2
+    vn = torch.zeros_like(verts)
+    for k in range(3):
+        vn = vn.index_add(dim, faces[:, k], fn)
+    fallback = vn.new_tensor([0.0, 0.0, 1.0])
+    vn = torch.where(_dot(vn, vn) > 1e-20, vn, fallback)
+    return safe_normalize(vn)
+
+
+def face_areas(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """Triangle areas [..., F] (pytorch3d's mesh_face_areas_normals)."""
+    return 0.5 * torch.linalg.norm(compute_face_normals(verts, faces), dim=-1)
 
 
 def reweight_verts_by_barycoords(

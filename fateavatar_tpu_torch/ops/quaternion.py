@@ -29,6 +29,21 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(_EPS)
 
 
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """wxyz quaternion -> 3x3 rotation matrix, ``q`` normalized first (the
+    rotation of the CUDA rasterizer's ``computeCov3D``, forward.cu:126-138)."""
+    w, x, y, z = quat_normalize(q).unbind(-1)
+    m = torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    )
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     """3x3 rotation matrix -> wxyz quaternion (w >= 0), the branchless
     four-candidate construction of the JAX package."""

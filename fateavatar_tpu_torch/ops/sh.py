@@ -27,6 +27,10 @@ def sh_to_rgb(sh: torch.Tensor) -> torch.Tensor:
     return sh * C0 + 0.5
 
 
+def num_sh_coeffs(degree: int) -> int:
+    return (degree + 1) ** 2
+
+
 def eval_sh(degree: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     """SH colour BEFORE the +0.5 shift / clamp. ``sh`` [..., K, 3] with
     K >= (degree+1)^2, ``dirs`` [..., 3] unit view directions."""

@@ -116,7 +116,7 @@ def blend_windows(rows, valid, s, e, bg, grid, chunk):
     windows (all tiles at once), carrying transmittance and colour between
     windows, as ``blend_tiles_xla``'s scan does (blend_tiles.py:112-142). A
     column blends only where ``valid`` [M] > 0. Peak memory is a few
-    [T, chunk, P] tensors. Returns (img [T,3,P], t_final [T,P],
+    [T, chunk, P] tensors. Sums run in ``rows``' dtype. Returns (img [T,3,P], t_final [T,P],
     evaluated [T,P], blended [T,P]): ``evaluated`` counts the instances each
     pixel reaches before it terminates, the pairs a sequential per-pixel
     loop computes; ``blended`` those of them it blends."""
@@ -125,9 +125,9 @@ def blend_windows(rows, valid, s, e, bg, grid, chunk):
     dev = rows.device
     px, py = _tile_pixel_coords(grid, dev)
     px, py = px[:, None, :], py[:, None, :]                   # [T, 1, P]
-    t_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
-    q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
-    acc = torch.zeros((T, 3, P), dtype=torch.float32, device=dev)
+    t_carry = torch.ones((T, P), dtype=rows.dtype, device=dev)
+    q_carry = torch.ones((T, P), dtype=rows.dtype, device=dev)
+    acc = torch.zeros((T, 3, P), dtype=rows.dtype, device=dev)
     evaluated = torch.zeros((T, P), dtype=torch.int64, device=dev)
     blended = torch.zeros((T, P), dtype=torch.int64, device=dev)
     longest = int((e - s).max()) if T else 0
@@ -229,7 +229,8 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
     channels 0-8 of ``rows`` as [n_out, M] (rows 9 and up, and every column
     outside the tiles' ranges, zero). Walks the same ``chunk``-column
     windows with the same cumulative products as the forward, so it agrees
-    with it on which instances are kept and where each pixel terminates."""
+    with it on which instances are kept and where each pixel terminates.
+    Sums run in ``rows``' dtype."""
     ty, tx = grid
     T = ty * tx
     dev = rows.device
@@ -240,11 +241,11 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
                + g_img[:, 2] * img[:, 2])[:, None, :]          # [T, 1, P]
     gt_tn = (g_tfin * t_final)[:, None, :]
     g = g_img[:, :, None, :]                                   # [T, 3, 1, P]
-    t_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
-    q_carry = torch.ones((T, P), dtype=torch.float32, device=dev)
-    pu_carry = torch.zeros((T, P), dtype=torch.float32, device=dev)
+    t_carry = torch.ones((T, P), dtype=rows.dtype, device=dev)
+    q_carry = torch.ones((T, P), dtype=rows.dtype, device=dev)
+    pu_carry = torch.zeros((T, P), dtype=rows.dtype, device=dev)
     # one extra column takes the writes of slots outside every range
-    g_out = torch.zeros((n_out, m + 1), dtype=torch.float32, device=dev)
+    g_out = torch.zeros((n_out, m + 1), dtype=rows.dtype, device=dev)
     longest = int((e - s).max()) if T else 0
     for i in range((longest + chunk - 1) // chunk):
         pos, in_range, data, ok = _window(rows, valid, s, e, i, chunk)

@@ -115,13 +115,15 @@ def preprocess(
     scales: torch.Tensor,
     rotations: torch.Tensor,
     opacities: torch.Tensor,
-    sh: torch.Tensor,
+    sh: torch.Tensor | None,
     sh_degree: int,
+    colors_precomp: torch.Tensor | None = None,
     scale_modifier: float = 1.0,
     alive: torch.Tensor | None = None,
 ) -> Preprocessed:
-    """Vectorized per-Gaussian preprocessing. ``alive`` masks dead capacity
-    slots (dead => radius 0)."""
+    """Vectorized per-Gaussian preprocessing. ``colors_precomp`` [N, 3], when
+    given, is the splats' colour as it is (no SH, no clamp; ``sh`` is then
+    not read). ``alive`` masks dead capacity slots (dead => radius 0)."""
     W, H = camera.width, camera.height
 
     # projection
@@ -153,9 +155,12 @@ def preprocess(
     mean_x = ((p_proj[..., 0] + 1.0) * W - 1.0) * 0.5
     mean_y = ((p_proj[..., 1] + 1.0) * H - 1.0) * 0.5
 
-    dirs = means3d - camera.campos
-    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
-    color = sh_to_color(sh_degree, sh, dirs)
+    if colors_precomp is not None:
+        color = colors_precomp
+    else:
+        dirs = means3d - camera.campos
+        dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True).clamp_min(1e-12)
+        color = sh_to_color(sh_degree, sh, dirs)
 
     visible = in_frustum & valid_det
     if alive is not None:

@@ -154,6 +154,7 @@ def render(
     gaussians: Gaussians,
     bg_color: torch.Tensor,
     scaling_modifier: float = 1.0,
+    override_color: torch.Tensor | None = None,
     config: RenderConfig = RenderConfig(),
     means2d_probe: torch.Tensor | None = None,
 ):
@@ -163,6 +164,8 @@ def render(
     ``visibility_filter`` [N] bool, ``radii`` [N] int32, ``t_final`` [H, W]
     transmittance, ``overflow`` int32 scalar (instances dropped by the static
     caps; 0 in healthy configs), ``tile_counts`` [T] int32.
+    ``override_color``: optional [N, 3] colours used in place of the SH
+    colour (render.py:247, 261, 276 of the JAX package).
     ``means2d_probe``: optional [2, N] (or [N, 2]) tensor added to the
     screen-space means; its gradient is d(loss)/d(mean2d).
     """
@@ -181,7 +184,9 @@ def render(
     grid = binning.tile_grid(camera.width, camera.height)
     prep = preprocess(
         camera, gaussians.xyz, gaussians.get_scaling, gaussians.get_rotation,
-        gaussians.get_opacity, gaussians.get_features, gaussians.sh_degree,
+        gaussians.get_opacity,
+        None if override_color is not None else gaussians.get_features,
+        gaussians.sh_degree, colors_precomp=override_color,
         scale_modifier=scaling_modifier, alive=gaussians.alive,
     )
     mx, my, c_a, c_b, c_c, col_r, col_g, col_b, op_v = prep.soa

@@ -29,11 +29,6 @@ import numpy as np
 from fateavatar_tpu_torch.ops.camera import make_camera
 from fateavatar_tpu_torch.utils import png
 
-# the FlashAvatar baseline's inputs (mouth masks) wait for its port
-_FLASHAVATAR = ("the FlashAvatar baseline's mouth masks are not ported yet "
-                "(ROADMAP Queue 1 item 8, the baselines)")
-
-
 # ---------------------------------------------------------------------------
 # small math helpers (host side)
 # ---------------------------------------------------------------------------
@@ -134,11 +129,11 @@ class FaceDataset:
 
     def __init__(self, img_res, background_color="black", cache_images=True,
                  is_flashavatar: bool = False):
-        if is_flashavatar:
-            raise NotImplementedError(f"is_flashavatar=True: {_FLASHAVATAR}")
         self.img_res = list(img_res)
         self.background_color = background_color
         self.cache_images = cache_images
+        # FlashAvatar's inputs: each frame's mouth mask (its _mouth.png)
+        self.is_flashavatar = is_flashavatar
         self._cache: dict = {}
         self.records: list[FrameRecord] = []
 
@@ -150,14 +145,23 @@ class FaceDataset:
             return self._cache[idx]
         out = load_rgb(self.records[idx].image_path, self.img_res,
                        bg_color=self.background_color, return_alpha=True)
+        if self.is_flashavatar:
+            out = (*out, load_mask(self._mouth_mask_path(idx), self.img_res))
         if self.cache_images:
             self._cache[idx] = out
         return out
 
+    def _mouth_mask_path(self, idx: int) -> str:
+        raise NotImplementedError(f"{type(self).__name__} has no mouth masks")
+
     def sample(self, idx: int) -> dict:
         """One frame's metadata and ground truth, as numpy (the __getitem__
-        contract, dataset.py:283-319, 559-595)."""
-        rgb, alpha = self.load_image(idx)
+        contract, dataset.py:283-319, 559-595); with ``is_flashavatar`` the
+        ground truth holds the mouth mask [H, W, 1] too."""
+        loaded = self.load_image(idx)
+        gt = {"rgb": loaded[0], "object_mask": loaded[1]}
+        if self.is_flashavatar:
+            gt["mouth_mask"] = loaded[2][..., None]
         return {
             "idx": idx,
             "img_name": self.records[idx].img_name,
@@ -166,7 +170,7 @@ class FaceDataset:
             "expression": self.expressions[idx],
             "flame_pose": self.flame_pose[idx],
             "cam_pose": self.world_mats[idx],
-            "ground_truth": {"rgb": rgb, "object_mask": alpha},
+            "ground_truth": gt,
         }
 
     def camera(self, idx: int, width: int, height: int, device="cuda"):
@@ -244,6 +248,10 @@ class IMAvatarDataset(FaceDataset):
         self.var_expression = (
             self.expressions.var(0, keepdims=True) if use_var_expression else None
         )
+
+    def _mouth_mask_path(self, idx):
+        return self.records[idx].image_path.replace("matted", "parsing").replace(
+            ".png", "_mouth.png")
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +339,10 @@ class InstaDataset(FaceDataset):
         self.var_expression = (
             self.expressions.var(0, keepdims=True) if use_var_expression else None
         )
+
+    def _mouth_mask_path(self, idx):
+        return self.records[idx].image_path.replace("images", "parsing").replace(
+            ".png", "_mouth.png")
 
 
 # ---------------------------------------------------------------------------

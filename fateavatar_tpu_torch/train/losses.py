@@ -1,9 +1,10 @@
-"""The FateAvatar losses (port of the FateAvatar subset of
-``fateavatar_tpu/train/losses.py``, train/loss.py:69-199 of the reference).
+"""The losses (port of ``fateavatar_tpu/train/losses.py``: FateAvatar's,
+train/loss.py:69-199 of the reference, and the four baselines',
+train/loss.py:203-517).
 
 Images are [H, W, 3] (or [B, H, W, 3]) float32 in [0, 1], the JAX package's
 layout. Every term is a plain function of tensors; :class:`FateAvatarLoss`
-composes them from a weights config. The VGG16 perceptual loss runs its
+and the baselines' loss classes compose them from a weights config. The VGG16 perceptual loss runs its
 convolutions through ``torch.nn.functional.conv2d`` (the JAX package leaves
 them to XLA, outside any Pallas kernel); its weights are random from a
 ``torch.Generator`` or loaded from a torchvision state dict / converted
@@ -33,6 +34,14 @@ def l1_loss(pred, gt):
 
 def l2_loss(pred, gt):
     return torch.mean((pred - gt) ** 2)
+
+
+def huber_loss(pred, gt, alpha: float = 0.1):
+    """FlashAvatar's Huber loss (train/loss.py:217-221)."""
+    diff = torch.abs(pred - gt)
+    quad = 0.5 * diff ** 2
+    lin = alpha * (diff - 0.5 * alpha)
+    return torch.mean(torch.where(diff < alpha, quad, lin))
 
 
 def as_float_rgb(x):
@@ -325,6 +334,215 @@ class FateAvatarLoss:
             v = flame_delta_loss(model_out["verts"], model_out["verts_orig"])
             out["flame_loss"] = v
             loss = loss + v * cfg.flame_weight
+
+        out["loss"] = loss
+        return out
+
+
+# ---------------------------------------------------------------------------
+# the baselines' losses (train/loss.py:203-517)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class FlashAvatarLossConfig:
+    huber_weight: float = 1.0
+    lpips_weight: float = 0.0     # step-gated in the reference (>15k steps)
+    mouth_weight: float = 40.0
+
+
+class FlashAvatarLoss:
+    """Huber + 40x mouth-region Huber (train/loss.py:203-255); the mouth
+    term where the ground truth carries ``mouth_mask``."""
+
+    def __init__(self, cfg: FlashAvatarLossConfig = FlashAvatarLossConfig()):
+        self.cfg = cfg
+
+    def __call__(self, model_out: dict, ground_truth: dict):
+        pred, gt = model_out["rgb_image"], as_float_rgb(ground_truth["rgb"])
+        loss = huber_loss(pred, gt, 0.1)
+        if ground_truth.get("mouth_mask") is not None:
+            m = ground_truth["mouth_mask"]
+            loss = loss + self.cfg.mouth_weight * huber_loss(pred * m, gt * m, 0.1)
+        return {"loss": loss * self.cfg.huber_weight, "huber_loss": loss}
+
+
+@dataclass
+class GaussianAvatarsLossConfig:
+    rgb_weight: float = 0.8
+    dssim_weight: float = 0.2
+    scale_weight: float = 1.0
+    xyz_weight: float = 0.01
+    threshold_scale: float = 0.6
+    threshold_xyz: float = 1.0
+
+
+def _safe_norm(x, dim):
+    """sqrt has an infinite gradient at 0 (the local xyz IS 0 at init)."""
+    return torch.sqrt(torch.sum(x * x, dim=dim) + 1e-12)
+
+
+class GaussianAvatarsLoss:
+    """0.8 L1 + 0.2 DSSIM + local scale / xyz penalties over alive splats
+    (train/loss.py:327-381)."""
+
+    def __init__(self, cfg: GaussianAvatarsLossConfig = GaussianAvatarsLossConfig()):
+        self.cfg = cfg
+
+    def __call__(self, model_out: dict, ground_truth: dict):
+        cfg = self.cfg
+        pred, gt = model_out["rgb_image"], as_float_rgb(ground_truth["rgb"])
+        rgb = l1_loss(pred, gt)
+        loss = rgb * cfg.rgb_weight
+        out = {"rgb_loss": rgb}
+        if cfg.dssim_weight > 0:
+            v = d_ssim(pred, gt)
+            out["dssim_loss"] = v
+            loss = loss + v * cfg.dssim_weight
+        alive = model_out["alive"].to(pred.dtype)
+        denom = torch.clamp_min(torch.sum(alive), 1.0)
+        if cfg.scale_weight > 0:
+            reg = F.relu(model_out["scale"] - cfg.threshold_scale)
+            v = torch.sum(_safe_norm(reg, 1) * alive) / denom
+            out["scale_loss"] = v
+            loss = loss + v * cfg.scale_weight
+        if cfg.xyz_weight > 0:
+            reg = F.relu(_safe_norm(model_out["xyz"], 1) - cfg.threshold_xyz)
+            v = torch.sum(reg * alive) / denom
+            out["xyz_loss"] = v
+            loss = loss + v * cfg.xyz_weight
+        out["loss"] = loss
+        return out
+
+
+@dataclass
+class SplattingAvatarLossConfig:
+    rgb_weight: float = 1.0
+    mse_weight: float = 10.0
+    scale_weight: float = 1.0
+    lpips_weight: float = 0.0
+    scale_threshold: float = 10.0
+    max_scaling: float = 0.008
+
+
+class SplattingAvatarLoss:
+    """L1 + 10 MSE + the mean max-scale of alive splats that are both large
+    and anisotropic (train/loss.py:259-325)."""
+
+    def __init__(self, cfg: SplattingAvatarLossConfig = SplattingAvatarLossConfig()):
+        self.cfg = cfg
+
+    def __call__(self, model_out: dict, ground_truth: dict):
+        cfg = self.cfg
+        pred, gt = model_out["rgb_image"], as_float_rgb(ground_truth["rgb"])
+        rgb = l1_loss(pred, gt)
+        loss = rgb * cfg.rgb_weight
+        out = {"rgb_loss": rgb}
+        if cfg.mse_weight > 0:
+            v = l2_loss(pred, gt)
+            out["mse_loss"] = v
+            loss = loss + v * cfg.mse_weight
+        if cfg.scale_weight > 0:
+            scale = model_out["scale"]
+            smax = torch.amax(scale, dim=-1)
+            smin = torch.clamp_min(torch.amin(scale, dim=-1), 1e-12)
+            bad = ((smax > cfg.max_scaling) & (smax / smin > cfg.scale_threshold)
+                   & model_out["alive"])
+            cnt = torch.sum(bad)
+            v = torch.where(cnt > 0, torch.sum(torch.where(bad, smax, 0.0))
+                            / torch.clamp_min(cnt, 1), 0.0)
+            out["scale_loss"] = v
+            loss = loss + v * cfg.scale_weight
+        out["loss"] = loss
+        return out
+
+
+@dataclass
+class MonoGaussianAvatarLossConfig:
+    rgb_weight: float = 1.0
+    vgg_weight: float = 0.0
+    dssim_weight: float = 0.25
+    lbs_weight: float = 10.0
+    dataset_type: str = "insta"
+    gt_lbs_milestones: tuple = ()
+    gt_lbs_factor: float = 0.5
+
+
+class MonoGaussianAvatarLoss:
+    """rgb + dssim (+ vgg) + the lbs / posedirs / shapedirs distillation
+    towards FLAME's values at each point's nearest canonical vertex
+    (train/loss.py:385-517). ``var_expression`` optionally weights the
+    shapedirs term by the inverse expression variance."""
+
+    def __init__(self, cfg: MonoGaussianAvatarLossConfig, flame,
+                 var_expression=None, vgg_params=None):
+        self.cfg = cfg
+        self.flame = flame
+        self.var_expression = (
+            None if var_expression is None else
+            torch.as_tensor(var_expression, dtype=torch.float32,
+                            device=flame.v_template.device))
+        self.vgg_params = vgg_params
+        self._lbs_scale = 1.0  # decayed at milestones (host side)
+
+    def decay_at_epoch(self, epoch: int):
+        if epoch in self.cfg.gt_lbs_milestones:
+            self._lbs_scale *= self.cfg.gt_lbs_factor
+
+    def __call__(self, model_out: dict, ground_truth: dict):
+        cfg = self.cfg
+        pred, gt = model_out["rgb_image"], as_float_rgb(ground_truth["rgb"])
+        rgb = l1_loss(pred, gt)
+        loss = rgb * cfg.rgb_weight
+        out = {"rgb_loss": rgb}
+        if cfg.vgg_weight > 0 and self.vgg_params is not None:
+            v = vgg_perceptual_loss(self.vgg_params, pred, gt)
+            out["vgg_loss"] = v
+            loss = loss + v * cfg.vgg_weight
+        if cfg.dssim_weight > 0:
+            v = d_ssim(pred, gt)
+            out["dssim_loss"] = v
+            loss = loss + v * cfg.dssim_weight
+
+        idx = model_out["index_batch"]
+        n = idx.shape[0]
+        flame = self.flame
+        alive = model_out["alive"].to(pred.dtype)[:, None]
+        denom = torch.clamp_min(torch.sum(alive), 1.0)
+        lbs_w = cfg.lbs_weight * self._lbs_scale
+
+        def masked_mse(a, b, var=None):
+            d = (a - b) ** 2
+            if var is not None:
+                d = d / var / 50.0
+            return torch.sum(torch.mean(d, dim=-1, keepdim=True) * alive) / denom
+
+        gt_lbs = flame.lbs_weights[idx]
+        if model_out["lbs_weights"].shape[-1] == 6:      # the ghost bone
+            gt_lbs = torch.cat([torch.zeros_like(gt_lbs[:, :1]), gt_lbs], dim=-1)
+        v = masked_mse(model_out["lbs_weights"], gt_lbs)
+        out["lbs_loss"] = v
+        loss = loss + v * lbs_w * 0.1
+
+        gt_posedirs = flame.posedirs.reshape(36, -1, 3).permute(1, 0, 2)[idx]
+        v = masked_mse(model_out["posedirs"].reshape(n, -1) * 10,
+                       gt_posedirs.reshape(n, -1) * 10)
+        out["posedirs_loss"] = v
+        loss = loss + v * lbs_w * 10.0
+
+        n_exp = model_out["shapedirs"].shape[-1]
+        if cfg.dataset_type == "insta":
+            gt_shapedirs = flame.shapedirs[..., -n_exp:][idx]
+        else:
+            gt_shapedirs = flame.shapedirs[..., flame.n_shape:][idx]
+        var = None
+        if self.var_expression is not None:
+            var = self.var_expression.reshape(1, 1, -1)[..., :n_exp].expand(
+                gt_shapedirs.shape).reshape(n, -1)
+        v = masked_mse(model_out["shapedirs"].reshape(n, -1) * 10,
+                       gt_shapedirs.reshape(n, -1) * 10, var=var)
+        out["shapedirs_loss"] = v
+        loss = loss + v * lbs_w * 10.0
 
         out["loss"] = loss
         return out

@@ -8,8 +8,11 @@ functions in the JAX package's arithmetic order, with bias correction from
 a float32 step count; ``torch.optim.Adam`` would need the same surgery and
 rounds differently.
 
-Parameters and moments are dataclasses of tensors (``FateAvatarParams``);
-the learning rates are a dict keyed by field name.
+Parameters and moments are dataclasses of tensors (``FateAvatarParams``,
+the baselines' params); a field may also be a dict of tensors (a network's
+weights by name, as the baselines hold their MLPs), whose every tensor takes
+the field's learning rate. The learning rates are a dict keyed by field
+name.
 """
 
 from __future__ import annotations
@@ -32,6 +35,19 @@ def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
 
 
+def map_leaves(fn, *xs):
+    """``fn`` over tensors, or over the values of dicts of tensors."""
+    if isinstance(xs[0], dict):
+        return {k: fn(*(x[k] for x in xs)) for k in xs[0]}
+    return fn(*xs)
+
+
+def params_device(params) -> torch.device:
+    """The device of a params dataclass (its first tensor)."""
+    v = next(iter(_fields(params).values()))
+    return next(iter(v.values())).device if isinstance(v, dict) else v.device
+
+
 # the reference's torch.optim.Adam defaults
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -44,11 +60,13 @@ class MultiAdam:
     lr_tree: dict
 
     def init(self, params) -> MultiAdamState:
-        zeros = {k: torch.zeros_like(v) for k, v in _fields(params).items()}
+        def zeros():
+            return {k: map_leaves(torch.zeros_like, v) for k, v in _fields(params).items()}
+
         return MultiAdamState(
-            mu=dataclasses.replace(params, **zeros),
-            nu=dataclasses.replace(params, **{k: v.clone() for k, v in zeros.items()}),
-            count=torch.zeros((), dtype=torch.int32, device=params.offset.device))
+            mu=dataclasses.replace(params, **zeros()),
+            nu=dataclasses.replace(params, **zeros()),
+            count=torch.zeros((), dtype=torch.int32, device=params_device(params)))
 
     def update(self, grads, opt_state: MultiAdamState, params):
         """Returns (updates, new state); apply with :func:`apply_updates`."""
@@ -57,13 +75,13 @@ class MultiAdam:
         c2 = 1.0 - B2 ** count.to(torch.float32)
         mu, nu, upd = {}, {}, {}
         for name, g in _fields(grads).items():
-            m = B1 * getattr(opt_state.mu, name) + (1 - B1) * g
-            v = B2 * getattr(opt_state.nu, name) + (1 - B2) * g * g
             lr = self.lr_tree.get(name, 0.0)
-            mhat = m / c1
-            vhat = v / c2
-            upd[name] = -lr * mhat / (torch.sqrt(vhat) + EPS)
-            mu[name], nu[name] = m, v
+            mu[name] = map_leaves(lambda m, g: B1 * m + (1 - B1) * g,
+                                  getattr(opt_state.mu, name), g)
+            nu[name] = map_leaves(lambda v, g: B2 * v + (1 - B2) * g * g,
+                                  getattr(opt_state.nu, name), g)
+            upd[name] = map_leaves(lambda m, v: -lr * (m / c1) / (torch.sqrt(v / c2) + EPS),
+                                   mu[name], nu[name])
         return (dataclasses.replace(params, **upd),
                 MultiAdamState(mu=dataclasses.replace(opt_state.mu, **mu),
                                nu=dataclasses.replace(opt_state.nu, **nu),
@@ -72,7 +90,7 @@ class MultiAdam:
 
 def apply_updates(params, updates):
     return dataclasses.replace(params, **{
-        k: v + getattr(updates, k) for k, v in _fields(params).items()})
+        k: map_leaves(torch.add, v, getattr(updates, k)) for k, v in _fields(params).items()})
 
 
 def zero_moment_rows(opt_state: MultiAdamState, touched: torch.Tensor,
@@ -99,9 +117,9 @@ def zero_moment_field(opt_state: MultiAdamState, field: str) -> MultiAdamState:
     return dataclasses.replace(
         opt_state,
         mu=dataclasses.replace(opt_state.mu, **{
-            field: torch.zeros_like(getattr(opt_state.mu, field))}),
+            field: map_leaves(torch.zeros_like, getattr(opt_state.mu, field))}),
         nu=dataclasses.replace(opt_state.nu, **{
-            field: torch.zeros_like(getattr(opt_state.nu, field))}),
+            field: map_leaves(torch.zeros_like, getattr(opt_state.nu, field))}),
     )
 
 

@@ -18,7 +18,15 @@ replayed once per frame, the steps that densify, prune or reset opacity run
 eagerly between replays, and the per-step scalars come back in one fetch.
 The faster mode is kept once both have been measured.
 
-Not ported yet: data parallel and family adapters.
+Family adapters (``train/adapters.py``): with ``adapter=``, any registry
+family trains through this Trainer. Its step, forward, snapshot and epoch
+hook come from the adapter; evaluation, tracking, the fps test and
+snapshots run through its forward, and checkpoints hold its train state.
+Its epochs run per step (the JAX package runs them as a ``lax.scan`` where
+the step has ``.raw``; capturing adapter steps as CUDA graphs is later
+work), and the binning capacities are not autosized, as in the JAX package.
+
+Not ported yet: data parallel.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from fateavatar_tpu_torch.train import metrics as metrics_mod
 from fateavatar_tpu_torch.train.checkpoints import CheckpointManager
 from fateavatar_tpu_torch.train.datasets import FaceDataset, Prefetcher
 from fateavatar_tpu_torch.train.losses import as_float_rgb
-from fateavatar_tpu_torch.train.optim import MultiAdam, MultiAdamState
+from fateavatar_tpu_torch.train.optim import MultiAdam, MultiAdamState, params_device
 from fateavatar_tpu_torch.train.step import (
     EPOCH_AUX,
     Frame,
@@ -118,6 +126,7 @@ class Trainer:
         snapshot_interval: int = 1000,
         max_keep_ckpt: int = 2,
         seed: int = 0,
+        adapter=None,
         data_parallel: int = 0,
         device_frame_cache: str = "auto",
         lpips_weights_path=None,
@@ -138,7 +147,7 @@ class Trainer:
         self.train_dataset = train_dataset
         self.test_dataset = test_dataset
         self.workspace = workspace
-        self.device = params.offset.device
+        self.device = params_device(params)
         self.bg_color = torch.as_tensor(bg_color, dtype=torch.float32, device=self.device)
         self.snapshot_interval = snapshot_interval
         self.lpips_weights_path = lpips_weights_path
@@ -174,8 +183,9 @@ class Trainer:
             self.log(f"[cache] dataset ~{est_bytes >> 20} MiB exceeds the 4 GiB "
                      "device-frame budget; streaming uploads per step")
 
-        self.autosized = render_cfg.autosize
-        if render_cfg.autosize:
+        # the JAX package autosizes the built-in FateAvatar path only
+        self.autosized = render_cfg.autosize and adapter is None
+        if self.autosized:
             # measure the dataset's tile occupancy on its first frames and
             # size instance_budget / R / tail_k from it (render/autosize.py)
             render_cfg = autosize_render_config(
@@ -183,8 +193,20 @@ class Trainer:
                 dataclasses.replace(render_cfg, autosize=False), log_fn=self.log)
         self.render_cfg = render_cfg
         self.maint_cfg = maint_cfg
-        self.train_step = make_train_step(model, loss_fn, optimizer, maint_cfg, render_cfg)
-        self.ts: TrainState = init_train_state(params, state, optimizer, seed)
+        # family adapter (train/adapters.py): None -> the built-in FateAvatar
+        # wiring (train/trainer.py:147-174)
+        self.adapter = adapter
+        if adapter is None:
+            self.train_step = make_train_step(model, loss_fn, optimizer, maint_cfg,
+                                              render_cfg)
+            self.ts: TrainState = init_train_state(params, state, optimizer, seed)
+            self._visualize = self._fateavatar_visualization
+        else:
+            self.train_step = adapter.step
+            self.ts = adapter.init_ts(seed)
+            self._visualize = adapter.visualize
+            self.log(f"[{adapter.name}] epochs run per step (no scan epoch for a family "
+                     "adapter)")
         self.last_epoch_stats: Optional[dict] = None
 
         # tracking refinement (train/base.py:113-151)
@@ -211,6 +233,24 @@ class Trainer:
 
     def log(self, msg: str):
         self.logger.log(msg)
+
+    def _forward(self, params, state, expr, pose, camera) -> dict:
+        """The model's forward on the Trainer's background and render
+        settings: the adapter's, or ``fateavatar_forward``."""
+        if self.adapter is not None:
+            return self.adapter.forward(params, state, expr, pose, camera, self.bg_color)
+        return fateavatar_forward(self.model, params, state, expr, pose, camera,
+                                  bg_color=self.bg_color, render_cfg=self.render_cfg)
+
+    def _fateavatar_visualization(self, params, state, expr, pose, camera) -> dict:
+        return fateavatar_visualization(self.model, params, state, expr, pose, camera,
+                                        render_cfg=self.render_cfg)
+
+    def _alive(self) -> Optional[int]:
+        """Alive splats of the model state (None for a family without an
+        alive mask)."""
+        alive = getattr(self.ts.state, "alive", None)
+        return None if alive is None else int(torch.sum(alive))
 
     # ------------------------------------------------------------------
     # frames
@@ -264,8 +304,7 @@ class Trainer:
         cfg = self.model.cfg
         camera = make_camera(R, cam_t, fovx, fovy, cfg.img_width, cfg.img_height,
                              device=self.device)
-        out = fateavatar_forward(self.model, params, mstate, expr, pose, camera,
-                                 bg_color=self.bg_color, render_cfg=self.render_cfg)
+        out = self._forward(params, mstate, expr, pose, camera)
         return self.loss_fn(out, {"rgb": rgb})["loss"]
 
     def _build_tracking_step(self, batched: bool = False):
@@ -284,7 +323,11 @@ class Trainer:
         ones, is dropped; its stacked frames stay, and the next scan epoch
         captures anew. The tracking steps need no rebuild: their loss reads
         ``self.render_cfg`` at each call, where the JAX package's jitted
-        steps close over the old value."""
+        steps close over the old value. A family adapter's step closes over
+        its render settings: this raises for one, as the JAX package does."""
+        if self.adapter is not None:
+            raise NotImplementedError(
+                "set_render_cfg supports the built-in FateAvatar path only")
         self.render_cfg = render_cfg
         self.train_step = make_train_step(self.model, self.loss_fn, self.optimizer,
                                           self.maint_cfg, render_cfg)
@@ -329,6 +372,8 @@ class Trainer:
         for _ in range(self.epoch + 1, max_epochs + 1):
             self.epoch += 1
             self.train_epoch()
+            if self.adapter is not None and self.adapter.epoch_hook is not None:
+                self.adapter.epoch_hook(self, self.epoch)
             self.save_checkpoint()
 
     def train_epoch(self):
@@ -403,7 +448,7 @@ class Trainer:
         n = len(ds)
         if t_steady is not None and n > 3:
             self._per_step_its = (n - 3) / max(time.perf_counter() - t_steady, 1e-9)
-        alive = int(torch.sum(self.ts.state.alive))
+        alive = self._alive()
         self.last_epoch_stats = {
             "epoch": self.epoch, "mode": "per-step", "its": n / max(dt, 1e-9),
             "loss": meters["loss"].measure(), "psnr": meters["psnr"].measure(),
@@ -422,10 +467,12 @@ class Trainer:
         tracking: and its row refinement) replayed over device-resident
         frames, the counterpart of the JAX package's one ``lax.scan`` program
         per epoch. Eligible once the device frame cache holds every training
-        frame (the JAX package's other conditions, no data parallel and no
-        family adapter, hold: neither is ported). The frames are stacked on
-        the device once and the cache cleared, so one copy of the dataset is
-        held. Returns None while not eligible."""
+        frame, on the built-in FateAvatar path (data parallel is not
+        ported). The frames are stacked on the device once and the cache
+        cleared, so one copy of the dataset is held. Returns None while not
+        eligible."""
+        if self.adapter is not None:
+            return None
         scan = self._scan_epoch
         if scan is not None and scan.tracking == self.tracking_enabled:
             return scan
@@ -619,10 +666,8 @@ class Trainer:
 
         def forward():
             with torch.no_grad():
-                img.copy_(fateavatar_forward(
-                    self.model, self.ts.params, self.ts.state, frame.expression,
-                    frame.flame_pose, frame.camera, bg_color=self.bg_color,
-                    render_cfg=self.render_cfg)["rgb_image"])
+                img.copy_(self._forward(self.ts.params, self.ts.state, frame.expression,
+                                        frame.flame_pose, frame.camera)["rgb_image"])
 
         graph = Graph(forward, [img], "the fps forward")
         graph()                  # the capture, outside the timing
@@ -664,10 +709,8 @@ class Trainer:
             for i in range(len(ds)):
                 sample = ds.sample(i)
                 frame = self._make_frame(sample, tables, cache=ds is self.train_dataset)
-                img = fateavatar_forward(
-                    self.model, self.ts.params, self.ts.state, frame.expression,
-                    frame.flame_pose, frame.camera, bg_color=self.bg_color,
-                    render_cfg=self.render_cfg)["rgb_image"]
+                img = self._forward(self.ts.params, self.ts.state, frame.expression,
+                                    frame.flame_pose, frame.camera)["rgb_image"]
                 rows.append(metrics_mod.image_metrics(img, as_float_rgb(frame.rgb)))
                 names.append(sample["img_name"])
                 if save_media:
@@ -756,29 +799,40 @@ class Trainer:
     def save_snapshot(self, sample: dict):
         """Seven-panel snapshot (train/trainer.py:474-538): pred / gt /
         FLAME-mesh overlay / L1 heat / canonical / gradient heat / sampled
-        points (the mesh overlay replaces the nvdiffrast panel)."""
+        points (the mesh overlay replaces the nvdiffrast panel). A family
+        without a visualization (an adapter's ``visualize`` None) gets the
+        pred / gt / L1 heat panel of its forward."""
         frame = self._make_frame(sample, self.train_tables)
-        with torch.no_grad():
-            vis = fateavatar_visualization(
-                self.model, self.ts.params, self.ts.state, frame.expression,
-                frame.flame_pose, frame.camera, render_cfg=self.render_cfg)
-            mesh_panel = overlay_mesh(self._rgb_f32(frame.rgb), vis["verts"][0],
-                                      self.model.faces, frame.camera).cpu().numpy()
-        pred = vis["rgb_image"].cpu().numpy()
         gt = self._rgb_f32(frame.rgb)
+        with torch.no_grad():
+            if self._visualize is None:
+                vis = self._forward(self.ts.params, self.ts.state, frame.expression,
+                                    frame.flame_pose, frame.camera)
+            else:
+                vis = self._visualize(self.ts.params, self.ts.state, frame.expression,
+                                      frame.flame_pose, frame.camera)
+                mesh_panel = overlay_mesh(gt, vis["verts"][0], self.model.faces,
+                                          frame.camera).cpu().numpy()
+        pred = vis["rgb_image"].cpu().numpy()
         l1 = np.abs(pred - gt).mean(-1, keepdims=True)
         heat = np.concatenate([l1, np.zeros_like(l1), 1.0 - l1], axis=-1)
-        save_image_grid(
-            os.path.join(self.media_dirs["snapshots"], f"step{self.global_step:08d}.png"),
-            [pred, gt, mesh_panel, heat, vis["cano_image"].cpu().numpy(),
-             vis["grad_image"].cpu().numpy(), vis["point_image"].cpu().numpy()],
-            cols=4)
+        path = os.path.join(self.media_dirs["snapshots"], f"step{self.global_step:08d}.png")
+        if self._visualize is None:
+            save_image_grid(path, [pred, gt, heat], cols=3)
+            return
+        save_image_grid(path, [pred, gt, mesh_panel, heat, vis["cano_image"].cpu().numpy(),
+                               vis["grad_image"].cpu().numpy(),
+                               vis["point_image"].cpu().numpy()], cols=4)
 
     def checkpoint_tree(self) -> dict:
+        """The train state (FateAvatar's ``TrainState`` or a family's
+        ``BaselineTrainState``: params, model state, Adam moments and count,
+        step, the draws' generator), epoch and step counters and the tracking
+        tables with their RowAdam state."""
         ts = self.ts
         tree = {
             "params": _fields(ts.params),
-            "state": _fields(ts.state),
+            "state": None if ts.state is None else _fields(ts.state),
             "opt_state": {"mu": _fields(ts.opt_state.mu), "nu": _fields(ts.opt_state.nu),
                           "count": ts.opt_state.count},
             "step": ts.step,
@@ -806,9 +860,9 @@ class Trainer:
         # replace() rejects a field the containers do not have
         gen = torch.Generator(device=self.device)
         gen.set_state(tree["generator"].cpu())
-        self.ts = TrainState(
+        self.ts = type(ts)(
             params=dataclasses.replace(ts.params, **tree["params"]),
-            state=dataclasses.replace(ts.state, **tree["state"]),
+            state=None if ts.state is None else dataclasses.replace(ts.state, **tree["state"]),
             opt_state=MultiAdamState(
                 mu=dataclasses.replace(ts.opt_state.mu, **tree["opt_state"]["mu"]),
                 nu=dataclasses.replace(ts.opt_state.nu, **tree["opt_state"]["nu"]),

@@ -1,7 +1,8 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
 blend's and the dense-list blend's forward and backward) against its plain
-PyTorch version on the card; and the CUDA graphs (the Trainer's scan epoch
-and the served frame) against eager steps and frames. They skip on a host
+PyTorch version on the card; the CUDA graphs (the Trainer's scan epoch and
+the served frame) against eager steps and frames; and each baseline
+family's step through the kernels against the plain blends. They skip on a host
 without CUDA. They import nothing of JAX, so on a machine with a card and
 no JAX they run as
 
@@ -634,6 +635,95 @@ def test_editor_frame_against_the_unedited_avatar():
     assert ys.numel() and int(ys.min()) >= 192 and int(ys.max()) < 320
     assert int(xs.min()) >= 192 and int(xs.max()) < 320
     assert float((editor.render(expr, pose, cam) - base).abs().max()) > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["gaussianavatars", "flashavatar", "splattingavatar",
+                                    "monogaussianavatar"])
+def test_baseline_step_kernels_match_plain(family):
+    """One baseline step's gradient phase (forward, loss, backward) through
+    kernels 1 and 2 against the same phase through the plain instance
+    blend, on a small model of each family: one forward and one backward
+    launch; the losses within 1e-5 relative; every gradient tensor (the
+    networks' weights and GA's probe included) within 1e-2 relative L2 and
+    5e-2 of its largest element, the bound of chip_smoke.py's step
+    comparisons; NaN at the same elements (SplattingAvatar's dead rows)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from fateavatar_tpu_torch.flame.loader import synthetic_flame
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.render import render as render_mod
+    from fateavatar_tpu_torch.render.render import RenderConfig
+    from fateavatar_tpu_torch.train import registry
+    from fateavatar_tpu_torch.train.adapters import make_family_adapter
+    from fateavatar_tpu_torch.train.step import Frame
+    from fateavatar_tpu_torch.utils.obj_io import sphere_obj_mesh
+
+    dev, res = "cuda", 64
+    flame = synthetic_flame(n_verts=96, n_shape=6, n_exp=4, seed=0, device=dev)
+    cfg = dict(img_height=res, img_width=res, tex_size=16, capacity=1024, num_samples=512,
+               n_init_points=256, max_points=1024, sh_degree=1, cam_scale=1.0,
+               dataset_type="synthetic")
+    entry = registry.get(family)
+    bundle = entry.build_model(sphere_obj_mesh(96), flame, cfg)
+    loss_fn = entry.build_loss({}, bundle)
+    opt = entry.build_optimizer({})
+    rcfg = RenderConfig(max_tiles_per_gaussian=16)
+    adapter = make_family_adapter(family, bundle, loss_fn, opt, rcfg, {})
+    ts = adapter.init_ts(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # anisotropic splats: an isotropic one's loss does not depend on its
+    # rotation, whose gradient is then float32 noise on both paths
+    if family != "monogaussianavatar":
+        ts.params = dataclasses.replace(ts.params, **{k: getattr(ts.params, k) + sc * torch.randn(
+            getattr(ts.params, k).shape, generator=gen, device=dev)
+            for k, sc in (("features_dc", 0.8), ("opacity", 1.0), ("scaling", 0.3),
+                          ("rotation", 0.2))})
+    frame = Frame(expression=torch.randn(4, generator=gen, device=dev) * 0.2,
+                  flame_pose=torch.randn(15, generator=gen, device=dev) * 0.03,
+                  camera=make_camera(torch.eye(3, device=dev), torch.tensor([0.0, 0.0, 0.4],
+                                     device=dev), 0.8, 0.8, res, res, device=dev),
+                  rgb=torch.rand((res, res, 3), generator=gen, device=dev),
+                  bg_color=torch.ones(3, device=dev))
+    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+    gk = adapter.step.grads(ts, frame)
+    torch.cuda.synchronize()
+    assert tblend.blend_instances.launches == f0 + 1
+    assert tblend.blend_instances_bwd.launches == b0 + 1
+    assert int(gk[2]["overflow"]) == 0
+    orig = render_mod.blend_instances
+    render_mod.blend_instances = tblend.blend_instances_plain
+    try:
+        gp = adapter.step.grads(ts, frame)
+    finally:
+        render_mod.blend_instances = orig
+    assert abs(float(gk[3]["loss"]) - float(gp[3]["loss"])) <= 1e-5 * float(gp[3]["loss"])
+
+    def flat(g, probe):
+        out = {}
+        for f in dataclasses.fields(g):
+            v = getattr(g, f.name)
+            out.update({f"{f.name}.{k}": x for k, x in v.items()} if isinstance(v, dict)
+                       else {f.name: v})
+        if probe is not None:
+            out["probe"] = probe
+        return out
+
+    a, b = flat(gk[0], gk[1]), flat(gp[0], gp[1])
+    moved = 0
+    for k in b:
+        assert torch.equal(torch.isnan(a[k]), torch.isnan(b[k])), k
+        ok = ~torch.isnan(b[k])
+        x, y = a[k][ok], b[k][ok]
+        if y.numel() == 0 or float(y.abs().max()) == 0.0:
+            assert x.numel() == 0 or float(x.abs().max()) == 0.0, k
+            continue
+        moved += 1
+        assert float((x - y).norm() / y.norm()) <= 1e-2, k
+        assert float((x - y).abs().max() / y.abs().max()) <= 5e-2, k
+    assert moved >= 4
 
 
 @pytest.mark.cuda

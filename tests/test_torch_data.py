@@ -250,8 +250,9 @@ def test_insta_reader_matches_jax(tmp_path):
 
 def test_construct_dataset_and_datasets(tmp_path):
     """Type inference from the path, the config's subsample and cache
-    (cli/common.construct_datasets), the FlashAvatar inputs refused, and
-    load_mask on a layout's frame against the JAX package's."""
+    (cli/common.construct_datasets), the FlashAvatar inputs (each frame's
+    mouth mask, matted/ -> parsing/, _mouth.png) as the JAX package reads
+    them, and load_mask on a layout's frame against the JAX package's."""
     rng = np.random.default_rng(7)
     root = str(tmp_path / "IMAvatar" / "subj")
     _imavatar_layout(root, rng, "train", 4)
@@ -272,8 +273,19 @@ def test_construct_dataset_and_datasets(tmp_path):
     assert [r.img_name for r in train.records] == ["0", "2"]
     train.sample(1)
     assert train._cache == {}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tdatasets.IMAvatarDataset(root, "train", (RES, RES), is_flashavatar=True)
+    for i, r in enumerate(train.records):
+        mouth = os.path.dirname(r.image_path).replace("matted", "parsing")
+        os.makedirs(mouth, exist_ok=True)
+        _pil_save(os.path.join(mouth, f"{r.img_name}_mouth.png"),
+                  (rng.random((RES + 4, RES, 3)) * 255).astype(np.uint8))
+    jf = jdatasets.IMAvatarDataset(root, "train", (RES, RES), is_flashavatar=True,
+                                   subsample=2)
+    tf = tdatasets.IMAvatarDataset(root, "train", (RES, RES), is_flashavatar=True,
+                                   subsample=2)
+    for i in range(len(tf)):
+        got = tf.sample(i)["ground_truth"]["mouth_mask"]
+        assert got.shape == (RES, RES, 1)
+        np.testing.assert_array_equal(got, jf.sample(i)["ground_truth"]["mouth_mask"])
     # load_mask is ported (the completion slice): PIL's grey and bicubic,
     # bit-equal with the JAX package's reader
     path = train.records[0].image_path
