@@ -24,6 +24,7 @@ from fateavatar_tpu_torch.train.losses import (
     FateAvatarLossConfig,
     load_vgg16_from_torch,
 )
+from fateavatar_tpu_torch.train.lpips import load_lpips_from_torch
 from fateavatar_tpu_torch.train.step import MaintenanceConfig
 from fateavatar_tpu_torch.utils.config import Config
 from fateavatar_tpu_torch.utils.obj_io import ObjMesh, load_obj
@@ -95,10 +96,12 @@ def construct_model(cfg: Config, flame, template: Optional[ObjMesh] = None,
                            seed=cfg.seed, device=device)
 
 
-def construct_loss(cfg: Config, device="cuda") -> FateAvatarLoss:
-    """The FateAvatar loss of the config. A VGG weight > 0 needs
-    ``assets.vgg16_weights_path``: without it this raises, as the JAX
-    package does."""
+def construct_loss(cfg: Config, faces=None, device="cuda") -> FateAvatarLoss:
+    """The FateAvatar loss of the config (common.py:92-131). A VGG weight > 0
+    needs ``assets.vgg16_weights_path`` and an LPIPS weight > 0
+    ``assets.lpips_weights_path`` (loaded with the vgg backbone): without
+    them this raises, as the JAX package does. ``faces`` (the model's) feed
+    the normal-consistency term's adjacency."""
     vgg_params = None
     if cfg.loss.vgg_weight > 0:
         if cfg.assets.vgg16_weights_path is None:
@@ -107,7 +110,18 @@ def construct_loss(cfg: Config, device="cuda") -> FateAvatarLoss:
                 "(a torchvision vgg16 state_dict). Set loss.vgg_weight=0 "
                 "to train without the perceptual term.")
         vgg_params = load_vgg16_from_torch(cfg.assets.vgg16_weights_path, device)
-    return FateAvatarLoss(loss_config(cfg), vgg_params=vgg_params)
+    lpips_params = None
+    if cfg.loss.lpips_weight > 0:
+        if cfg.assets.lpips_weights_path is None:
+            raise ValueError(
+                "loss.lpips_weight > 0 needs assets.lpips_weights_path "
+                "(an exported lpips.LPIPS state_dict or converted .npz; "
+                "the reference uses the vgg backbone for the loss term, "
+                "train/loss.py:91). Set loss.lpips_weight=0 to disable.")
+        lpips_params = load_lpips_from_torch(cfg.assets.lpips_weights_path,
+                                             backbone="vgg", device=device)
+    return FateAvatarLoss(loss_config(cfg), faces=faces, vgg_params=vgg_params,
+                          lpips_params=lpips_params)
 
 
 def loss_config(cfg: Config) -> FateAvatarLossConfig:

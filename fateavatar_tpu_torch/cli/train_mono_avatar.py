@@ -44,7 +44,7 @@ def main(argv=None):
     train_ds, test_ds = common.construct_datasets(cfg)
     flame = common.construct_flame(cfg, train_ds, device=dev)
     model, params, state = common.construct_model(cfg, flame, device=dev)
-    loss_fn = common.construct_loss(cfg, device=dev)
+    loss_fn = common.construct_loss(cfg, faces=model.faces, device=dev)
     optimizer = fateavatar_optimizers(config_to_dict(cfg.training))
 
     common.save_identity_info(cfg.workspace, train_ds, cfg)

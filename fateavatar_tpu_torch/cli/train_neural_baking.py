@@ -55,7 +55,7 @@ def main(argv=None):
         decode_type=args.decode_type,
         bake_attribute=tuple(args.bake_attribute),
     )
-    loss_fn = common.construct_loss(cfg, device=dev)
+    loss_fn = common.construct_loss(cfg, faces=model.faces, device=dev)
     baker = UVBaker(
         dec_model, net, const, loss_fn, train_ds,
         workspace=args.workspace,

@@ -4,7 +4,8 @@ Each function takes a dict of numpy arrays keyed by the field names of the
 JAX package's dataclass (``FlameModel``, ``FateAvatarModel``,
 ``FateAvatarParams``, ``FateAvatarState``, ``MultiAdamState``,
 ``TrainState``, ``UVDecoderModel``, the baselines' models, params and
-states, ``BaselineTrainState``) and returns the port's object on
+states, ``BaselineTrainState``; ``LpipsParams`` by its attributes) and
+returns the port's object on
 ``device``. Index fields become int64, masks bool, the Adam step count
 int32, the rest float32. Fields the port does not carry yet (FLAME's
 landmark embedding) are ignored. Flax variables (``{"params",
@@ -33,6 +34,7 @@ from fateavatar_tpu_torch.models.fateavatar import (
     FateAvatarState,
 )
 from fateavatar_tpu_torch.models.uv_decoder import UVDecoderModel
+from fateavatar_tpu_torch.train.lpips import LpipsParams, lpips_params_from_arrays
 from fateavatar_tpu_torch.train.optim import MultiAdamState
 from fateavatar_tpu_torch.train.baseline_steps import BaselineTrainState
 from fateavatar_tpu_torch.train.step import TrainState
@@ -97,6 +99,14 @@ def vgg_params(layers, device="cuda") -> list:
     return [(torch.as_tensor(np.asarray(w), dtype=torch.float32, device=device),
              torch.as_tensor(np.asarray(b), dtype=torch.float32, device=device))
             for w, b in layers]
+
+
+def lpips_params_from_jax(params, device="cuda") -> LpipsParams:
+    """The JAX package's ``LpipsParams`` (``backbone``, ``convs`` [(w, b)],
+    ``lins``; arrays of any kind numpy reads) as the port's."""
+    return lpips_params_from_arrays(
+        str(params.backbone), [(np.asarray(w), np.asarray(b)) for w, b in params.convs],
+        [np.asarray(lin) for lin in params.lins], device)
 
 
 def train_state(d: dict, device="cuda", seed: int = 0) -> TrainState:

@@ -192,20 +192,26 @@ def init_fateavatar(
 def bind_splats(model: FateAvatarModel, expression: torch.Tensor, flame_pose: torch.Tensor,
                 face_index: torch.Tensor, bary_coords: torch.Tensor,
                 delta_shapedirs: torch.Tensor, delta_posedirs: torch.Tensor,
-                delta_vertex: torch.Tensor):
+                delta_vertex: torch.Tensor, world_transform: Optional[torch.Tensor] = None):
     """FLAME LBS (with the personalization deltas the config enables) and
     each splat's face frame: verts -> per-face frame/scale/normal -> one row
-    gather per splat -> barycentric position. Returns (pos [N, 3], face
+    gather per splat -> barycentric position. ``world_transform`` [7]
+    (euler xyz, translation, scale) applies the NeRSemble tracking's
+    model-to-world similarity to the posed vertices of both FLAME passes
+    (benchmark/nersemble/fateavatar.py:206-230). Returns (pos [N, 3], face
     quaternion [N, 4], face normal [N, 3], face scale ratio [N, 1], verts,
     verts_orig)."""
     cfg = model.cfg
+    wt = None if world_transform is None else world_transform[None]
     verts, _, _ = flame_forward(
         model.flame, expression[None], flame_pose[None],
         delta_shapedirs=delta_shapedirs if cfg.delta_blendshape else None,
         delta_posedirs=delta_posedirs if cfg.delta_blendshape else None,
         delta_vertex=delta_vertex if cfg.delta_vertex else None,
+        world_transform=wt,
     )
-    verts_orig, _, _ = flame_forward(model.flame, expression[None], flame_pose[None])
+    verts_orig, _, _ = flame_forward(model.flame, expression[None], flame_pose[None],
+                                     world_transform=wt)
     v = verts[0]
 
     face_orien, face_scaling = compute_face_orientation(v, model.faces, return_scale=True)
@@ -232,15 +238,18 @@ def build_gaussians(
     state: FateAvatarState,
     expression: torch.Tensor,   # [n_exp]
     flame_pose: torch.Tensor,   # [15]
+    world_transform: Optional[torch.Tensor] = None,   # [7] model-to-world
 ):
     """FLAME-drive the splats (FateAvatar.forward, fateavatar.py:210-258):
-    :func:`bind_splats`, then the shell offset along the face normal,
-    quaternion compose, and the log-scale shift by the face scale ratio.
-    Returns (gaussians, verts, verts_orig)."""
+    :func:`bind_splats` (with the optional model-to-world transform), then
+    the shell offset along the face normal, quaternion compose, and the
+    log-scale shift by the face scale ratio. Returns (gaussians, verts,
+    verts_orig)."""
     cfg = model.cfg
     pos, g_quat, g_normal, g_ratio, verts, verts_orig = bind_splats(
         model, expression, flame_pose, state.face_index, state.bary_coords,
-        params.delta_shapedirs, params.delta_posedirs, params.delta_vertex)
+        params.delta_shapedirs, params.delta_posedirs, params.delta_vertex,
+        world_transform=world_transform)
 
     xyz = pos + g_normal * cfg.normal_offset * torch.tanh(params.offset)
     rot = quat_multiply(g_quat, params.rotation)
@@ -271,14 +280,16 @@ def fateavatar_forward(
     bg_color: Optional[torch.Tensor] = None,
     render_cfg: RenderConfig = RenderConfig(),
     means2d_probe: Optional[torch.Tensor] = None,
+    world_transform: Optional[torch.Tensor] = None,
 ):
     """One frame forward (fateavatar.py:196-295). Returns the output dict:
     rgb_image [H,W,3], scale, raw_rot, viewspace_points, visibility_filter,
     radii, overflow, verts, verts_orig, faces, alive. ``means2d_probe`` is
-    passed to :func:`render` (the densification signal of training)."""
+    passed to :func:`render` (the densification signal of training);
+    ``world_transform`` [7] to :func:`build_gaussians`."""
     bg = model.bg_color if bg_color is None else bg_color
     gaussians, verts, verts_orig = build_gaussians(
-        model, params, state, expression, flame_pose)
+        model, params, state, expression, flame_pose, world_transform=world_transform)
     out = render(camera, gaussians, bg, config=render_cfg,
                  means2d_probe=means2d_probe)
     return {

@@ -6,9 +6,19 @@ matrices stored in plain math convention (column vectors, ``M @ p``).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
+
+
+def fov2focal(fov: float, pixels: float) -> float:
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2.0 * math.atan(pixels / (2.0 * focal))
 
 
 def world_to_view(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
@@ -21,8 +31,13 @@ def world_to_view(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 
 def projection_matrix(znear: float, zfar: float, fovx: torch.Tensor,
-                      fovy: torch.Tensor) -> torch.Tensor:
-    """OpenGL-style symmetric-frustum projection (graphics_utils.py:64-86)."""
+                      fovy: torch.Tensor, shift: Optional[tuple] = None) -> torch.Tensor:
+    """OpenGL-style frustum projection (graphics_utils.py:64-118).
+
+    ``shift``, when given, is ``(focal_x, focal_y, cx, cy, width, height)``
+    for a non-centred principal point (getProjectionMatrixShift): the
+    focals and the principal point are tensors on the device (a graph
+    captures the projection, so none of them is read to the host)."""
     tan_half_fovy = torch.tan(fovy / 2.0)
     tan_half_fovx = torch.tan(fovx / 2.0)
 
@@ -30,6 +45,15 @@ def projection_matrix(znear: float, zfar: float, fovx: torch.Tensor,
     bottom = -top
     right = tan_half_fovx * znear
     left = -right
+
+    if shift is not None:
+        focal_x, focal_y, cx, cy, width, height = shift
+        off_x = (cx - width / 2.0) / focal_x * znear
+        off_y = (cy - height / 2.0) / focal_y * znear
+        top = top + off_y
+        bottom = bottom + off_y
+        left = left + off_x
+        right = right + off_x
 
     P = torch.zeros((4, 4), dtype=torch.float32, device=fovx.device)
     P[0, 0] = 2.0 * znear / (right - left)
@@ -88,18 +112,26 @@ def make_camera(
     fovy,
     width: int,
     height: int,
+    intrinsics=None,
     znear: float = 0.01,
     zfar: float = 100.0,
     device="cuda",
 ) -> Camera:
     """Build a :class:`Camera` the way volume_rendering/camera_3dgs.py:22-72
-    does. ``R``/``T``/``fov*`` may be numpy arrays, floats or tensors."""
+    does. ``R``/``T``/``fov*`` may be numpy arrays, floats or tensors.
+    ``intrinsics`` (a 3x3 K, numpy or tensor) gives the principal-point-shift
+    projection of the NeRSemble benchmark (benchmark/nersemble/
+    fateavatar.py:182)."""
     R = torch.as_tensor(R, dtype=torch.float32, device=device)
     T = torch.as_tensor(T, dtype=torch.float32, device=device)
     fovx = torch.as_tensor(fovx, dtype=torch.float32, device=device)
     fovy = torch.as_tensor(fovy, dtype=torch.float32, device=device)
     view = world_to_view(R, T)
-    proj = projection_matrix(znear, zfar, fovx, fovy)
+    shift = None
+    if intrinsics is not None:
+        K = torch.as_tensor(intrinsics, dtype=torch.float32, device=device)
+        shift = (K[0, 0], K[1, 1], K[0, 2], K[1, 2], width, height)
+    proj = projection_matrix(znear, zfar, fovx, fovy, shift)
     # camera centre = inverse(view)[:3, 3] = -R_view^T t_view (rigid)
     campos = -view[:3, :3].T @ view[:3, 3]
     return Camera(

@@ -2,12 +2,14 @@
 ``build_gaussians`` and the baselines.
 
 Port of the corresponding part of ``fateavatar_tpu/ops/mesh.py``: face
-frames and normals, vertex normals, face areas, barycentric reweighting and
-``laplacian_smoothing`` (the regularizer of training).
+frames and normals, vertex normals, face areas, barycentric reweighting,
+``laplacian_smoothing`` and ``mesh_normal_consistency`` (the regularizers
+of training) with its host-side ``build_face_adjacency``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _EPS = 1e-20
@@ -124,3 +126,35 @@ def laplacian_smoothing(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tenso
         verts.dim() - 2, src, verts.index_select(verts.dim() - 2, dst))
     inv_deg = torch.where(deg > 0, 1.0 / torch.clamp_min(deg, 1.0), 0.0)
     return nbr_sum * inv_deg[:, None] - verts
+
+
+def mesh_normal_consistency(verts: torch.Tensor, faces: torch.Tensor,
+                            face_adjacency: torch.Tensor) -> torch.Tensor:
+    """Mean (1 - cos) between the unit normals of face pairs sharing an edge
+    (pytorch3d ``mesh_normal_consistency``, train/loss.py:187).
+    ``face_adjacency`` [E, 2] holds the pairs, built once on the host by
+    :func:`build_face_adjacency`."""
+    n = safe_normalize(compute_face_normals(verts, faces))
+    n0 = n.index_select(-2, face_adjacency[:, 0])
+    n1 = n.index_select(-2, face_adjacency[:, 1])
+    return torch.mean(1.0 - torch.sum(n0 * n1, dim=-1))
+
+
+def build_face_adjacency(faces) -> np.ndarray:
+    """Face pairs sharing an edge, [E, 2] int64 on the host, in the JAX
+    package's order: for each face in turn, each edge (a, b), (b, c), (c, a)
+    already seen pairs the face that saw it first with this one. A mesh with
+    no shared edge gives [(0, 0)]."""
+    faces = np.asarray(faces)
+    edge_map = {}
+    pairs = []
+    for fi, (a, b, c) in enumerate(faces.tolist()):
+        for e in ((a, b), (b, c), (c, a)):
+            key = (min(e), max(e))
+            if key in edge_map:
+                pairs.append((edge_map[key], fi))
+            else:
+                edge_map[key] = fi
+    if not pairs:
+        pairs = [(0, 0)]
+    return np.asarray(pairs, dtype=np.int64)

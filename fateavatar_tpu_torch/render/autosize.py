@@ -63,14 +63,15 @@ def autosize_render_config(model, params, state, frames, base_cfg,
     """``base_cfg`` with measured ``instance_budget`` and
     ``max_tiles_per_gaussian`` (and ``tail_k`` for 'twotier'), from the
     occupancy of up to ``probe_views`` of ``frames`` (train/step.py Frames:
-    expression, flame_pose, camera)."""
+    expression, flame_pose, camera and an optional world_transform)."""
     from fateavatar_tpu_torch.models.fateavatar import build_gaussians
 
     if not isinstance(frames, (list, tuple)):
         frames = [frames]
     total = max_t = n_big = 0
     for f in frames[:probe_views]:
-        g, _, _ = build_gaussians(model, params, state, f.expression, f.flame_pose)
+        g, _, _ = build_gaussians(model, params, state, f.expression, f.flame_pose,
+                                  world_transform=getattr(f, "world_transform", None))
         prep = preprocess(f.camera, g.xyz, g.get_scaling, g.get_rotation,
                           g.get_opacity, g.get_features, g.sh_degree, alive=g.alive)
         grid = binning.tile_grid(f.camera.width, f.camera.height)

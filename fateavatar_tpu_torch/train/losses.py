@@ -4,11 +4,11 @@ train/loss.py:203-517).
 
 Images are [H, W, 3] (or [B, H, W, 3]) float32 in [0, 1], the JAX package's
 layout. Every term is a plain function of tensors; :class:`FateAvatarLoss`
-and the baselines' loss classes compose them from a weights config. The VGG16 perceptual loss runs its
-convolutions through ``torch.nn.functional.conv2d`` (the JAX package leaves
-them to XLA, outside any Pallas kernel); its weights are random from a
-``torch.Generator`` or loaded from a torchvision state dict / converted
-``.npz``.
+and the baselines' loss classes compose them from a weights config. The VGG16 perceptual loss and
+LPIPS (``train/lpips.py``) run their convolutions through
+``torch.nn.functional.conv2d`` (the JAX package leaves them to XLA, outside
+any Pallas kernel); their weights are random from a ``torch.Generator`` or
+loaded from torch state dicts / converted ``.npz`` files.
 """
 
 from __future__ import annotations
@@ -21,7 +21,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fateavatar_tpu_torch.ops.mesh import laplacian_smoothing
+from fateavatar_tpu_torch.ops.mesh import (
+    build_face_adjacency,
+    laplacian_smoothing,
+    mesh_normal_consistency,
+)
+from fateavatar_tpu_torch.train.lpips import lpips_distance
 
 # ---------------------------------------------------------------------------
 # image terms
@@ -281,21 +286,32 @@ class FateAvatarLossConfig:
 
 
 class FateAvatarLoss:
-    """Composable loss (train/loss.py:69-199). Construct once, then call on
-    the forward's output dict and ``{"rgb": gt}``. ``vgg_params``: VGG16
-    weights or None (term disabled). The LPIPS and normal-consistency terms
-    are not ported (the flagship config weights them 0) and raise."""
+    """Composable loss (train/loss.py:69-199). Construct once (the face
+    adjacency of the normal term is built here, on the host, from
+    ``faces``), then call on the forward's output dict and ``{"rgb": gt}``.
+    ``vgg_params``: VGG16 weights or None (term disabled); ``lpips_params``:
+    LPIPS weights (the reference's loss term uses the vgg backbone,
+    train/loss.py:91), needed when ``lpips_weight > 0``."""
 
-    def __init__(self, cfg: FateAvatarLossConfig, vgg_params=None):
+    def __init__(self, cfg: FateAvatarLossConfig, faces=None, vgg_params=None,
+                 lpips_params=None):
         self.cfg = cfg
         self.vgg_params = vgg_params
+        self.lpips_params = lpips_params
+        self.face_adjacency = None
+        if cfg.normal_weight > 0 and faces is not None:
+            if isinstance(faces, torch.Tensor):
+                faces = faces.cpu().numpy()
+            self.face_adjacency = torch.from_numpy(build_face_adjacency(faces))
         if cfg.vgg_weight > 0 and vgg_params is None:
             raise ValueError(
                 "vgg_weight > 0 requires vgg_params "
                 "(losses.load_vgg16_from_torch or vgg16_random_params)")
-        for name in ("lpips_weight", "normal_weight"):
-            if getattr(cfg, name) > 0:
-                raise NotImplementedError(f"loss term {name} > 0 is not ported")
+        if cfg.lpips_weight > 0 and lpips_params is None:
+            raise ValueError(
+                "lpips_weight > 0 requires lpips_params "
+                "(lpips.load_lpips_from_torch; the reference uses the vgg "
+                "backbone for the loss term, train/loss.py:91)")
         self._vgg_dtype = (None if cfg.vgg_dtype in (None, "float32")
                            else getattr(torch, cfg.vgg_dtype))
 
@@ -316,6 +332,10 @@ class FateAvatarLoss:
             v = d_ssim(pred, gt)
             out["dssim_loss"] = v
             loss = loss + v * cfg.dssim_weight
+        if cfg.lpips_weight > 0:
+            v = lpips_distance(self.lpips_params, pred, gt, normalize=True)
+            out["lpips_loss"] = v
+            loss = loss + v * cfg.lpips_weight
         if cfg.scale_weight > 0:
             v = scale_anisotropy_loss(model_out["scale"], model_out["alive"],
                                       cfg.scale_threshold)
@@ -330,6 +350,15 @@ class FateAvatarLoss:
                                      model_out["faces"])
             out["laplacian_loss"] = v
             loss = loss + v * cfg.laplacian_weight
+        if cfg.normal_weight > 0:
+            verts = model_out["verts"][0]
+            if self.face_adjacency.device != verts.device:
+                # moved once, at the first (eager) call: a copy from the
+                # host on every call could not be captured in a CUDA graph
+                self.face_adjacency = self.face_adjacency.to(verts.device)
+            v = mesh_normal_consistency(verts, model_out["faces"], self.face_adjacency)
+            out["normal_loss"] = v
+            loss = loss + v * cfg.normal_weight
         if cfg.flame_weight > 0:
             v = flame_delta_loss(model_out["verts"], model_out["verts_orig"])
             out["flame_loss"] = v

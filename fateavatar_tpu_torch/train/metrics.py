@@ -5,18 +5,21 @@ Meters are host-side running averages. The image meters compute their
 metric from a prediction and a ground truth (:meth:`update`); the Trainer
 computes all four on the device in one :func:`image_metrics` call per frame,
 fetches the values in one batch and records them with
-:meth:`Meter.update_value`. LPIPS needs calibrated network weights, which the
-port cannot load yet: without a weights path its meter is unavailable and
-dropped, as the JAX package drops it.
+:meth:`Meter.update_value`. LPIPS (``train/lpips.py``) needs calibrated
+network weights: without them its meter is unavailable and dropped, as the
+JAX package drops it; with them the Trainer computes it on the device beside
+the other four (:func:`image_metrics`).
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 
 from fateavatar_tpu_torch.train.losses import d_ssim, psnr
+from fateavatar_tpu_torch.train.lpips import load_lpips_from_torch, lpips_distance
 
 IMAGE_METRICS = ("psnr", "ssim", "l1", "l2")
 
@@ -94,21 +97,36 @@ class SSIMMeter(Meter):
 
 
 class LPIPSMeter(Meter):
-    """LPIPS (train/metrics.py:65-74). Without weights it is unavailable
-    and records NaN; a weights path raises, since the LPIPS network is not
-    ported yet."""
+    """LPIPS (train/metrics.py:65-74, net='alex' by default), on ``device``.
+    Weights come from ``weights_path`` (a converted ``.npz``, a full LPIPS
+    state dict, or the official lin-only file plus ``backbone_path``, a
+    torchvision backbone) or as ``params``. Without weights, or when they
+    fail to load (with a warning), the meter is unavailable and records
+    NaN, as the JAX package's does."""
 
-    available = False
-
-    def __init__(self, net: str = "alex", weights_path: Optional[str] = None):
+    def __init__(self, net: str = "alex", weights_path: Optional[str] = None,
+                 backbone_path: Optional[str] = None, params=None, device="cuda"):
         super().__init__("LPIPS")
-        if weights_path is not None:
-            raise NotImplementedError(
-                f"LPIPS weights {weights_path!r}: the LPIPS network is not ported "
-                "yet (ROADMAP Queue 1 item 10)")
+        if params is None and weights_path is not None:
+            try:
+                params = load_lpips_from_torch(weights_path, backbone=net,
+                                               backbone_path=backbone_path, device=device)
+            except Exception as e:  # weights missing or corrupt: stay disabled
+                warnings.warn(f"LPIPS weights failed to load: {e}")
+        self.params = params
+        self.available = params is not None
+
+    def distance(self, preds: torch.Tensor, truths: torch.Tensor) -> torch.Tensor:
+        """The distance as a device scalar (the Trainer batches its fetch)."""
+        return lpips_distance(self.params, preds, truths, normalize=True)
 
     def update(self, preds, truths):
-        self.V_cur = float("nan")
+        if not self.available:
+            self.V_cur = float("nan")
+            return
+        dev = self.params.lins[0].device
+        with torch.no_grad():
+            super().update(self.distance(_t(preds).to(dev), _t(truths).to(dev)))
 
 
 def image_metrics(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
@@ -117,14 +135,14 @@ def image_metrics(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
                         torch.mean(torch.abs(pred - gt)), torch.mean((pred - gt) ** 2)])
 
 
-def default_meters(lpips_weights_path: Optional[str] = None) -> dict:
+def default_meters(lpips_weights_path: Optional[str] = None, device="cuda") -> dict:
     """The evaluation meters, unavailable ones (LPIPS without weights)
-    dropped."""
+    dropped; LPIPS's network on ``device``."""
     meters = {
         "psnr": PSNRMeter(),
         "ssim": SSIMMeter(),
         "l1": L1Meter(),
         "l2": L2Meter(),
-        "lpips": LPIPSMeter(weights_path=lpips_weights_path),
+        "lpips": LPIPSMeter(weights_path=lpips_weights_path, device=device),
     }
     return {k: m for k, m in meters.items() if m.available}

@@ -50,6 +50,9 @@ class Frame:
     camera: Camera
     rgb: torch.Tensor          # [H, W, 3] float32, or uint8 (device cache)
     bg_color: torch.Tensor     # [3]
+    # [7] model-to-world (euler xyz, translation, scale): the NeRSemble
+    # tracking's head pose, applied after posing
+    world_transform: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -103,7 +106,7 @@ def make_train_step(
         out = fateavatar_forward(
             model, params, ts.state, frame.expression, frame.flame_pose,
             frame.camera, bg_color=frame.bg_color, render_cfg=render_cfg,
-            means2d_probe=probe,
+            means2d_probe=probe, world_transform=frame.world_transform,
         )
         losses = loss_fn(out, {"rgb": frame.rgb})
         g = torch.autograd.grad(losses["loss"], [*leaves.values(), probe],

@@ -138,8 +138,6 @@ class Trainer:
                 "ported yet (ROADMAP Queue 1 item 11)")
         if device_frame_cache not in ("on", "off", "auto"):
             raise ValueError(f"device_frame_cache {device_frame_cache!r}: on, off or auto")
-        # fails now, not at the first evaluation, if LPIPS weights are given
-        metrics_mod.default_meters(lpips_weights_path=lpips_weights_path)
         self.name = name
         self.model = model
         self.loss_fn = loss_fn
@@ -148,9 +146,12 @@ class Trainer:
         self.test_dataset = test_dataset
         self.workspace = workspace
         self.device = params_device(params)
+        # the LPIPS network's weights, loaded once for every evaluation (an
+        # unavailable meter, without weights, is dropped from them)
+        self._lpips = metrics_mod.LPIPSMeter(weights_path=lpips_weights_path,
+                                             device=self.device)
         self.bg_color = torch.as_tensor(bg_color, dtype=torch.float32, device=self.device)
         self.snapshot_interval = snapshot_interval
-        self.lpips_weights_path = lpips_weights_path
         # the JAX trainer's scan-epoch unroll; a CUDA graph replays one step
         # per frame whatever it is, so it is only recorded here
         self.scan_unroll = max(1, int(scan_unroll))
@@ -234,13 +235,15 @@ class Trainer:
     def log(self, msg: str):
         self.logger.log(msg)
 
-    def _forward(self, params, state, expr, pose, camera) -> dict:
+    def _forward(self, params, state, expr, pose, camera, world_transform=None) -> dict:
         """The model's forward on the Trainer's background and render
-        settings: the adapter's, or ``fateavatar_forward``."""
+        settings: the adapter's, or ``fateavatar_forward`` (with the frame's
+        model-to-world transform, where it has one)."""
         if self.adapter is not None:
             return self.adapter.forward(params, state, expr, pose, camera, self.bg_color)
         return fateavatar_forward(self.model, params, state, expr, pose, camera,
-                                  bg_color=self.bg_color, render_cfg=self.render_cfg)
+                                  bg_color=self.bg_color, render_cfg=self.render_cfg,
+                                  world_transform=world_transform)
 
     def _fateavatar_visualization(self, params, state, expr, pose, camera) -> dict:
         return fateavatar_visualization(self.model, params, state, expr, pose, camera,
@@ -261,6 +264,8 @@ class Trainer:
         """A dataset sample as a Frame on the device. With ``tables``, the
         frame's expression, pose and camera translation are its tracked rows
         (the camera is then built from the row, so it stays differentiable).
+        A sample's ``intrinsics_K`` gives the principal-point-shift camera and
+        its ``world_transform`` the frame's (the NeRSemble benchmark).
         ``cache`` keys the uint8 ground truth by TRAIN-set index; samples of
         another dataset (evaluation on the test set) pass cache=False."""
         dev = self.device
@@ -275,7 +280,10 @@ class Trainer:
             pose = torch.as_tensor(sample["flame_pose"], dtype=torch.float32, device=dev)
             cam_t = cam_pose[:3, 3]
         camera = make_camera(cam_pose[:3, :3].T, cam_t, sample["fovx"], sample["fovy"],
-                             w, h, device=dev)
+                             w, h, intrinsics=sample.get("intrinsics_K"), device=dev)
+        wt = sample.get("world_transform")
+        if wt is not None:
+            wt = torch.as_tensor(wt, dtype=torch.float32, device=dev)
         rgb = np.asarray(sample["ground_truth"]["rgb"], np.float32)
         if cache and self._frame_cache is not None:
             gt = self._frame_cache.get(idx)
@@ -286,7 +294,7 @@ class Trainer:
         else:
             gt = torch.from_numpy(rgb).to(dev)
         return Frame(expression=expr, flame_pose=pose, camera=camera, rgb=gt,
-                     bg_color=self.bg_color)
+                     bg_color=self.bg_color, world_transform=wt)
 
     @staticmethod
     def _rgb_f32(rgb: torch.Tensor) -> np.ndarray:
@@ -299,19 +307,23 @@ class Trainer:
 
     def _tracking_loss(self, expr, pose, cam_t, const):
         """The frame's full training loss as a function of its tracked rows;
-        ``const`` = (R, fovx, fovy, gt rgb, model state, model params)."""
-        R, fovx, fovy, rgb, mstate, params = const
+        ``const`` = (R, fovx, fovy, gt rgb, model state, model params[, K,
+        world transform]): the last two, the frame's intrinsics and
+        model-to-world transform, may be left out or None."""
+        R, fovx, fovy, rgb, mstate, params, K, wt = (*const, None, None)[:8]
         cfg = self.model.cfg
         camera = make_camera(R, cam_t, fovx, fovy, cfg.img_width, cfg.img_height,
-                             device=self.device)
-        out = self._forward(params, mstate, expr, pose, camera)
+                             intrinsics=K, device=self.device)
+        out = self._forward(params, mstate, expr, pose, camera, wt)
         return self.loss_fn(out, {"rgb": rgb})["loss"]
 
     def _build_tracking_step(self, batched: bool = False):
         if batched:
             def loss_of_frame_b(expr, pose, cam_t, frame_const, shared):
+                # frame_const = (R, fovx, fovy, gt rgb[, K, world transform])
                 params, mstate = shared
-                return self._tracking_loss(expr, pose, cam_t, (*frame_const, mstate, params))
+                return self._tracking_loss(
+                    expr, pose, cam_t, (*frame_const[:4], mstate, params, *frame_const[4:]))
 
             return make_batched_tracking_step(loss_of_frame_b, self.track_opt)
         return make_tracking_step(self._tracking_loss, self.track_opt)
@@ -436,7 +448,8 @@ class Trainer:
             if self.tracking_enabled:
                 cam_pose = np.asarray(sample["cam_pose"], np.float32)
                 const = (cam_pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb,
-                         self.ts.state, self.ts.params)
+                         self.ts.state, self.ts.params, sample.get("intrinsics_K"),
+                         frame.world_transform)
                 self.train_tables, self.train_track_state = self._tracking_step(
                     self.train_tables, self.train_track_state, sample["idx"], const)
             if len(pending) >= FLUSH_EVERY:
@@ -496,16 +509,21 @@ class Trainer:
     def _stack_frames(self, n: int) -> dict:
         """The training frames stacked on the device in epoch order: the
         cached uint8 ground truth ``rgb`` [n, H, W, 3], ``expression``,
-        ``flame_pose``, the camera's ``R`` and ``T``, ``fovx``, ``fovy`` and
-        the frame index ``idx``."""
-        cols = {k: [] for k in ("expression", "flame_pose", "R", "T", "fovx", "fovy")}
+        ``flame_pose``, the camera's ``R`` and ``T``, ``fovx``, ``fovy``, the
+        frame index ``idx``, and where the samples carry them
+        ``intrinsics_K`` [n, 3, 3] and ``world_transform`` [n, 7]."""
+        first = self.train_dataset.sample(0)
+        extra = [k for k in ("intrinsics_K", "world_transform") if k in first]
+        cols = {k: [] for k in ("expression", "flame_pose", "R", "T", "fovx", "fovy",
+                                *extra)}
         idxs, rgb = [], []
         for i in range(n):
             s = self.train_dataset.sample(i)
             cam_pose = np.asarray(s["cam_pose"], np.float32)
             for k, v in (("expression", s["expression"]), ("flame_pose", s["flame_pose"]),
                          ("R", cam_pose[:3, :3].T), ("T", cam_pose[:3, 3]),
-                         ("fovx", s["fovx"]), ("fovy", s["fovy"])):
+                         ("fovx", s["fovx"]), ("fovy", s["fovy"]),
+                         *((k, s[k]) for k in extra)):
                 cols[k].append(np.asarray(v, np.float32))
             idxs.append(s["idx"])
             rgb.append(self._frame_cache[s["idx"]])
@@ -530,10 +548,12 @@ class Trainer:
             expr, pose, cam_t = (at(t, idx) for t in
                                  (tables.expression, tables.flame_pose, tables.cam_t))
         cfg = self.model.cfg
+        K = at(xs["intrinsics_K"]) if "intrinsics_K" in xs else None
+        wt = at(xs["world_transform"]) if "world_transform" in xs else None
         camera = make_camera(at(xs["R"]), cam_t, at(xs["fovx"]), at(xs["fovy"]),
-                             cfg.img_width, cfg.img_height, device=self.device)
+                             cfg.img_width, cfg.img_height, intrinsics=K, device=self.device)
         return Frame(expression=expr, flame_pose=pose, camera=camera, rgb=at(xs["rgb"]),
-                     bg_color=self.bg_color)
+                     bg_color=self.bg_color, world_transform=wt)
 
     def _scan_buffers(self):
         """The static TrainState (a copy of ``self.ts``), the per-step aux
@@ -577,8 +597,9 @@ class Trainer:
             idx = xs["idx"].index_select(0, i)
             rows = [t.index_select(0, idx)[0]
                     for t in (tables.expression, tables.flame_pose, tables.cam_t)]
+            K = xs["intrinsics_K"].index_select(0, i)[0] if "intrinsics_K" in xs else None
             const = (*(xs[k].index_select(0, i)[0] for k in ("R", "fovx", "fovy")),
-                     frame.rgb, ts.state, ts.params)
+                     frame.rgb, ts.state, ts.params, K, frame.world_transform)
             g = row_gradients(self._tracking_loss, *rows, const)
             new_tables, new_state = self.track_opt.update_row(tables, tstate, g, idx)
             for d, src in zip(tracking_tensors(tables, tstate),
@@ -667,7 +688,8 @@ class Trainer:
         def forward():
             with torch.no_grad():
                 img.copy_(self._forward(self.ts.params, self.ts.state, frame.expression,
-                                        frame.flame_pose, frame.camera)["rgb_image"])
+                                        frame.flame_pose, frame.camera,
+                                        frame.world_transform)["rgb_image"])
 
         graph = Graph(forward, [img], "the fps forward")
         graph()                  # the capture, outside the timing
@@ -687,9 +709,10 @@ class Trainer:
 
     def evaluate(self, mode: str = "test", optim_epoch: Optional[int] = None,
                  save_media: bool = True):
-        """PSNR, SSIM, L1 and L2 over the test (or train) set, computed on
-        the device and fetched once. On a tracking dataset the test rows are
-        fitted first (:meth:`optimize_tracking`, ``optim_epoch`` steps). With
+        """PSNR, SSIM, L1 and L2 (and LPIPS, given its weights) over the test
+        (or train) set, computed on the device and fetched once. On a
+        tracking dataset the test rows are fitted first
+        (:meth:`optimize_tracking`, ``optim_epoch`` steps). With
         a workspace: per-frame values to ``media/metrics/<mode>_epoch<n>.json``
         (and a plot where matplotlib is installed), and with ``save_media``
         the prediction | ground truth frames as a video and frame 0 as a
@@ -700,7 +723,11 @@ class Trainer:
         if mode == "test" and self.tracking_enabled:
             self.optimize_tracking(optim_epoch or 50)
 
-        meters = metrics_mod.default_meters(lpips_weights_path=self.lpips_weights_path)
+        meters = metrics_mod.default_meters()
+        keys = list(metrics_mod.IMAGE_METRICS)
+        if self._lpips.available:
+            meters["lpips"] = metrics_mod.LPIPSMeter(params=self._lpips.params)
+            keys.append("lpips")
         tables = None
         if self.tracking_enabled:
             tables = self.test_tables if mode == "test" else self.train_tables
@@ -710,8 +737,13 @@ class Trainer:
                 sample = ds.sample(i)
                 frame = self._make_frame(sample, tables, cache=ds is self.train_dataset)
                 img = self._forward(self.ts.params, self.ts.state, frame.expression,
-                                    frame.flame_pose, frame.camera)["rgb_image"]
-                rows.append(metrics_mod.image_metrics(img, as_float_rgb(frame.rgb)))
+                                    frame.flame_pose, frame.camera,
+                                    frame.world_transform)["rgb_image"]
+                gt = as_float_rgb(frame.rgb)
+                row = metrics_mod.image_metrics(img, gt)
+                if "lpips" in meters:
+                    row = torch.cat([row, meters["lpips"].distance(img, gt)[None]])
+                rows.append(row)
                 names.append(sample["img_name"])
                 if save_media:
                     # the prediction comes to the host as uint8
@@ -721,7 +753,7 @@ class Trainer:
         per_frame = []
         for name, vals in zip(names, torch.stack(rows).cpu().numpy()):
             row = {"frame": name}
-            for k, v in zip(metrics_mod.IMAGE_METRICS, vals):
+            for k, v in zip(keys, vals):
                 meters[k].update_value(v)
                 row[k] = meters[k].V_cur
             per_frame.append(row)
@@ -781,10 +813,14 @@ class Trainer:
             consts = []
             for i in idxs:
                 s = ds.sample(i)
+                wt = s.get("world_transform")
                 consts.append((np.asarray(s["cam_pose"], np.float32)[:3, :3].T,
                                s["fovx"], s["fovy"],
                                torch.from_numpy(np.asarray(s["ground_truth"]["rgb"],
-                                                           np.float32)).to(dev)))
+                                                           np.float32)).to(dev),
+                               s.get("intrinsics_K"),
+                               None if wt is None else torch.as_tensor(
+                                   wt, dtype=torch.float32, device=dev)))
             idx_t = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
             mask = torch.ones(len(idxs), dtype=torch.bool, device=dev)
             shared = (self.ts.params, self.ts.state)
@@ -800,14 +836,18 @@ class Trainer:
         """Seven-panel snapshot (train/trainer.py:474-538): pred / gt /
         FLAME-mesh overlay / L1 heat / canonical / gradient heat / sampled
         points (the mesh overlay replaces the nvdiffrast panel). A family
-        without a visualization (an adapter's ``visualize`` None) gets the
-        pred / gt / L1 heat panel of its forward."""
+        without a visualization (an adapter's ``visualize`` None), and a
+        frame with a model-to-world transform, get the pred / gt / L1 heat
+        panel of the forward."""
         frame = self._make_frame(sample, self.train_tables)
         gt = self._rgb_f32(frame.rgb)
+        # the diagnostic renders take no model-to-world transform: such a
+        # frame gets the pred / gt / L1 heat panel, as in the JAX package
+        simple = self._visualize is None or frame.world_transform is not None
         with torch.no_grad():
-            if self._visualize is None:
+            if simple:
                 vis = self._forward(self.ts.params, self.ts.state, frame.expression,
-                                    frame.flame_pose, frame.camera)
+                                    frame.flame_pose, frame.camera, frame.world_transform)
             else:
                 vis = self._visualize(self.ts.params, self.ts.state, frame.expression,
                                       frame.flame_pose, frame.camera)
@@ -817,7 +857,7 @@ class Trainer:
         l1 = np.abs(pred - gt).mean(-1, keepdims=True)
         heat = np.concatenate([l1, np.zeros_like(l1), 1.0 - l1], axis=-1)
         path = os.path.join(self.media_dirs["snapshots"], f"step{self.global_step:08d}.png")
-        if self._visualize is None:
+        if simple:
             save_image_grid(path, [pred, gt, heat], cols=3)
             return
         save_image_grid(path, [pred, gt, mesh_panel, heat, vis["cano_image"].cpu().numpy(),

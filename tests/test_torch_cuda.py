@@ -1,8 +1,9 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
 blend's and the dense-list blend's forward and backward) against its plain
 PyTorch version on the card; the CUDA graphs (the Trainer's scan epoch and
-the served frame) against eager steps and frames; and each baseline
-family's step through the kernels against the plain blends. They skip on a host
+the served frame) against eager steps and frames; each baseline
+family's step through the kernels against the plain blends; LPIPS on the
+card against the CPU and the intrinsics-shift camera inside a graph. They skip on a host
 without CUDA. They import nothing of JAX, so on a machine with a card and
 no JAX they run as
 
@@ -724,6 +725,68 @@ def test_baseline_step_kernels_match_plain(family):
         assert float((x - y).norm() / y.norm()) <= 1e-2, k
         assert float((x - y).abs().max() / y.abs().max()) <= 5e-2, k
     assert moved >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backbone", ["alex", "vgg"])
+def test_lpips_on_the_card_matches_the_cpu(backbone):
+    """LPIPS on the card (float32 cuDNN, TF32 off) against the same params
+    on the CPU, two 128x128 frames: within 1e-4 relative; its gradient
+    w.r.t. the prediction within 1e-3 in relative L2 norm."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.train import lpips as tlp
+
+    p = tlp.lpips_random_params(torch.Generator().manual_seed(0), backbone, device="cpu")
+    card = tlp.LpipsParams(backbone, [(w.cuda(), b.cuda()) for w, b in p.convs],
+                           [x.cuda() for x in p.lins])
+    rng = np.random.default_rng(1)
+    a, b = (torch.from_numpy(rng.random((128, 128, 3)).astype(np.float32)) for _ in range(2))
+    out = []
+    for params, dev in ((p, "cpu"), (card, "cuda")):
+        x = a.to(dev).requires_grad_()
+        d = tlp.lpips_distance(params, x, b.to(dev))
+        (g,) = torch.autograd.grad(d, [x])
+        out.append((float(d.detach()), g.cpu()))
+    (d_cpu, g_cpu), (d_card, g_card) = out
+    assert d_cpu > 0 and abs(d_card - d_cpu) <= 1e-4 * d_cpu
+    assert float((g_card - g_cpu).norm() / g_cpu.norm()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_intrinsics_camera_in_a_graph():
+    """``make_camera(intrinsics=K)`` with K and the pose read at a device
+    cursor from stacked static buffers, captured in a graph, gives each
+    frame's eager projection bit for bit: the offsets never pass the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.utils.graphs import Graph
+
+    rng = np.random.default_rng(2)
+    n = 5
+    K = np.tile(np.array([[600.0, 0, 270], [0, 420.0, 240], [0, 0, 1]], np.float32), (n, 1, 1))
+    K[:, 0, 2] += rng.normal(size=n).astype(np.float32) * 10
+    T = rng.normal(size=(n, 3)).astype(np.float32) * 0.01 + [0, 0, 0.4]
+    Ks, Ts = torch.from_numpy(K).cuda(), torch.from_numpy(T.astype(np.float32)).cuda()
+    R = torch.eye(3, device="cuda")
+    fovx, fovy = torch.tensor(0.8, device="cuda"), torch.tensor(1.1, device="cuda")
+    cursor = torch.zeros(1, dtype=torch.int64, device="cuda")
+    out = torch.zeros((n, 4, 4), device="cuda")
+
+    def frame():
+        cam = make_camera(R, Ts.index_select(0, cursor)[0], fovx, fovy, 512, 512,
+                          intrinsics=Ks.index_select(0, cursor)[0], device="cuda")
+        out.index_copy_(0, cursor, cam.full_proj[None])
+        cursor.add_(1)
+
+    g = Graph(frame, [cursor, out], "the intrinsics camera")
+    for _ in range(n):
+        g()
+    for i in range(n):
+        ref = make_camera(R, T[i], fovx, fovy, 512, 512, intrinsics=K[i], device="cuda")
+        assert torch.equal(out[i], ref.full_proj), i
+    assert g.replays == n and float((out[1] - out[0]).abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -212,8 +212,8 @@ def test_prefetcher_raises_worker_errors():
 def test_fateavatar_loss_refuses_missing_weights():
     with pytest.raises(ValueError):
         tl.FateAvatarLoss(tl.FateAvatarLossConfig(vgg_weight=0.1))
-    with pytest.raises(NotImplementedError):
-        tl.FateAvatarLoss(tl.FateAvatarLossConfig(normal_weight=0.1))
+    with pytest.raises(ValueError, match="lpips_params"):
+        tl.FateAvatarLoss(tl.FateAvatarLossConfig(lpips_weight=0.1))
 
 
 # ---------------------------------------------------------------------------

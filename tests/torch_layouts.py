@@ -1,7 +1,9 @@
 """On-disk dataset layouts for the readers, written from given arrays:
-IMAvatar (``<root>/<subj>_<mode>/flame_params.json`` + ``matted/<i>.png``)
-and INSTA (``transforms_<mode>.json`` + ``images/`` + ``flame/*/<i>.txt``),
-and a FLAME landmark embedding with a face layout on a head mesh's front.
+IMAvatar (``<root>/<subj>_<mode>/flame_params.json`` + ``matted/<i>.png``),
+INSTA (``transforms_<mode>.json`` + ``images/`` + ``flame/*/<i>.txt``) and
+the NeRSemble benchmark export (``calibration.json`` + per-sequence
+``flame_params.json`` and train-serial images), and a FLAME landmark
+embedding with a face layout on a head mesh's front.
 Shared by the CPU tests and chip_smoke.py; numpy only, with the PNG writer
 passed in (PIL in the tests, the port's own where PIL is absent)."""
 
@@ -158,3 +160,59 @@ def write_landmark_embedding(path, embedding):
                             "dynamic_lmk_faces_idx": dyn_faces,
                             "dynamic_lmk_bary_coords": dyn_bary}, dtype=object),
             allow_pickle=True)
+
+
+def nersemble_frames(rng, n, n_exp, legacy=False, rot=0.05, trans=0.01, expr=0.05):
+    """``n`` frames of NeRSemble tracking for ``flame_params.json``: the
+    FLAME2023 split (``expression``, ``jaw``, ``neck``, ``eyes`` and the head
+    pose as ``rotation`` / ``translation``, at std ``rot`` / ``trans``), or
+    with ``legacy`` the pre-composed ``pose`` [15]."""
+    frames = []
+    for i in range(n):
+        fr = {"name": f"{i:05d}", "expression": (rng.normal(size=n_exp) * expr).tolist()}
+        if legacy:
+            fr["pose"] = (rng.normal(size=15) * 0.02).tolist()
+        else:
+            fr.update(jaw=(rng.normal(size=3) * 0.02).tolist(),
+                      neck=(rng.normal(size=3) * 0.02).tolist(),
+                      eyes=(rng.normal(size=6) * 0.02).tolist(),
+                      rotation=(rng.normal(size=3) * rot).tolist(),
+                      translation=(rng.normal(size=3) * trans).tolist())
+        frames.append(fr)
+    return frames
+
+
+def write_nersemble(root, participant, calib, sequences, shape_params, write_png,
+                    native=None, scale=1.0, n_shape=None, n_exp=None):
+    """A NeRSemble benchmark export (the layout of
+    ``scripts/prepare_nersemble.py``) under ``<root>/<participant>``.
+    ``calib``: {serial: (K [3, 3], world2cam [4, 4])}; ``sequences``:
+    {sequence name, or None for the legacy single-sequence layout at the
+    participant directory: (frames, {serial: [uint8 images]})}; ``native``
+    (width, height) of K's resolution, omitted from the files when None;
+    ``n_shape`` / ``n_exp`` written only when given."""
+    pdir = os.path.join(root, participant)
+    os.makedirs(pdir, exist_ok=True)
+    with open(os.path.join(pdir, "calibration.json"), "w") as fh:
+        json.dump({s: {"K": np.asarray(K, np.float64).tolist(),
+                       "world2cam": np.asarray(w2c, np.float64).tolist()}
+                   for s, (K, w2c) in calib.items()}, fh)
+    for seq, (frames, images) in sequences.items():
+        sdir = pdir if seq is None else os.path.join(pdir, "sequences", seq)
+        meta = {"frames": frames, "scale": scale,
+                "shape_params": np.asarray(shape_params, np.float64).tolist()}
+        if native is not None:
+            meta["native_width"], meta["native_height"] = native
+        if n_shape is not None:
+            meta["n_shape"] = n_shape
+        if n_exp is not None:
+            meta["n_exp"] = n_exp
+        os.makedirs(sdir, exist_ok=True)
+        with open(os.path.join(sdir, "flame_params.json"), "w") as fh:
+            json.dump(meta, fh)
+        for serial, imgs in images.items():
+            idir = os.path.join(sdir, "images", serial)
+            os.makedirs(idir, exist_ok=True)
+            for fr, img in zip(frames, imgs):
+                write_png(os.path.join(idir, fr["name"] + ".png"), img)
+    return pdir
