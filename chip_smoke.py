@@ -48,16 +48,31 @@ weights), each through both routes of ``RenderConfig.kernel``:
   baked textures' render against the splat render; then texture editing
   (``[edit]``): ``cli/avatar_edit_baked`` with a sticker written by the
   port's PNG writer, the edited frame against the unedited one, ms/frame;
+* the tools (``[tools]``): the ``[cli]`` avatar through ``save_ply`` /
+  ``load_ply``, then ``cli/avatar_gui.build_viewer`` on the ``[cli]``
+  workspace with the ``[bake]`` phase's ``baked.npz`` and with the latest
+  checkpoint and its tracking tables, each served in the background on
+  port 0: a dozen HTTP POSTs covering every UI mode, each PNG equal to the
+  eager frame of the same state quantized, the viewer's graph frame equal
+  to the eager frame bit for bit, ms per round trip and per replay;
 * full-head completion (``[pseudo]``): a landmark embedding in a face
-  layout on the template's front and a seeded random ``G_ema`` at the
-  default ``EG3DConfig`` (.pth), then ``cli/train_generate_pseudo
-  --num_views 30`` on the ``[cli]`` workspace: 30 orbit renders through
-  kernel 1, keypoints, alignment (front views aligned, the back
-  rejected), PTI (PTI_STEPS W and G steps on up to 8 frontal targets at
-  512^2), the orbit re-render, paste-back, masks, heatmaps; the EG3D
+  layout on the template's front, a seeded random ``G_ema`` at the default
+  ``EG3DConfig`` written as an upstream network pickle (its generator
+  renders the same bits as the same tensors from a .pth), and seeded
+  random GFPGAN (512^2) and MODNet checkpoints, then
+  ``cli/train_generate_pseudo --num_views 30 --eg3d_weights x.pkl
+  --gfpgan_weights --modnet_weights`` on the ``[cli]`` workspace: 30 orbit
+  renders through kernel 1, keypoints, alignment (front views aligned, the
+  back rejected), GFPGAN on the aligned crops (stage ④), PTI (PTI_STEPS W
+  and G steps on up to 8 frontal targets at 512^2), the orbit re-render,
+  paste-back, MODNet's mattes as masks (stage ⑧), heatmaps; the EG3D
   graph on the card against the CPU at the tiny config; ms per W / G step
-  with TF32 off and on, per orbit view, peak memory; then
-  (``[complete]``) ``cli/train_full_avatar --finetune_epochs 1``: the
+  with TF32 off and on, per orbit view, per restored crop and matte, peak
+  memory; then (``[plugins]``) GFPGAN, MODNet and BiSeNet at full width on
+  the card against the CPU, ms per crop, matte and parse, and
+  ``cli/train_generate_pseudo --bisenet_weights`` (the mirror provider,
+  six views); then (``[complete]``) ``cli/train_full_avatar
+  --finetune_epochs 1``: the
   re-seed, one real and one pseudo step per real frame through kernels 1
   and 2, one pseudo step's gradients against the plain blends, the
   full-head checkpoint, the orbit and six fixed-view videos, ms per real
@@ -2008,91 +2023,6 @@ def busy_union_ms(fn):
     return wall_us / 1e3, busy_us / 1e3
 
 
-@contextmanager
-def deterministic_sums():
-    """Every sum of a step in one fixed order, its forward values as they
-    were: torch's deterministic algorithms (``index_add_`` as a sorted
-    ``index_put_``, cuBLAS on a fixed workspace) and ``F.interpolate``'s
-    bilinear backward, which torch has only with atomics, as products with
-    the resampling matrices' transposes (the matrices are the forward's own
-    weights: ``F.interpolate`` of an identity along one axis, checked
-    against the forward the first time a pair is used). Yields a list that holds,
-    on exit, the ops torch still flagged as nondeterministic (warned, not
-    raised, so that the comparison runs and says which). Restored on
-    exit."""
-    import warnings
-
-    import torch
-    import torch.nn.functional as F
-
-    orig = F.interpolate
-    mats = {}
-
-    def matrix(n_in, n_out, kw, device):
-        key = (n_in, n_out, kw["mode"], kw["align_corners"], kw["antialias"], device)
-        if key not in mats:
-            # rows resampled, columns at scale 1 (weight 1 on the column)
-            eye = torch.eye(n_in, device=device)[None, None]
-            mats[key] = orig(eye, size=(n_out, n_in), mode=kw["mode"],
-                             align_corners=kw["align_corners"],
-                             antialias=kw["antialias"])[0, 0].contiguous()   # [n_out, n_in]
-        return mats[key]
-
-    checked = set()
-
-    class Resample(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, kw):
-            y = orig(x, **kw)
-            ctx.mh = matrix(x.shape[2], y.shape[2], kw, x.device)
-            ctx.mw = matrix(x.shape[3], y.shape[3], kw, x.device)
-            pair = (tuple(x.shape), tuple(y.shape), kw["antialias"])
-            capturing = x.is_cuda and torch.cuda.is_current_stream_capturing()
-            if pair not in checked and not capturing:
-                err = float((ctx.mh @ x @ ctx.mw.T - y).abs().max())
-                check(err <= 1e-5 * (float(y.abs().max()) + 1e-12),
-                      f"the resampling matrices reproduce F.interpolate {pair}: {err:.1e}")
-                checked.add(pair)
-            return y
-
-        @staticmethod
-        def backward(ctx, gy):
-            return ctx.mh.T @ gy @ ctx.mw, None
-
-    def interpolate(x, size=None, scale_factor=None, mode="nearest", align_corners=None,
-                    recompute_scale_factor=None, antialias=False):
-        kw = {"size": size, "scale_factor": scale_factor, "mode": mode,
-              "align_corners": align_corners, "recompute_scale_factor": recompute_scale_factor,
-              "antialias": antialias}
-        if mode != "bilinear" or not (torch.is_grad_enabled() and x.requires_grad):
-            return orig(x, **kw)
-        return Resample.apply(x, kw)
-
-    saved = (torch.are_deterministic_algorithms_enabled(),
-             torch.is_deterministic_algorithms_warn_only_enabled(),
-             torch.utils.deterministic.fill_uninitialized_memory,
-             os.environ.get("CUBLAS_WORKSPACE_CONFIG"))
-    flagged = []
-    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.utils.deterministic.fill_uninitialized_memory = False
-    F.interpolate = interpolate
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            yield flagged
-        flagged.extend(sorted({str(w.message)[:100] for w in caught
-                               if "determinis" in str(w.message)}))
-    finally:
-        F.interpolate = orig
-        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
-        torch.utils.deterministic.fill_uninitialized_memory = saved[2]
-        if saved[3] is None:
-            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
-        else:
-            os.environ["CUBLAS_WORKSPACE_CONFIG"] = saved[3]
-
-
 def bake_stage_split(baker, frame, card):
     """Device busy ms (profiler) and CUDA-event ms of eager calls, forward
     and backward where the stage has a backward, of the bake step's stages
@@ -2191,6 +2121,9 @@ def bake_phase(cli, rows, card):
     Returns the baker."""
     import numpy as np
     import torch
+
+    _tests_on_path()
+    from torch_determinism import deterministic_sums
 
     from fateavatar_tpu_torch.cli import train_neural_baking
     from fateavatar_tpu_torch.models import uv_decoder as uvd
@@ -2539,6 +2472,243 @@ def edit_phase(cli, card):
             int((diff > 1e-3).sum())}
 
 
+# the [tools] phase: a dozen viewer states covering every UI mode (sliders,
+# neck, orbit, zoom, fov, the three backgrounds, the canonical view, raw and
+# tracked playback)
+VIEWER_UI = (
+    {},
+    {"exp": [0.8, -0.5, 0.3, 0.2], "jaw": 0.2},
+    {"neck": [0.15, -0.2, 0.05]},
+    {"yaw": 0.6, "pitch": -0.3},
+    {"zoom": 0.8},
+    {"fov": 0.5},
+    {"bg": "black", "yaw": -0.4},
+    {"bg": "gray"},
+    {"canonical": True, "yaw": 0.3},
+    {"playing": True, "frame": 2},
+    {"playing": True, "frame": 5, "tracked": True},
+    {"playing": True, "frame": 7, "tracked": True, "yaw": 0.2, "zoom": 1.1},
+)
+
+
+# kernel 1 against the plain blend on the viewer's heaviest states (the
+# closest camera, the widest orbit); host timings of a round trip's parts
+VIEWER_PLAIN = ({"zoom": 0.8}, {"yaw": 0.6, "pitch": -0.3})
+VIEWER_TIMED = 10
+
+
+def viewer_host_split(srv, ui):
+    """Median ms (host clock, VIEWER_TIMED calls each) of a round trip of
+    ``ui`` to the running viewer ``srv`` and of its host parts one by one:
+    the render callback (inputs copied in, the replay, its sync, the frame's
+    copy to the host), the device-to-host copy of the frame alone, and
+    quantize + PNG encode."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.utils.png import encode_png
+    from fateavatar_tpu_torch.viewer.web import quantize
+
+    fn = srv.render_fn
+    img = fn(ui)[0]
+    dev_img = torch.as_tensor(img, device="cuda")
+
+    def median_ms(f):
+        ts = []
+        for _ in range(VIEWER_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(ts))
+
+    return {"round_trip": median_ms(lambda: post_json(srv.port, ui)),
+            "callback": median_ms(lambda: fn(ui)),
+            "copy": median_ms(lambda: dev_img.cpu().numpy().copy()),
+            "encode": median_ms(lambda: encode_png(quantize(img)))}
+
+
+def post_json(port, state):
+    """POST ``state`` to the viewer's /render: (headers, body, round-trip ms
+    on the host clock)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/render",
+                                 data=json.dumps(state).encode(), method="POST")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as r:
+        body = r.read()
+        headers = r.headers
+    return headers, body, (time.perf_counter() - t0) * 1e3
+
+
+def tools_phase(cli, rows, card):
+    """[tools]: the [cli] avatar's splats of test frame 0 through
+    ``save_ply`` / ``load_ply`` (alive splats back bit for bit); then
+    ``cli/avatar_gui.build_viewer`` on the [cli] workspace twice: the
+    [bake] phase's ``checkpoints_baked/baked.npz`` (``--variant baked``) and
+    the latest training checkpoint with its tracking tables (``--variant
+    latest``), each served in the background on port 0 and sent the
+    VIEWER_UI states as HTTP POSTs: every served frame drops no instance
+    (overflow 0), every decoded PNG equals the eager forward of the same
+    state quantized to uint8, the graph's frame equals the eager frame bit
+    for bit, and VIEWER_PLAIN's states render within TOL of the plain
+    blend; launches (the graph's warm-up and capture, then one kernel-1
+    launch per replay), ms per round trip and per replay, and a round
+    trip's host parts timed one by one (the callback, the frame's copy to
+    the host, quantize + PNG encode)."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import avatar_gui, common
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.render.ply import load_ply, save_ply
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
+    from fateavatar_tpu_torch.utils.png import read_png
+    from fateavatar_tpu_torch.viewer.web import quantize
+
+    t_phase = time.perf_counter()
+    ws = os.path.dirname(os.path.dirname(cli.run))
+    tr = cli.trainer
+    s0 = tr.test_dataset.sample(0)
+    with torch.no_grad():
+        g = build_gaussians(tr.model, tr.ts.params, tr.ts.state,
+                            torch.as_tensor(s0["expression"], device="cuda"),
+                            torch.as_tensor(s0["flame_pose"], device="cuda"))[0]
+    path = os.path.join(ws, "avatar.ply")
+    t0 = time.perf_counter()
+    n = save_ply(path, g)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = load_ply(path, capacity=g.xyz.shape[0], device="cuda")
+    t_load = time.perf_counter() - t0
+    alive = g.alive
+    same = [torch.equal(getattr(back, k)[:n], getattr(g, k)[alive])
+            for k in ("xyz", "scaling", "rotation", "opacity", "features_dc")]
+    rest_ok = (torch.equal(back.features_rest[:n], g.features_rest[alive])
+               if g.features_rest.shape[1] else not bool(back.features_rest.any()))
+    check(n == int(alive.sum()) and bool(back.alive[:n].all()) and not bool(back.alive[n:].any())
+          and all(same) and rest_ok and back.sh_degree == g.sh_degree,
+          "the PLY round trip gives the alive splats back bit for bit")
+    log(f"[tools] PLY of the [cli] avatar posed at test frame 0: {n} alive splats of "
+        f"{g.xyz.shape[0]}, {os.path.getsize(path) / 2**20:.2f} MiB, save {t_save * 1e3:.1f} ms, "
+        f"load (padded to the capacity, on the card) {t_load * 1e3:.1f} ms; fields back bit "
+        f"for bit")
+
+    identity = common.load_identity_info(cli.run)
+    dist = abs(float(identity["world_mat0"][2][3]))
+    base = [*cli.config, "--device", "cuda", "--workspace", cli.run, "--port", "0",
+            "--camera_distance", f"{dist}", f"dataset.root_path={cli.root}", *cli.assets]
+    check(os.path.exists(os.path.join(cli.run, "checkpoints_baked", "baked.npz")),
+          "the [bake] workspace holds baked.npz")
+    summary = {}
+    for variant in ("baked", "latest"):
+        # ---- the viewer path: counts to 0 just before, read just after
+        zero_counts()
+        t0 = time.perf_counter()
+        srv = avatar_gui.build_viewer(["--variant", variant, *base])
+        build_s = time.perf_counter() - t0
+        srv.serve_background()
+        fn = srv.render_fn
+        served, overflow = [], []
+        try:
+            for ui in VIEWER_UI:
+                headers, body, rt = post_json(srv.port, ui)
+                overflow.append(fn.overflow)
+                served.append((ui, headers["Content-Type"], float(headers["X-Device-Ms"]),
+                               body, rt))
+            fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+            graph = fn.graph
+            replays = graph.replays
+            split = viewer_host_split(srv, VIEWER_UI[0])
+        finally:
+            srv.shutdown()
+        check(not any(overflow), f"[tools] {variant}: no served frame drops an instance "
+              f"(overflow {overflow})")
+        check(srv.variant == variant, f"build_viewer loaded the {variant} avatar")
+        # a frame that overflows grows the caps: a capture more, a replay more
+        regrows, overflow_grown = len(fn.growths), list(fn.growths)
+        check(fwd == (WARMUP + 1) * (1 + regrows) and bwd == 0
+              and replays == len(VIEWER_UI) + 1 + regrows
+              and graph.launches_per_replay == {"blend_instances_fwd": 1},
+              "the viewer: the graph's warm-up and capture (again at each growth of the "
+              "caps), then one kernel-1 launch a replay")
+        # the served frames against eager forwards of the same states
+        png = os.path.join(ws, f"viewer_{variant}.png")
+        stds = []
+        for ui, ctype, _, body, _ in served:
+            with open(png, "wb") as fh:
+                fh.write(body)
+            decoded = read_png(png)
+            eager = fn.eager(ui)
+            frame = fn(ui)[0]
+            check(ctype == "image/png" and decoded.shape == eager.shape
+                  and np.array_equal(decoded, quantize(eager)),
+                  f"[tools] {variant} {ui}: the PNG is the eager frame quantized")
+            check(np.array_equal(frame, eager), f"[tools] {variant} {ui}: graph frame == eager")
+            stds.append(float(decoded.std()))
+        distinct = len({body for _, _, _, body, _ in served})
+        check(distinct == len(VIEWER_UI), f"[tools] {variant}: every UI state gives its own "
+              f"frame ({distinct} distinct of {len(VIEWER_UI)})")
+        if variant == "latest":
+            raw = fn.eager({"playing": True, "frame": 5})
+            check(not np.array_equal(raw, fn.eager(VIEWER_UI[10])),
+                  "tracked playback reads the tracking tables")
+        # kernel 1 against the plain blend on the heaviest states
+        plain_err = []
+        for ui in VIEWER_PLAIN:
+            img_k = fn.eager(ui)
+            with swapped_blend(bi.blend_instances_plain):
+                img_p = fn.eager(ui)
+            check(fn.overflow == 0, f"[tools] {variant} {ui}: the plain frame's overflow 0")
+            plain_err.append(float(np.abs(img_k - img_p).max()))
+        check(max(plain_err) <= TOL, f"[tools] {variant}: kernel 1 vs the plain blend "
+              f"{plain_err} > {TOL}")
+        rows["blend_instances_fwd"]["max_abs_err"] = max(
+            rows["blend_instances_fwd"]["max_abs_err"], *plain_err)
+        dev_ms = [d for _, _, d, _, _ in served]
+        rts = [r for *_, r in served]
+        log(f"[tools] viewer --variant {variant}: built (load, warm-up, capture) in "
+            f"{build_s:.2f} s; {len(served)} POSTs over HTTP, every PNG the eager frame "
+            f"quantized and every graph frame bit-equal to the eager one; ms per round trip "
+            f"(host clock, PNG encoded and decoded by urllib) median "
+            f"{float(np.median(rts)):.2f} min {min(rts):.2f} max {max(rts):.2f}; per replay "
+            f"(X-Device-Ms, CUDA events) median {float(np.median(dev_ms)):.3f} min "
+            f"{min(dev_ms):.3f} max {max(dev_ms):.3f}; PNG {len(served[0][3]) / 1024:.0f} KiB, "
+            f"pixel std {min(stds):.1f}-{max(stds):.1f}; "
+            f"kernel 1 launches {fwd} by the wrapper ({WARMUP} warm-up calls + the capture, "
+            f"x {1 + regrows}), then {replays} replays x {graph.launches_per_replay}; the caps "
+            f"grew {regrows} times (overflow of the frames before growth {overflow_grown}) "
+            f"to instance_budget {fn.render_cfg.instance_budget}, R "
+            f"{fn.render_cfg.max_tiles_per_gaussian}, tail_k {fn.render_cfg.tail_k}; overflow "
+            f"0 on every served frame; kernel 1 vs the plain blend on {VIEWER_PLAIN}: max|diff| "
+            f"{max(plain_err):.3e} (bound {TOL}) [{card}]")
+        rest = split["round_trip"] - split["callback"] - split["encode"]
+        log(f"[tools] viewer --variant {variant}, one round trip of {VIEWER_UI[0]} by parts "
+            f"(host clock, median of {VIEWER_TIMED} each): round trip "
+            f"{split['round_trip']:.2f} ms = render callback {split['callback']:.2f} (inputs "
+            f"in, the replay, its sync, the frame to the host; a {img_k.shape[1]}x"
+            f"{img_k.shape[0]}x3 float32 device-to-host copy alone {split['copy']:.2f}) + "
+            f"quantize and PNG encode {split['encode']:.2f} + the rest (the HTTP server and "
+            f"urllib, JSON, the threads) {rest:.2f}; shares "
+            f"{split['callback'] / split['round_trip']:.1%} / "
+            f"{split['encode'] / split['round_trip']:.1%} / {rest / split['round_trip']:.1%} "
+            f"[{card}]")
+        summary[variant] = {"launches": fwd, "replays": replays, "regrows": regrows,
+                            "round_trip_ms": float(np.median(rts)),
+                            "replay_ms": float(np.median(dev_ms)), "build_s": build_s,
+                            "plain_err": max(plain_err),
+                            "split_ms": split | {"rest": rest}}
+        del srv, fn, graph
+    rows["blend_instances_fwd"]["viewer_launches"] = {
+        v: {"wrapper": d["launches"], "replays": d["replays"]} for v, d in summary.items()}
+    rows["blend_instances_fwd"].setdefault("graph_launches_per_replay", {})["viewer-frame"] = 1
+    log(f"[tools] summary {json.dumps(summary)}; phase total "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    return summary
+
+
 # the [pseudo] / [complete] phases: cli/train_generate_pseudo with a seeded
 # random G_ema at the default EG3DConfig (PTI_STEPS W and G steps each: the
 # phase's time, printed), then cli/train_full_avatar --finetune_epochs 1 and
@@ -2555,6 +2725,12 @@ FACE_SCALE = 0.1 / 256 * 2.0
 EG3D_DEVICE_RTOL = 1e-4
 EG3D_GRAD_RTOL_L2 = 1e-3
 COMPLETE_TIMED = 4        # real and pseudo steps of the step timings
+# the plug-ins (GFPGAN, MODNet, BiSeNet): card vs CPU within 1e-4 of the
+# output's largest magnitude (float32 both sides, TF32 off)
+PLUGIN_RTOL = 1e-4
+PLUGIN_TIMED = 10         # forwards per plug-in timing
+PLUGIN_VIEWS = 6          # the BiSeNet CLI run's orbit views (mirror provider)
+STAGE8_TIMED = 3          # stage-⑧ views timed by parts
 
 
 def eg3d_device_check(card):
@@ -2642,27 +2818,38 @@ def pti_step_ms(provider, steps):
 
 def pseudo_phase(cli, rows, card):
     """[pseudo]: cli/train_generate_pseudo on the [cli] workspace with a
-    landmark embedding in a face layout on the head's front and a seeded
-    random G_ema at the default EG3DConfig: 30 orbit renders through
-    kernel 1, 30 keypoint sets, the FFHQ alignment (front views aligned, the
-    back rejected), PTI (PTI_STEPS W and G steps on up to 8 frontal
-    targets at 512^2), the orbit re-render, paste-back, masks, heatmaps; the
-    card's EG3D against the CPU's at the tiny config; ms per W / G step
-    (TF32 off and on), per orbit view, peak memory. Returns the pseudo
-    folder and the numbers."""
+    landmark embedding in a face layout on the head's front, a seeded
+    random G_ema at the default EG3DConfig written as an upstream network
+    pickle (and as a .pth: the two load to generators that render the same
+    bits), and seeded random GFPGAN (GFPGANConfig(), 512^2) and MODNet
+    checkpoints: 30 orbit renders through kernel 1, 30 keypoint sets, the
+    FFHQ alignment (front views aligned, the back rejected), GFPGAN on the
+    aligned crops (stage ④), PTI (PTI_STEPS W and G steps on up to 8
+    frontal targets at 512^2), the orbit re-render, paste-back, MODNet's
+    mattes as the masks (stage ⑧), heatmaps; the card's EG3D against the
+    CPU's at the tiny config; ms per W / G step (TF32 off and on), per
+    orbit view, per restored crop and per matte, one stage-⑧ view by parts
+    (the matte under the profiler, the mask PNG), peak memory. Returns the
+    pseudo folder, the plug-ins' checkpoints and the numbers."""
     import pickle as pkl
 
     import numpy as np
     import torch
 
     from fateavatar_tpu_torch.cli import train_generate_pseudo
+    from fateavatar_tpu_torch.completion import matting, restoration
     from fateavatar_tpu_torch.completion import pseudo as pseudo_mod
     from fateavatar_tpu_torch.completion.eg3d import networks as eg3d
     from fateavatar_tpu_torch.completion.eg3d import provider as provider_mod
+    from fateavatar_tpu_torch.completion.eg3d.convert import load_eg3d_from_torch
+    from fateavatar_tpu_torch.completion.eg3d.pkl_ingest import load_eg3d_from_pkl
     from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.utils.logging import save_image
 
     _tests_on_path()
-    from torch_layouts import face_landmark_embedding, write_landmark_embedding
+    from torch_layouts import (
+        face_landmark_embedding, write_landmark_embedding, write_network_pkl,
+    )
 
     t_phase = time.perf_counter()
     h, w = cli.trainer.model.cfg.img_height, cli.trainer.model.cfg.img_width
@@ -2675,21 +2862,81 @@ def pseudo_phase(cli, rows, card):
     cfg = eg3d.EG3DConfig()
     t0 = time.perf_counter()
     weights = os.path.join(ws, "g_ema_random.pth")
+    weights_pkl = os.path.join(ws, "network-snapshot-random.pkl")
     gen = eg3d.EG3DGenerator(cfg, eg3d.eg3d_random_params(
         torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda"), device="cuda")
-    torch.save({k: v.cpu() for k, v in gen.state_dict().items()}, weights)
-    n_params = sum(v.numel() for v in gen.state_dict().values())
+    sd = {k: v.cpu() for k, v in gen.state_dict().items()}
+    torch.save(sd, weights)
+    n_params = sum(v.numel() for v in sd.values())
     del gen
+    t_pth = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    write_network_pkl(weights_pkl, {"G_ema": (
+        {k: v.numpy() for k, v in sd.items()},
+        {"rendering_kwargs": {"ray_start": cfg.ray_start, "ray_end": cfg.ray_end,
+                              "depth_resolution": cfg.depth_resolution},
+         "neural_rendering_resolution": cfg.neural_resolution})})
+    t_pkl = time.perf_counter() - t0
     log(f"[pseudo] a seeded random G_ema at the default EG3DConfig ({n_params} values: "
         f"backbone {cfg.backbone_resolution} x {cfg.plane_channels} tri-plane channels, "
         f"neural {cfg.neural_resolution} with {cfg.depth_resolution} + "
-        f"{cfg.depth_resolution_importance} samples, SR to {cfg.sr_resolution}) written in "
-        f"{time.perf_counter() - t0:.1f} s; landmark embedding: a face layout on the "
-        f"template's front (scale {FACE_SCALE:.3e} m/px)")
+        f"{cfg.depth_resolution_importance} samples, SR to {cfg.sr_resolution}) written as a "
+        f".pth in {t_pth:.1f} s and as an upstream persistence-format network pickle "
+        f"({os.path.getsize(weights_pkl) / 2**20:.1f} MiB, G_ema only) in {t_pkl:.1f} s; "
+        f"landmark embedding: a face layout on the template's front (scale "
+        f"{FACE_SCALE:.3e} m/px)")
+    # the pickle's generator against the .pth's: the same tensors, the same
+    # rendered bits (deterministic cuDNN)
+    t0 = time.perf_counter()
+    g_pkl, cfg_pkl, attrs = load_eg3d_from_pkl(weights_pkl, device="cuda")
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_pth, _ = load_eg3d_from_torch(weights, device="cuda")
+    check(cfg_pkl == cfg, f"the pickle's inferred config is the default EG3DConfig: {cfg_pkl}")
+    check(attrs["neural_rendering_resolution"] == cfg.neural_resolution
+          and attrs["rendering_kwargs"]["ray_start"] == cfg.ray_start, "the pickle's attrs")
+    zg = torch.Generator(device="cuda").manual_seed(3)
+    z = torch.randn((1, cfg.z_dim), generator=zg, device="cuda")
+    c = torch.as_tensor(eg3d.eg3d_camera_label(np.linalg.inv(np.array(
+        [[1, 0, 0, 0], [0, -1, 0, 0], [0, 0, -1, 2.7], [0, 0, 0, 1.0]])))[None],
+        dtype=torch.float32, device="cuda")
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                                     deterministic=True, allow_tf32=False):
+        imgs = [eg3d.render_full(g.params(), cfg, z, c)["image"] for g in (g_pkl, g_pth)]
+    check(all(torch.equal(a, b) for a, b in zip(g_pkl.state_dict().values(),
+                                                  g_pth.state_dict().values()))
+          and torch.equal(imgs[0], imgs[1]) and bool(torch.isfinite(imgs[0]).all()),
+          "the generator from the .pkl renders bit-equal to the .pth one")
+    t_cmp = time.perf_counter() - t0
+    log(f"[pseudo] {os.path.basename(weights_pkl)} read by the restricted unpickler in "
+        f"{t_read:.1f} s (no embedded code run): config inferred {cfg_pkl == cfg and 'equal'} "
+        f"to EG3DConfig(), attrs {sorted(attrs)}; its G_ema renders a {imgs[0].shape[1]}^2 "
+        f"image bit-equal to the .pth generator's (max |value| "
+        f"{float(imgs[0].abs().max()):.3f}); the .pth's load and the two renders "
+        f"{t_cmp:.1f} s")
+    del g_pkl, g_pth, imgs
+
+    # the plug-ins' checkpoints at full width, seeded, in the public layouts
+    t0 = time.perf_counter()
+    pg_gen = torch.Generator(device="cuda").manual_seed(1)
+    gf_cfg = restoration.GFPGANConfig()
+    plugins = {"gfpgan": os.path.join(ws, "GFPGANv1.4_random.pth"),
+               "modnet": os.path.join(ws, "modnet_random.ckpt")}
+    gf = restoration.gfpgan_random_params(pg_gen, gf_cfg, device="cuda")
+    torch.save({"params_ema": {k: v.cpu() for k, v in gf.items()}}, plugins["gfpgan"])
+    md = matting.modnet_random_params(pg_gen, device="cuda")
+    torch.save({f"module.{k}": v.cpu() for k, v in md.items()}, plugins["modnet"])
+    log(f"[pseudo] seeded random GFPGANv1Clean at GFPGANConfig() ({gf_cfg.out_size}^2, "
+        f"{sum(v.numel() for v in gf.values())} values, as {{'params_ema': ...}}) and MODNet "
+        f"({sum(v.numel() for v in md.values())} values, DataParallel 'module.' names) "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    del gf, md
     dev_check = eg3d_device_check(card)
 
     args = [*cli.config, "--device", "cuda", "--workspace", cli.run, "--num_views",
-            str(PSEUDO_VIEWS), "--eg3d_weights", weights, "--pti_w_steps", str(PTI_STEPS),
+            str(PSEUDO_VIEWS), "--eg3d_weights", weights_pkl,
+            "--gfpgan_weights", plugins["gfpgan"], "--modnet_weights", plugins["modnet"],
+            "--pti_w_steps", str(PTI_STEPS),
             "--pti_g_steps", str(PTI_STEPS), f"dataset.root_path={cli.root}", *cli.assets,
             f"assets.landmark_embedding_path={lmk}"]
     log(f"[pseudo] train_generate_pseudo {args[2:]}: N = {PTI_STEPS} W and G steps (the "
@@ -2704,7 +2951,9 @@ def pseudo_phase(cli, rows, card):
             recorded(provider_mod, "pti_finetune", stages.setdefault("⑤G", [])), \
             recorded(provider_mod.EG3DPseudoProvider, "render_orbit", stages.setdefault("⑥", [])), \
             recorded(pseudo_mod.PseudoGenerator, "execute_inverse_transform",
-                     stages.setdefault("⑦", [])):
+                     stages.setdefault("⑦", [])), \
+            recorded(restoration.GFPGANRestorer, "__call__", stages.setdefault("④", [])), \
+            recorded(pseudo_mod.PseudoGenerator, "retrieve_masks", stages.setdefault("⑧", [])):
         pg = train_generate_pseudo.main(args)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
@@ -2726,6 +2975,51 @@ def pseudo_phase(cli, rows, card):
     check(0 < n_al < PSEUDO_VIEWS, "some views aligned, the back ones rejected")
     check(np.isfinite(aligned["label"]).all() and aligned["label"].shape == (n_al, 25),
           "finite EG3D labels")
+    # stage ④: GFPGAN restored the aligned crops that fed the provider
+    check(isinstance(pg.restorer_fn, restoration.GFPGANRestorer) and len(stages["④"]) == 1,
+          "stage ④ ran GFPGAN once, on the aligned crops")
+    restored = st["④"][4]
+    crop_change = float(np.abs(restored - aligned["crop"]).max())
+    check(restored.shape == aligned["crop"].shape and np.isfinite(restored).all()
+          and crop_change > 0.05, f"stage ④ changed the crops (max |change| {crop_change:.3f})")
+    # stage ⑧: the masks are MODNet's mattes of the pasted views, not the
+    # background-distance fallback
+    check(isinstance(pg.matting_fn, matting.MODNetMatting), "stage ⑧'s matting is MODNet")
+    bg = pg.model.bg_color.cpu().numpy()
+    fallback = np.stack([(np.abs(img - bg).sum(-1) > 0.08).astype(np.float32)
+                         for img in out["pasted"]])
+    again = np.stack([pg.matting_fn(out["pasted"][i]) for i in (0, PSEUDO_VIEWS - 1)])
+    check(np.array_equal(again, out["masks"][[0, PSEUDO_VIEWS - 1]])
+          and not np.array_equal(out["masks"], fallback)
+          and len(np.unique(out["masks"])) > 2,
+          "stage ⑧'s masks are MODNet's (soft) mattes of the pasted views")
+    log(f"[pseudo] stage ④ (GFPGAN on {restored.shape[0]} aligned {restored.shape[1]}^2 crops) "
+        f"{st['④'][2]:.2f} s, {st['④'][2] * 1e3 / restored.shape[0]:.1f} ms a crop (host "
+        f"clock, the host copies included), peak {st['④'][3]:.2f} GiB, max |change| "
+        f"{crop_change:.3f}; stage ⑧ (MODNet on {PSEUDO_VIEWS} pasted {out['pasted'].shape[1]}"
+        f"^2 views, the mask PNGs written) {st['⑧'][2]:.2f} s, "
+        f"{st['⑧'][2] * 1e3 / PSEUDO_VIEWS:.1f} ms a view; mattes in "
+        f"[{float(out['masks'].min()):.3f}, {float(out['masks'].max()):.3f}] (the fallback's "
+        f"share of pixels that differ from them at 0.5: "
+        f"{float(((out['masks'] > 0.5) != (fallback > 0.5)).mean()):.3f}) [{card}]")
+    # one stage-⑧ view by parts: the matte (the image to the card, MODNet,
+    # the matte back) under the profiler, wall and the card's busy time,
+    # and the mask PNG's write on the host clock; medians of STAGE8_TIMED
+    mattes = sorted(busy_union_ms(lambda: pg.matting_fn(out["pasted"][0]))
+                    for _ in range(STAGE8_TIMED))
+    matte_wall, matte_busy = mattes[STAGE8_TIMED // 2]
+    png_ms = []
+    for _ in range(STAGE8_TIMED):
+        t0 = time.perf_counter()
+        save_image(os.path.join(ws, "mask_timing.png"),
+                   np.repeat(out["masks"][0][..., None], 3, axis=-1))
+        png_ms.append((time.perf_counter() - t0) * 1e3)
+    png_ms = float(np.median(png_ms))
+    view_ms = st["⑧"][2] * 1e3 / PSEUDO_VIEWS
+    log(f"[pseudo] one stage-⑧ view by parts (median of {STAGE8_TIMED}): the matte "
+        f"{matte_wall:.1f} ms wall under the profiler, the card busy {matte_busy:.1f} ms of "
+        f"it ({matte_busy / matte_wall:.1%}); the mask PNG written {png_ms:.1f} ms; their sum "
+        f"{matte_wall + png_ms:.1f} ms of the stage's {view_ms:.1f} ms a view [{card}]")
     lw = [float(x) for x in prov.losses["w"]]
     lg = [float(x) for x in prov.losses["g"]]
     log(f"[pseudo] PTI on {prov.targets.shape[0]} targets of {prov.cfg.sr_resolution}^2: "
@@ -2776,13 +3070,132 @@ def pseudo_phase(cli, rows, card):
         f"; phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
     rows["blend_instances_fwd"]["pseudo_launches"] = fwd
     rows["blend_instances_bwd"]["pseudo_launches"] = bwd
-    return {"dir": pdir, "aligned": n_al, "targets": int(prov.targets.shape[0]),
+    return {"dir": pdir, "plugins": plugins, "aligned": n_al,
+            "targets": int(prov.targets.shape[0]),
+            "restore_s": st["④"][2], "masks_s": st["⑧"][2], "crop_change": crop_change,
+            "stage8_view_ms": {"matte_wall": matte_wall, "matte_busy": matte_busy,
+                               "mask_png": png_ms, "stage": view_ms},
             "w_ms": t[("w", False)][0], "w_ms_tf32": t[("w", True)][0],
             "g_ms": t[("g", False)][0], "g_ms_tf32": t[("g", True)][0],
             "w_peak_gib": st["⑤W"][3], "g_peak_gib": st["⑤G"][3], "orbit_ms": orbit_ms,
             "w_call_wall_busy_ms": busy["w"], "g_call_wall_busy_ms": busy["g"],
             "eg3d_view_ms": eg3d_ms, "w_losses": lw, "g_losses": lg, "device": dev_check,
             "run_s": run_s}
+
+
+def plugins_phase(cli, pseudo, rows, card):
+    """[plugins]: GFPGAN (GFPGANConfig(), 512^2), MODNet and BiSeNet at full
+    width, loaded on the card and on the CPU from the seeded checkpoints
+    in their public layouts (BiSeNet's the JAX package's ``init_bisenet``
+    draws as a ``79999_iter.pth`` state dict), on the same seeded 512^2
+    inputs: outputs (MODNet's pre-sigmoid logits and matte, BiSeNet's
+    logits) card vs CPU within PLUGIN_RTOL of the largest magnitude; ms per
+    restored crop, matte and parse (CUDA events), one forward each under
+    the profiler (wall and the card's busy time) and peak memory. Then
+    cli/train_generate_pseudo with --bisenet_weights only (the mirror
+    provider, PLUGIN_VIEWS views) on a copy of the [cli] workspace: the
+    masks are BiSeNet's head masks of the pasted views."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.cli import train_generate_pseudo
+    from fateavatar_tpu_torch.completion import matting, restoration, segmentation
+    from fateavatar_tpu_torch.completion import pseudo as pseudo_mod
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    t_phase = time.perf_counter()
+    ws = os.path.dirname(os.path.dirname(cli.run))
+    ckpts = dict(pseudo["plugins"], bisenet=os.path.join(ws, "79999_iter_random.pth"))
+    torch.save({k: torch.from_numpy(v) for k, v in segmentation.init_bisenet(0).items()},
+               ckpts["bisenet"])
+    rng = np.random.default_rng(0)
+    crop = rng.random((1, 512, 512, 3)).astype(np.float32)
+    nets, outs = {}, {}
+    for dev in ("cpu", "cuda"):
+        gf = restoration.load_gfpgan_from_torch(ckpts["gfpgan"], device=dev)[0]
+        md = matting.load_modnet_from_torch(ckpts["modnet"], device=dev)
+        bs = segmentation.load_bisenet_from_torch(ckpts["bisenet"], device=dev)
+        x = torch.as_tensor(crop, device=dev)
+        with torch.no_grad():
+            logits = matting.modnet_logits(md.params(), x)
+            outs[dev] = {"gfpgan": gf(x * 2 - 1), "modnet_logits": logits,
+                         "modnet_matte": torch.sigmoid(logits), "bisenet_logits": bs(x)}
+        nets[dev] = (gf, md, bs, x)
+    errs = {k: float((outs["cuda"][k].cpu() - v).abs().max() / v.abs().max())
+            for k, v in outs["cpu"].items()}
+    mx = {k: float(v.abs().max()) for k, v in outs["cpu"].items()}
+    cls_agree = float((outs["cuda"]["bisenet_logits"].argmax(-1).cpu()
+                       == outs["cpu"]["bisenet_logits"].argmax(-1)).float().mean())
+    log(f"[plugins] card vs CPU on one seeded 512^2 image, max |diff| / max |value|: "
+        + ", ".join(f"{k} {e:.1e} (max {mx[k]:.3f})" for k, e in errs.items())
+        + f" (bound {PLUGIN_RTOL}); BiSeNet classes equal at {cls_agree:.5f} of pixels")
+    check(all(e <= PLUGIN_RTOL for e in errs.values()), "the plug-ins card vs CPU")
+    check(all(bool(torch.isfinite(v).all()) for v in outs["cuda"].values()),
+          "finite plug-in outputs")
+
+    gf, md, bs, x = nets["cuda"]
+    del nets["cpu"], outs
+    timing = {}
+    for name, fn in (("gfpgan", lambda: gf(x * 2 - 1)), ("modnet", lambda: md(x)),
+                     ("bisenet", lambda: bs(x))):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(fn, reps=PLUGIN_TIMED)
+            timing[name] = (ms, torch.cuda.max_memory_allocated() / 2**30,
+                            *busy_union_ms(fn))
+    log(f"[plugins] ms per restored 512^2 crop (GFPGAN) {timing['gfpgan'][0]:.3f}, per 512^2 "
+        f"matte (MODNet) {timing['modnet'][0]:.3f}, per 512^2 parse (BiSeNet) "
+        f"{timing['bisenet'][0]:.3f} (CUDA events, {PLUGIN_TIMED} forwards of one image, "
+        f"float32, TF32 off); peak device memory {timing['gfpgan'][1]:.2f} / "
+        f"{timing['modnet'][1]:.2f} / {timing['bisenet'][1]:.2f} GiB; one forward each under "
+        f"the profiler, wall / the card busy: " + ", ".join(
+            f"{k} {v[2]:.2f} / {v[3]:.2f} ms (busy {v[3] / v[2]:.1%})"
+            for k, v in timing.items()) + f" [{card}]")
+    del gf, md, bs, x
+
+    # the BiSeNet path through the CLI, on a copy of the workspace so that
+    # the [pseudo] folder stays for [complete]
+    run2 = os.path.join(ws, "plugins_run")
+    os.makedirs(run2)
+    shutil.copy(os.path.join(cli.run, "identity_info.json"), run2)
+    shutil.copytree(os.path.join(cli.run, "checkpoints"), os.path.join(run2, "checkpoints"))
+    lmk = os.path.join(ws, "landmark_embedding.npy")
+    args = [*cli.config, "--device", "cuda", "--workspace", run2, "--num_views",
+            str(PLUGIN_VIEWS), "--bisenet_weights", ckpts["bisenet"],
+            f"dataset.root_path={cli.root}", *cli.assets,
+            f"assets.landmark_embedding_path={lmk}"]
+    masks = []
+    # ---- the BiSeNet CLI path: counts to 0 just before, read just after
+    zero_counts()
+    t0 = time.perf_counter()
+    with recorded(pseudo_mod.PseudoGenerator, "retrieve_masks", masks):
+        pg = train_generate_pseudo.main(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+    out = pg.result
+    check(isinstance(pg.matting_fn, segmentation.BiSeNetMatting) and pg.restorer_fn is None
+          and isinstance(pg.provider, pseudo_mod.MirrorPseudoProvider),
+          "--bisenet_weights alone: BiSeNet masks, the mirror provider, no restorer")
+    again = np.stack([pg.matting_fn(out["pasted"][i]) for i in (0, PLUGIN_VIEWS - 1)])
+    m = out["masks"]
+    check(m.shape == (PLUGIN_VIEWS, *out["pasted"].shape[1:3])
+          and set(np.unique(m).tolist()) <= {0.0, 1.0}
+          and np.array_equal(again, m[[0, PLUGIN_VIEWS - 1]]),
+          "stage ⑧'s masks are BiSeNet's head masks of the pasted views")
+    check(fwd == PLUGIN_VIEWS and bwd == 0, "one kernel-1 launch per orbit render")
+    log(f"[plugins] train_generate_pseudo --bisenet_weights (mirror provider, {PLUGIN_VIEWS} "
+        f"views; the phase's cut of the CLI's 30) {run_s:.1f} s: stage ⑧ {masks[0][2]:.2f} s "
+        f"({masks[0][2] * 1e3 / PLUGIN_VIEWS:.1f} ms a view, mask PNGs written), head-class "
+        f"share {float(m.mean()):.3f}; kernel 1 launches {fwd}, kernel 2 {bwd}; phase total "
+        f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    rows["blend_instances_fwd"]["plugins_launches"] = fwd
+    return {"card_vs_cpu": errs, "ms": {k: v[0] for k, v in timing.items()},
+            "profiled_wall_busy_ms": {k: v[2:] for k, v in timing.items()},
+            "peak_gib": {k: v[1] for k, v in timing.items()}, "cli_s": run_s}
 
 
 def complete_phase(cli, pseudo, rows, card):
@@ -3785,6 +4198,9 @@ def nersemble_phase(ws, cli, rows, card):
     import numpy as np
     import torch
 
+    _tests_on_path()
+    from torch_determinism import deterministic_sums
+
     from fateavatar_tpu_torch.benchmark import nersemble as tners
     from fateavatar_tpu_torch.cli import run_nersemble_benchmark
     from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
@@ -4195,26 +4611,53 @@ def main():
         profile_top("4 forwards", lambda i: fateavatar_forward(
             model, params_r, state, e0, p0, cam, render_cfg=rcfg), 4, "frame", card)
 
+        # wall seconds of each phase, from the end of the one before
+        laps, t_lap = {}, [t_start]
+
+        def lap(name):
+            now = time.perf_counter()
+            laps[name] = round(now - t_lap[0], 1)
+            t_lap[0] = now
+
+        lap("build, kernels, serve")
         tcfg = tiles_serve_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta,
                                  rows, card)
+        lap("tiles-serve")
         setup = train_setup(ws)
         trainer = train_phase(setup, gen, rows, card)
+        lap("train")
         tiles_train_cfg = tiles_train_phase(setup, trainer, rows, card)
+        lap("tiles-train")
         cli = cli_phase(ws, model, saved, state, rows, card, setup.step_ms)
+        lap("cli")
         graph_phase(setup, trainer, tiles_train_cfg, cli.trainer,
                     (model, params, state, ws, rcfg, tcfg, cam, exprs, poses, delta),
                     rows, card)
+        lap("graph")
         bake = bake_phase(cli, rows, card)
+        lap("bake")
         edit = edit_phase(cli, card)
+        lap("edit")
         log("[bake] summary " + json.dumps({k: v for k, v in bake.items() if k != "baker"}
                                            | {"edit": edit}))
+        tools = tools_phase(cli, rows, card)
+        lap("tools")
         pseudo = pseudo_phase(cli, rows, card)
+        lap("pseudo")
+        plugins = plugins_phase(cli, pseudo, rows, card)
+        lap("plugins")
+        log("[plugins] summary " + json.dumps(plugins | {"tools": tools}))
         complete = complete_phase(cli, pseudo, rows, card)
+        lap("complete")
         log("[complete] summary " + json.dumps({"pseudo": pseudo, "complete": complete}))
         baselines_phase(cli, rows, card)
+        lap("baselines")
         lpips_phase(setup, ws, rows, card)
+        lap("lpips")
         nersemble_phase(ws, cli, rows, card)
+        lap("nersemble")
 
+    log(f"[setup] seconds by phase {json.dumps(laps)}")
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": list(rows.values())}))
     log(card)

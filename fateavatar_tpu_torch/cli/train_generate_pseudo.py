@@ -2,9 +2,13 @@
 
 Port of ``fateavatar_tpu/cli/train_generate_pseudo.py``: the pseudo-view
 pipeline over a trained avatar. With ``--eg3d_weights`` (a ``G_ema``
-state_dict as .pth or .npz) the EG3D PTI provider runs stages ⑤/⑥; without
-it the weight-free mirror provider keeps the pipeline runnable. Runs on the
-card unless ``--device cpu`` is given.
+state_dict as .pth or .npz, or an official network pickle) the EG3D PTI
+provider runs stages ⑤/⑥; without it the weight-free mirror provider keeps
+the pipeline runnable. ``--gfpgan_weights`` restores the aligned crops
+(stage ④); ``--modnet_weights`` mattes the pasted views (stage ⑧), else
+``--bisenet_weights`` parses them into head masks, else the masks come from
+the background colour. Every network runs on ``--device``: the card unless
+``--device cpu`` is given.
 
 Usage:
   python -m fateavatar_tpu_torch.cli.train_generate_pseudo \\
@@ -15,9 +19,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-
-# the plug-in networks and the official pickle wait for a later slice
-_LATER = "not ported yet (ROADMAP Queue 1 item 9: the completion plug-ins)"
 
 
 def main(argv=None):
@@ -31,30 +32,24 @@ def main(argv=None):
                              "gs_camera_radius = camera_translation[-1], "
                              "completion.py:101)")
     parser.add_argument("--bisenet_weights", type=str, default=None,
-                        help="face-parsing BiSeNet weights (not ported yet)")
+                        help="face-parsing.PyTorch 79999_iter.pth; enables BiSeNet "
+                             "head masks for stage 8")
     parser.add_argument("--eg3d_weights", type=str, default=None,
-                        help="EG3D/PanoHead-family G_ema state_dict (.pth/.npz); "
-                             "enables the PTI GAN-inversion provider for stage 5/6")
+                        help="EG3D/PanoHead-family G_ema state_dict (.pth/.npz) or "
+                             "official network pickle (.pkl); enables the PTI "
+                             "GAN-inversion provider for stage 5/6")
     parser.add_argument("--gfpgan_weights", type=str, default=None,
-                        help="GFPGAN weights (not ported yet)")
+                        help="GFPGANv1.3/1.4 checkpoint; enables face restoration "
+                             "for stage 4")
     parser.add_argument("--modnet_weights", type=str, default=None,
-                        help="MODNet matting weights (not ported yet)")
+                        help="MODNet portrait-matting checkpoint; enables matting "
+                             "for stage 8 (takes precedence over --bisenet_weights)")
     parser.add_argument("--pti_w_steps", type=int, default=200)
     parser.add_argument("--pti_g_steps", type=int, default=200)
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to run on (default cuda)")
     parser.add_argument("overrides", nargs="*")
     args = parser.parse_args(argv)
-    for flag, what in (("modnet_weights", "MODNet matting (completion/matting.py)"),
-                       ("bisenet_weights", "BiSeNet face parsing (completion/segmentation.py)"),
-                       ("gfpgan_weights", "GFPGAN restoration (completion/restoration.py)")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag}: {what} is {_LATER}")
-    if args.eg3d_weights and args.eg3d_weights.endswith(".pkl"):
-        raise NotImplementedError(
-            f"--eg3d_weights {args.eg3d_weights}: the official pickle reader "
-            f"(completion/eg3d/pkl_ingest.py) is {_LATER}; pass G_ema.state_dict() "
-            "as a .pth or .npz")
 
     from fateavatar_tpu_torch.cli import common
     from fateavatar_tpu_torch.completion.pseudo import PseudoGenerator, PseudoGeneratorConfig
@@ -72,6 +67,20 @@ def main(argv=None):
     loader = Loader(model, params0, state0, args.workspace,
                     render_cfg=common.render_config(cfg))
 
+    matting_fn = None
+    if args.modnet_weights:
+        from fateavatar_tpu_torch.completion.matting import (
+            MODNetMatting, load_modnet_from_torch,
+        )
+
+        matting_fn = MODNetMatting(load_modnet_from_torch(args.modnet_weights, dev))
+    elif args.bisenet_weights:
+        from fateavatar_tpu_torch.completion.segmentation import (
+            load_bisenet_from_torch, make_bisenet_matting_fn,
+        )
+
+        matting_fn = make_bisenet_matting_fn(load_bisenet_from_torch(args.bisenet_weights, dev))
+
     provider = None
     if args.eg3d_weights:
         from fateavatar_tpu_torch.completion.eg3d import PTIConfig, load_eg3d_from_torch
@@ -85,6 +94,15 @@ def main(argv=None):
         provider = EG3DPseudoProvider(
             generator, PTIConfig(w_steps=args.pti_w_steps, pti_steps=args.pti_g_steps),
             vgg_params=vgg, log_fn=print)
+
+    restorer_fn = None
+    if args.gfpgan_weights:
+        from fateavatar_tpu_torch.completion.restoration import (
+            GFPGANRestorer, load_gfpgan_from_torch,
+        )
+
+        restorer_fn = GFPGANRestorer(load_gfpgan_from_torch(args.gfpgan_weights,
+                                                            device=dev)[0])
 
     orbit_radius = args.orbit_radius
     if orbit_radius is None:
@@ -104,6 +122,8 @@ def main(argv=None):
         ),
         render_cfg=common.render_config(cfg),
         provider=provider,
+        matting_fn=matting_fn,
+        restorer_fn=restorer_fn,
     )
     gen.result = gen.run(identity["fovx"], identity["fovy"])
     print(f"pseudo views written to {args.workspace}/pseudo")

@@ -6,7 +6,8 @@ is the plain ``state_dict`` of ``G_ema`` (``torch.save(G_ema.state_dict(),
 mapping, such as the JAX package's param dict saved with ``np.savez``. Names
 are kept verbatim, and the layouts match (conv [O,I,kh,kw], fc [out,in]),
 so loading is :meth:`EG3DGenerator.load_state_dict` after a shape audit
-against :class:`EG3DConfig`. The official pickle is not read here.
+against :class:`EG3DConfig`. An official network pickle (``.pkl``) is read
+by ``pkl_ingest.load_eg3d_from_pkl`` without executing its embedded code.
 """
 
 from __future__ import annotations
@@ -78,13 +79,14 @@ def generator_from_dict(raw: Dict[str, np.ndarray], cfg: Optional[EG3DConfig] = 
 
 def load_eg3d_from_torch(path: str, cfg: Optional[EG3DConfig] = None, device="cuda"):
     """Load a G_ema state_dict (.pth / .pt through ``torch.load`` with
-    ``weights_only=True``, or .npz). Returns (generator, config); the config
-    is inferred from the shapes unless given."""
+    ``weights_only=True``, or .npz), or the ``G_ema`` of an official network
+    pickle (.pkl). Returns (generator, config); the config is inferred from
+    the shapes unless given."""
     if path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{path}: the official EG3D / PanoHead pickle is not read by the port yet "
-            "(completion/eg3d/pkl_ingest.py waits for a later slice, ROADMAP Queue 1 "
-            "item 9); export G_ema.state_dict() to a .pth instead")
+        from fateavatar_tpu_torch.completion.eg3d.pkl_ingest import load_eg3d_from_pkl
+
+        gen, cfg, _ = load_eg3d_from_pkl(path, cfg=cfg, device=device)
+        return gen, cfg
     if path.endswith(".npz"):
         with np.load(path) as d:
             raw = {k: np.asarray(d[k]) for k in d.files}

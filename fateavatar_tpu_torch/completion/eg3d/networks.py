@@ -38,7 +38,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from fateavatar_tpu_torch.completion.flatnet import FlatNet
 
 Params = Dict[str, torch.Tensor]
 
@@ -184,32 +185,18 @@ def eg3d_random_params(generator: torch.Generator, cfg: EG3DConfig,
     return out
 
 
-class EG3DGenerator(nn.Module):
+class EG3DGenerator(FlatNet):
     """The generator's tensors as a module tree whose ``state_dict()`` keys
     are the flat checkpoint names. Built empty (zeros) at ``cfg``'s shapes,
     or from ``params``; ``load_state_dict`` carries a ``G_ema`` state_dict
-    or the JAX package's param dict across."""
+    or the JAX package's param dict across. :meth:`params` is the flat
+    name -> tensor dict the functions below take."""
 
     def __init__(self, cfg: EG3DConfig, params: Optional[Params] = None, device="cuda"):
-        super().__init__()
+        super().__init__({name: (params[name] if params is not None
+                                 else torch.zeros(shape, device=device))
+                          for name, (shape, _) in param_spec(cfg).items()}, _is_buffer)
         self.cfg = cfg
-        for name, (shape, _) in param_spec(cfg).items():
-            value = (params[name] if params is not None
-                     else torch.zeros(shape, device=device))
-            *path, leaf = name.split(".")
-            mod = self
-            for part in path:
-                if not hasattr(mod, part):
-                    mod.add_module(part, nn.Module())
-                mod = getattr(mod, part)
-            if _is_buffer(name):
-                mod.register_buffer(leaf, value.detach().clone())
-            else:
-                mod.register_parameter(leaf, nn.Parameter(value.detach().clone()))
-
-    def params(self) -> Params:
-        """The flat name -> tensor dict the functions below take."""
-        return {**dict(self.named_parameters()), **dict(self.named_buffers())}
 
 
 # ---------------------------------------------------------------------------

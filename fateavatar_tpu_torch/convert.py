@@ -109,6 +109,25 @@ def lpips_params_from_jax(params, device="cuda") -> LpipsParams:
         [np.asarray(lin) for lin in params.lins], device)
 
 
+def verbatim_state_dict(params: dict) -> dict:
+    """A JAX param dict (name -> array) as float32 tensors under the same
+    names and layouts: the state_dict of the port's GFPGAN
+    (``completion.restoration``) and MODNet (``completion.matting``), whose
+    JAX params are already in their checkpoints' layout."""
+    return {k: torch.tensor(np.asarray(v, np.float32)) for k, v in params.items()}
+
+
+gfpgan_state_dict = modnet_state_dict = verbatim_state_dict
+
+
+def bisenet_state_dict(params: dict) -> dict:
+    """The JAX package's BiSeNet param dict as the state_dict of the port's
+    ``completion.segmentation.BiSeNet``: conv kernels HWIO -> OIHW, the
+    rest verbatim."""
+    return verbatim_state_dict({k: np.asarray(v).transpose(3, 2, 0, 1) if np.ndim(v) == 4 else v
+                           for k, v in params.items()})
+
+
 def train_state(d: dict, device="cuda", seed: int = 0) -> TrainState:
     """A whole TrainState: params, state, opt_state and step. JAX's PRNG key
     has no torch counterpart; the densify generator is seeded with

@@ -1,6 +1,6 @@
-"""Minimal Wavefront OBJ reading (host side, numpy).
+"""Minimal Wavefront OBJ reading and writing (host side, numpy).
 
-Copy of ``fateavatar_tpu/utils/obj_io.py``'s ``load_obj`` and
+Copy of ``fateavatar_tpu/utils/obj_io.py``'s ``load_obj``, ``save_obj`` and
 ``sphere_obj_mesh``: v/vt/f with ``v/vt`` face syntax — enough for the FLAME
 head template with UVs.
 """
@@ -47,6 +47,14 @@ def load_obj(path: str) -> ObjMesh:
         uvcoords=np.asarray(uvs, np.float32) if uvs else np.zeros((0, 2), np.float32),
         uvfaces=np.asarray(uvfaces, np.int32) if uvs else np.zeros((0, 3), np.int32),
     )
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
+    with open(path, "w") as f:
+        for v in np.asarray(verts):
+            f.write(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
+        for face in np.asarray(faces):
+            f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")
 
 
 def sphere_obj_mesh(n_verts: int = 256, seed: int = 0) -> ObjMesh:

@@ -11,7 +11,8 @@ float32 operations in the same order; :func:`resize_bicubic_u8` is PIL's
 default ``Image.resize`` of a grey image (bicubic, fixed point), for the
 masks. Non-interlaced PNGs of every colour
 type and bit depth are read; anything else raises ``ValueError`` naming the
-file. :func:`write_png` writes 8-bit grey, RGB or RGBA with filter 0.
+file. :func:`write_png` / :func:`encode_png` write 8-bit grey, RGB or RGBA with
+filter 0.
 """
 
 from __future__ import annotations
@@ -266,18 +267,18 @@ def decode_image(path: str, width: int, height: int):
     return resize_to_rgba(img, width, height), img.shape[2]
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] as an 8-bit
-    grey, RGB or RGBA PNG, every row with filter 0."""
+def encode_png(img: np.ndarray) -> bytes:
+    """uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] as the bytes of an
+    8-bit grey, RGB or RGBA PNG, every row with filter 0."""
     arr = np.asarray(img)
     if arr.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8, got {arr.dtype}")
+        raise ValueError(f"a PNG is written from uint8, got {arr.dtype}")
     if arr.ndim == 2:
         arr = arr[..., None]
     h, w, c = arr.shape
     color = {1: 0, 3: 2, 4: 6}.get(c)
     if color is None:
-        raise ValueError(f"write_png takes 1, 3 or 4 channels, got {c}")
+        raise ValueError(f"a PNG is written from 1, 3 or 4 channels, got {c}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8),
                            np.ascontiguousarray(arr).reshape(h, w * c)], axis=1)
 
@@ -285,8 +286,13 @@ def write_png(path: str, img: np.ndarray) -> None:
         crc = zlib.crc32(kind + body) & 0xFFFFFFFF
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
 
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Write uint8 [H, W], [H, W, 1], [H, W, 3] or [H, W, 4] as an 8-bit
+    grey, RGB or RGBA PNG (:func:`encode_png`)."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
+        f.write(data)

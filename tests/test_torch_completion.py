@@ -24,7 +24,7 @@ import torch
 
 from test_torch_tracking import _jax_avatar
 from torch_layouts import (face_landmark_embedding, face_layout_68, orbit, write_imavatar,
-                           write_landmark_embedding)
+                           write_landmark_embedding, write_network_pkl)
 from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
 from fateavatar_tpu.completion import camera_sampler as jcs
 from fateavatar_tpu.completion import pseudo as jpseudo
@@ -42,9 +42,13 @@ from fateavatar_tpu.utils.obj_io import sphere_obj_mesh
 from fateavatar_tpu_torch.cli import train_full_avatar, train_generate_pseudo, train_mono_avatar
 from fateavatar_tpu_torch.completion import alignment as ta
 from fateavatar_tpu_torch.completion import camera_sampler as tcs
+from fateavatar_tpu_torch.completion import matting as tmat
 from fateavatar_tpu_torch.completion import pseudo as tpseudo
+from fateavatar_tpu_torch.completion import restoration as tres
+from fateavatar_tpu_torch.completion import segmentation as tseg
 from fateavatar_tpu_torch.completion import trainer as tctrainer
 from fateavatar_tpu_torch.completion.eg3d import networks as tn
+from fateavatar_tpu_torch.completion.eg3d.provider import EG3DPseudoProvider
 from fateavatar_tpu_torch.flame import flame as tflame
 from fateavatar_tpu_torch.flame import loader as tloader
 from fateavatar_tpu_torch.models import fateavatar as tfa
@@ -537,7 +541,11 @@ def test_cli_pseudo_and_full_avatar(tmp_path, monkeypatch):
     dropped), 2 steps per real frame, finite losses, the orbit video and six
     fixed-view videos (GIFs where ffmpeg is missing). The CLIs crop at 512;
     here at 64 (a monkeypatch), so that the CPU warps 140^2, not 1,126^2.
-    The unported plug-ins and the official pickle raise, naming the slice."""
+    Then the plug-ins through the pseudo CLI: the G_ema as an official
+    network pickle with GFPGAN (stage ④, at ``tiny_gfpgan_config()`` by a
+    monkeypatch: the CLI loads ``GFPGANConfig()``) and MODNet, whose mattes
+    win over BiSeNet's masks (stage ⑧); then BiSeNet alone (at infer_size
+    64 by a monkeypatch), its binary head masks."""
     cfg_cls = tpseudo.PseudoGeneratorConfig
     monkeypatch.setattr(tpseudo, "PseudoGeneratorConfig",
                         lambda **k: cfg_cls(**{**k, "crop_size": 64}))
@@ -584,10 +592,41 @@ def test_cli_pseudo_and_full_avatar(tmp_path, monkeypatch):
         assert any(os.path.exists(os.path.join(media, "fullhead_orbit" + e))
                    for e in (".mp4", ".gif"))
         assert len(os.listdir(os.path.join(media, "fixed_views"))) == 6
-    for flag in ("--gfpgan_weights", "--modnet_weights", "--bisenet_weights"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            train_generate_pseudo.main([*config, "--device", "cpu", "--workspace", run,
-                                        flag, "w.pth", *overrides])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        train_generate_pseudo.main([*config, "--device", "cpu", "--workspace", run,
-                                    "--eg3d_weights", "g.pkl", *overrides])
+
+    # the plug-ins through the CLI, from seeded checkpoints in their public
+    # layouts (the pickle, {"params_ema": ...}, "module." names, the
+    # 79999_iter.pth state dict)
+    write_network_pkl(os.path.join(ws, "g.pkl"),
+                      {"G_ema": ({k: v.numpy() for k, v in gen_sd.items()}, {})})
+    gen_pl = torch.Generator().manual_seed(1)
+    torch.save({"params_ema": tres.gfpgan_random_params(gen_pl, tres.tiny_gfpgan_config(),
+                                                        device="cpu")},
+               os.path.join(ws, "gfpgan.pth"))
+    torch.save({f"module.{k}": v for k, v in
+                tmat.modnet_random_params(gen_pl, device="cpu").items()},
+               os.path.join(ws, "modnet.ckpt"))
+    torch.save({k: torch.from_numpy(v) for k, v in tseg.init_bisenet(0).items()},
+               os.path.join(ws, "bisenet.pth"))
+    tiny = tres.tiny_gfpgan_config()
+    monkeypatch.setattr(tres, "GFPGANConfig", lambda: tiny)
+    bisenet_fn = tseg.make_bisenet_matting_fn
+    monkeypatch.setattr(tseg, "make_bisenet_matting_fn", lambda net: bisenet_fn(net, infer_size=64))
+    plugins = ["--gfpgan_weights", os.path.join(ws, "gfpgan.pth"),
+               "--modnet_weights", os.path.join(ws, "modnet.ckpt"),
+               "--bisenet_weights", os.path.join(ws, "bisenet.pth")]
+    gen = train_generate_pseudo.main([*config, "--device", "cpu", "--workspace", run,
+                                      "--num_views", "8", "--eg3d_weights",
+                                      os.path.join(ws, "g.pkl"), "--pti_w_steps", "1",
+                                      "--pti_g_steps", "1", *plugins, *overrides])
+    out = gen.result
+    assert isinstance(gen.provider, EG3DPseudoProvider) and len(gen.provider.losses["w"]) == 1
+    assert isinstance(gen.restorer_fn, tres.GFPGANRestorer)
+    assert isinstance(gen.matting_fn, tmat.MODNetMatting)
+    assert len(np.unique(out["masks"])) > 2          # soft mattes, not the fallback
+    np.testing.assert_array_equal(out["masks"][0], gen.matting_fn(out["pasted"][0]))
+    gen = train_generate_pseudo.main([*config, "--device", "cpu", "--workspace", run,
+                                      "--num_views", "8", *plugins[4:], *overrides])
+    assert isinstance(gen.matting_fn, tseg.BiSeNetMatting) and gen.restorer_fn is None
+    masks = gen.result["masks"]
+    assert set(np.unique(masks).tolist()) <= {0.0, 1.0}
+    np.testing.assert_array_equal(masks[3], gen.matting_fn(gen.result["pasted"][3]))

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from torch_blend_cases import BLEND_CASES, blend_case
+from torch_determinism import deterministic_sums
 from torch_tile_cases import TILE_CASES, tile_case
 
 from fateavatar_tpu_torch.render import blend_instances as tblend
@@ -243,7 +244,7 @@ def test_tile_bwd_kernel_writes_every_element():
 
 @pytest.mark.cuda
 def test_png_codec_round_trip(tmp_path):
-    """The port's PNG writer and reader on the card's host (no PIL there):
+    """The port's PNG writer and reader on the card's host (the port needs no PIL):
     grey, RGB and RGBA round-trip exactly, and decode_image at the native
     size returns the bytes / 255."""
     if not torch.cuda.is_available():
@@ -535,33 +536,40 @@ def test_bake_step_graph_matches_eager():
     first loss within 1e-6 relative, every trainable and BatchNorm
     statistic after the step within 1e-4 relative L2, an epoch's losses
     within 1e-3; one launch of kernels 1 and 2 per replay and per eager
-    step; the replays count the steps."""
+    step; the replays count the steps. The pair runs with every sum in a
+    fixed order (deterministic cuDNN, ``torch_determinism.deterministic_sums``,
+    the graph captured under them), as chip_smoke.py's [bake] gate does:
+    with atomic sums before one Adam step the state read 1.0-1.6e-4 in some
+    runs."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     baker = _bake_setup()
     frame = baker._prep(baker.dataset.sample(1))
     snap = baker.snapshot()
-    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
-    baker.eager = True
-    loss_e = float(baker.step(frame)[0])
-    assert (tblend.blend_instances.launches - f0, tblend.blend_instances_bwd.launches - b0) \
-        == (1, 1)
-    after_e = baker.snapshot()
-    baker.restore(snap)
-    baker.eager = False
-    loss_g = float(baker.step(frame)[0])
-    assert baker.graph.launches_per_replay == {"blend_instances_fwd": 1,
-                                               "blend_instances_bwd": 1}
-    assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e)
-    n = len(baker.trainables) + len(baker.stats)
-    for a, b in zip(baker.snapshot()[:n], after_e[:n]):
-        assert _rel_l2(a, b) <= 1e-4
-    losses = {}
-    for mode in ("eager", "graph"):
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=torch.backends.cudnn.allow_tf32), \
+            deterministic_sums():
+        f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+        baker.eager = True
+        loss_e = float(baker.step(frame)[0])
+        assert (tblend.blend_instances.launches - f0,
+                tblend.blend_instances_bwd.launches - b0) == (1, 1)
+        after_e = baker.snapshot()
         baker.restore(snap)
-        baker.eager = mode == "eager"
-        baker.bake_epoch()
-        losses[mode] = np.asarray(baker.epoch_losses)
+        baker.eager = False
+        loss_g = float(baker.step(frame)[0])
+        assert baker.graph.launches_per_replay == {"blend_instances_fwd": 1,
+                                                   "blend_instances_bwd": 1}
+        assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e)
+        n = len(baker.trainables) + len(baker.stats)
+        for a, b in zip(baker.snapshot()[:n], after_e[:n]):
+            assert _rel_l2(a, b) <= 1e-4
+        losses = {}
+        for mode in ("eager", "graph"):
+            baker.restore(snap)
+            baker.eager = mode == "eager"
+            baker.bake_epoch()
+            losses[mode] = np.asarray(baker.epoch_losses)
     assert baker.graph.replays == 1 + len(baker.dataset)
     rel = np.abs(losses["graph"] - losses["eager"]) / np.abs(losses["eager"])
     assert np.isfinite(losses["graph"]).all() and rel.max() <= 1e-3

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from test_torch_tracking import vgg_np
+from torch_layouts import write_network_pkl
 from torch_single_thread import one_torch_thread  # noqa: F401 (autouse fixture)
 from fateavatar_tpu.completion.camera_sampler import sample_orbit_pose
 from fateavatar_tpu.completion.eg3d import convert as jconvert
@@ -315,8 +316,9 @@ def test_checkpoint_round_trips_and_infer_config(gens, tmp_path):
     """A .npz (the JAX dict, numpy) and a .pth (the port's state_dict) load
     back bit-equal with the inferred config equal to JAX's infer_config
     (and to the tiny config); infer_config agrees at the default and a
-    tri-grid config (shapes only); a missing tensor raises naming it; an
-    official pickle raises."""
+    tri-grid config (shapes only); a missing tensor raises naming it; the
+    dict as an official network pickle (G_ema a persistence module graph)
+    loads back bit-equal at the same config."""
     _, gen, p = gens
     np.savez(tmp_path / "g.npz", **p)
     torch.save(gen.state_dict(), tmp_path / "g.pth")
@@ -334,8 +336,10 @@ def test_checkpoint_round_trips_and_infer_config(gens, tmp_path):
     broken = {k: v for k, v in p.items() if k != "decoder.net.2.bias"}
     with pytest.raises(KeyError, match="decoder.net.2.bias"):
         tconvert.generator_from_dict(broken, TCFG, device="cpu")
-    with pytest.raises(NotImplementedError, match="pkl_ingest"):
-        tconvert.load_eg3d_from_torch("g_ema.pkl", device="cpu")
+    write_network_pkl(str(tmp_path / "g.pkl"), {"G_ema": (p, {})})
+    g3, cfg3 = tconvert.load_eg3d_from_torch(str(tmp_path / "g.pkl"), device="cpu")
+    assert cfg3 == cfg2
+    assert all(torch.equal(g3.state_dict()[k], gen.state_dict()[k]) for k in p)
 
 
 def test_provider_glue_matches_jax(gens, monkeypatch):

@@ -2,13 +2,20 @@
 IMAvatar (``<root>/<subj>_<mode>/flame_params.json`` + ``matted/<i>.png``),
 INSTA (``transforms_<mode>.json`` + ``images/`` + ``flame/*/<i>.txt``) and
 the NeRSemble benchmark export (``calibration.json`` + per-sequence
-``flame_params.json`` and train-serial images), and a FLAME landmark
-embedding with a face layout on a head mesh's front.
-Shared by the CPU tests and chip_smoke.py; numpy only, with the PNG writer
-passed in (PIL in the tests, the port's own where PIL is absent)."""
+``flame_params.json`` and train-serial images), a FLAME landmark
+embedding with a face layout on a head mesh's front, and StyleGAN-family
+network pickles in the upstream ``torch_utils.persistence`` format.
+Shared by the CPU tests and chip_smoke.py; numpy only (torch for the
+pickles' tensors), with the PNG writer passed in (PIL in the tests, the
+port's own where PIL is absent)."""
 
+import collections
 import json
 import os
+import pickle
+import sys
+import types
+from contextlib import contextmanager
 
 import numpy as np
 
@@ -216,3 +223,104 @@ def write_nersemble(root, participant, calib, sequences, shape_params, write_png
             for fr, img in zip(frames, imgs):
                 write_png(os.path.join(idir, fr["name"] + ".png"), img)
     return pdir
+
+
+# ---------------------------------------------------------------------------
+# network pickles in the upstream persistence format
+# ---------------------------------------------------------------------------
+
+MODULE_SRC = "raise RuntimeError('embedded network source was executed!')\n"
+
+
+@contextmanager
+def persistence_writer():
+    """Throwaway ``torch_utils.persistence`` / ``dnnlib`` modules, so that
+    pickling records the real qualified names; yields the ``EasyDict``
+    class. Removed on exit: a reader must not need them."""
+    saved = {k: sys.modules.get(k) for k in
+             ("torch_utils", "torch_utils.persistence", "dnnlib")}
+    tu = types.ModuleType("torch_utils")
+    pers = types.ModuleType("torch_utils.persistence")
+
+    def _reconstruct_persistent_obj(meta):   # writer side: never called
+        raise AssertionError("writer-side reconstructor invoked")
+
+    # pickle records globals by (module, qualname): give the writer-side
+    # function the real persistence names
+    _reconstruct_persistent_obj.__module__ = "torch_utils.persistence"
+    _reconstruct_persistent_obj.__qualname__ = "_reconstruct_persistent_obj"
+    pers._reconstruct_persistent_obj = _reconstruct_persistent_obj
+    tu.persistence = pers
+
+    dnnlib = types.ModuleType("dnnlib")
+
+    class EasyDict(dict):
+        def __getattr__(self, k):
+            return self[k]
+
+    EasyDict.__module__ = "dnnlib"
+    EasyDict.__qualname__ = "EasyDict"
+    dnnlib.EasyDict = EasyDict
+    sys.modules.update({"torch_utils": tu, "torch_utils.persistence": pers,
+                        "dnnlib": dnnlib})
+    try:
+        yield EasyDict
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+
+
+class _Persisted:
+    """Writer-side stand-in for a persistence-wrapped nn.Module: pickles
+    exactly like one."""
+
+    def __init__(self, meta):
+        self.meta = meta
+
+    def __reduce__(self):
+        fn = sys.modules["torch_utils.persistence"]._reconstruct_persistent_obj
+        return (fn, (self.meta,))
+
+
+def nest_state_dict(flat, easydict, class_name="Generator"):
+    """flat {'a.b.weight': array} -> a persistence module graph of torch
+    tensors (inside :func:`persistence_writer`)."""
+    import torch
+
+    params = collections.OrderedDict()
+    children = {}
+    for k, v in flat.items():
+        if "." in k:
+            head, rest = k.split(".", 1)
+            children.setdefault(head, {})[rest] = v
+        else:
+            params[k] = torch.from_numpy(np.asarray(v))
+    modules = collections.OrderedDict(
+        (name, nest_state_dict(sub, easydict, class_name=name))
+        for name, sub in children.items())
+    state = dict(_parameters=params, _buffers=collections.OrderedDict(),
+                 _modules=modules, training=False)
+    meta = easydict(type="class", version=6, module_src=MODULE_SRC,
+                    class_name=class_name, state=state)
+    return _Persisted(meta)
+
+
+def write_network_pkl(path, nets, protocol=4):
+    """An upstream network snapshot: ``nets`` {entry ("G", "G_ema", ...):
+    (flat state dict, {attribute: value})}, each entry a persistence module
+    graph carrying its attributes (EasyDicts for dict values), beside
+    ``training_set_kwargs`` and ``augment_pipe = None``."""
+    with persistence_writer() as easydict:
+        data = {}
+        for entry, (flat, attrs) in nets.items():
+            mod = nest_state_dict(flat, easydict)
+            for k, v in attrs.items():
+                mod.meta["state"][k] = easydict(v) if isinstance(v, dict) else v
+            data[entry] = mod
+        data["training_set_kwargs"] = easydict(resolution=512)
+        data["augment_pipe"] = None
+        with open(path, "wb") as fh:
+            pickle.dump(data, fh, protocol=protocol)
