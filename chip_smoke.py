@@ -38,6 +38,21 @@ weights), each through both routes of ``RenderConfig.kernel``:
   each way, the replays under the profiler; ``fps_performance_test``; and
   ``Reenactor.reenact``'s graph on both routes against the eager loop (bit
   for bit), with ms/frame each way;
+* the rasterizer's options (``[options]``), on the serving cell at caps
+  probed from its frame 0: every instance binning mode (onesort, twotier,
+  stable, count, gather, twokey) in the compact layout and in the aligned
+  one with either re-layout, bit-equal to the same mode's run on the CPU,
+  with its ms and the frame rendered under each; one step's ``render()``
+  gradients through the slots, grouped and sorted transposes against the
+  slim one; the early exit of ``t_cutoff`` 1e-3 and 1e-2 in kernels 1 and
+  2 against the plain versions on the served frame and on the same frame
+  with every opacity raised to 0.9 (the cut per tile, the forward, the
+  backward, a NaN-filled backward buffer, 1e-4 giving the bits of 0), with
+  the kernels' ms, the cut's and the columns walked; and
+  ``Reenactor.reenact``'s graph (count binning, aligned layout, t_cutoff
+  1e-3) and one Trainer graph step at t_cutoff 1e-3, each bit-equal to
+  eager; ``[baselines]`` adds the early exit's reading on
+  MonoGaussianAvatar's deep lists;
 * neural baking (``[bake]``): ``cli/train_neural_baking`` on the ``[cli]``
   workspace (the UNet decoder from its fixed 512x512 const, the avatar
   doubled to 265,536 splats, 2 epochs through the bake step's CUDA graph):
@@ -249,14 +264,16 @@ KERNELS = {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:92",
-        "design": SEGMENTED,
+        "design": SEGMENTED + "; t_cutoff > 1e-4: the cut first (each 128-column window's "
+                  "products in parallel, then a scan a tile), then the walk up to the cut",
         "pr": 4,
     },
     "blend_instances_bwd": {
         "route": "cuda",
         "source": "fateavatar_tpu_torch/csrc/blend_instances_bwd.cu",
         "replaces": "fateavatar_tpu/render/blend_instances.py:183",
-        "design": SEGMENTED,
+        "design": SEGMENTED + "; t_cutoff > 1e-4: the forward's cut, the columns past it "
+                  "zeroed",
         "pr": 4,
     },
     "blend_tiles_fwd": {
@@ -479,8 +496,9 @@ def instance_kernel_cases(rows):
 
 def segment_split(label, fn, card, n=10):
     """Device ms of each launch of a kernel wrapper (its plan, pass A, pass
-    B, and the forward's combine or kernel 4's zero tail) over ``n`` calls
-    under torch.profiler."""
+    B, and the forward's combine or kernel 4's zero tail; the early exit's
+    cut pass) over ``n`` calls under torch.profiler, printed and returned by
+    kernel name."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -492,9 +510,11 @@ def segment_split(label, fn, card, n=10):
             fn()
         torch.cuda.synchronize()
     ks = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    split = {e.key.replace("(anonymous namespace)::", "").split("(")[0]:
+             round(e.self_device_time_total / n / 1e3, 4) for e in ks}
     log(f"[kernel] {label} launches, device ms per call (torch.profiler, {n} calls): "
-        + ", ".join(f"{e.key.replace('(anonymous namespace)::', '').split('(')[0]} "
-                    f"{e.self_device_time_total / n / 1e3:.4f}" for e in ks) + f" [{card}]")
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items()) + f" [{card}]")
+    return split
 
 
 def past_lists(counts, k):
@@ -3424,6 +3444,400 @@ def graph_phase(s, trainer_i, tiles_cfg, cli_tr, serve, rows, card):
 
 
 # ---------------------------------------------------------------------------
+# [options]: the rasterizer's remaining RenderConfig options at full width
+# ---------------------------------------------------------------------------
+
+OPTION_MODES = ("onesort", "twotier", "stable", "count", "gather", "twokey")
+OPTION_LAYOUTS = (("compact", "scatter"), ("aligned", "scatter"), ("aligned", "gather"))
+OPTION_CUTOFFS = (1e-3, 1e-2)
+CUT_MARGIN = 1e-5         # tiles whose q is this close to the cutoff may cut elsewhere
+OPAQUE_MIN = 0.9          # the opaque frame's smallest opacity
+OPTION_GRAPH_FRAMES = 8   # served frames through the options' graph
+OPTION_GRAPH_CUTOFF = 1e-2   # the options' graph: the opaque avatar cuts tiles here
+# the Trainer's graph step takes the first of these that cuts a tile of its frame
+TRAIN_GRAPH_CUTOFFS = (1e-3, 1e-2, 1e-1, 0.5, 0.9)
+TRANSPOSE_RTOL = 1e-4     # each transpose's gradients vs slim, of each field's largest
+
+
+def opaque_params(params):
+    """The avatar with every opacity raised to at least OPAQUE_MIN."""
+    import math
+
+    lo = math.log(OPAQUE_MIN / (1 - OPAQUE_MIN))
+    return dataclasses.replace(params, opacity=params.opacity.clamp_min(lo))
+
+
+def tiles_cut_recorder(cutoff, counts):
+    """A stand-in for render()'s blend (see swapped_blend) that appends to
+    ``counts`` how many tiles the early exit at ``cutoff`` cuts on the
+    inputs it is given (the cut pass alone, not a launch of kernel 1), then
+    blends as render() would."""
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    def record(inst, starts, bg, grid, **kw):
+        counts.append(int((bi.blend_cut(inst.detach(), starts, grid, cutoff).long()
+                           < starts[1:].long()).sum()))
+        return bi.blend_instances(inst, starts, bg, grid, **kw)
+
+    return record
+
+
+def option_frames(model, params, state, cam, e0, p0, rcfg):
+    """The blend inputs of the served frame 0 and of the same frame with
+    every opacity raised to at least OPAQUE_MIN (the opaque frame), each
+    captured from fateavatar_forward, whose overflow must be 0."""
+    import torch
+
+    from fateavatar_tpu_torch.models.fateavatar import fateavatar_forward
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    out = {}
+    for name, p in (("served", params), ("opaque", opaque_params(params))):
+        captured = []
+
+        def record(*args, **kw):
+            captured.append(args)
+            return bi.blend_instances(*args, **kw)
+
+        with torch.no_grad(), swapped_blend(record):
+            ovf = int(fateavatar_forward(model, p, state, e0, p0, cam, render_cfg=rcfg)["overflow"])
+        check(ovf == 0, f"[options] {name} frame: overflow 0")
+        out[name] = captured[0]
+    return out
+
+
+def cutoff_forward(label, inst, starts, bg, grid, cutoff):
+    """Kernel 1 with the early exit (t_cutoff = ``cutoff``) against the plain
+    version on the same inputs: the forward's cut equals the cut pass
+    launched alone; it equals the plain version's cut on every tile whose
+    margin (|max q - cutoff| / cutoff at the decisions taken) exceeds
+    CUT_MARGIN; the forward is within TOL on the tiles whose cut agrees and
+    within cutoff + TOL on every tile. Returns (img, t_final, cut, the plain
+    cut, the tiles that agree, numbers for the summary)."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    s, e = starts[:-1].long(), starts[1:].long()
+    img_k, tfin_k, cut = bi.blend_instances_fwd(inst, starts, bg, grid, cutoff=cutoff)
+    cut_alone = bi.blend_cut(inst, starts, grid, cutoff)
+    cut_p, margin = bi.window_cut(inst, inst[9], s, e, grid, cutoff, return_margin=True)
+    check(torch.equal(cut, cut_alone), f"[options] {label}: the forward's cut == the cut "
+          "pass alone")
+    agree = cut.long() == cut_p
+    sure = margin > CUT_MARGIN
+    check(bool(agree[sure].all()), f"[options] {label}: cut == the plain cut on every tile "
+          f"with margin > {CUT_MARGIN} ({int((~agree & sure).sum())} off)")
+    img_p, tfin_p = bi.blend_instances_reference(inst, starts, bg, grid, cutoff=cutoff)
+    d = torch.maximum((img_k - img_p).abs().amax(dim=(1, 2)), (tfin_k - tfin_p).abs().amax(dim=1))
+    check(bool((d[agree] <= TOL).all()), f"[options] {label}: forward within {TOL} on the "
+          f"tiles whose cut agrees ({float(d[agree].max()):.3e})")
+    check(float(d.max()) <= cutoff + TOL, f"[options] {label}: forward within cutoff + {TOL} "
+          f"on every tile ({float(d.max()):.3e})")
+    stats = {"columns": int((torch.minimum(e, cut.long()) - s).sum()),
+             "tiles_cut": int((cut.long() < e).sum()), "tiles_off": int((~agree).sum()),
+             "tiles_near": int((~sure).sum()), "fwd_err": float(d[agree].max())}
+    return img_k, tfin_k, cut, cut_p, agree, stats
+
+
+def options_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, trainer, rows,
+                  card):
+    """[options]: the rasterizer's RenderConfig options at full width on the
+    serving cell (the yaml's avatar, 512x512, 65,536 splats, the served
+    codes): every binning mode and layout against the CPU, the gather
+    transposes against the slim one, the early exit of kernels 1 and 2
+    against the plain versions (the served and an opaque frame), and the
+    options through the served frame's and the Trainer's CUDA graphs."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from torch_determinism import deterministic_sums
+
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians, fateavatar_forward
+    from fateavatar_tpu_torch.render import autosize, binning
+    from fateavatar_tpu_torch.render import blend_instances as bi
+    from fateavatar_tpu_torch.render.preprocess import preprocess
+    from fateavatar_tpu_torch.render.render import render
+    from fateavatar_tpu_torch.train.loader import Reenactor
+    from fateavatar_tpu_torch.utils.graphs import WARMUP
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    fwd_row, bwd_row = rows["blend_instances_fwd"], rows["blend_instances_bwd"]
+    e0 = torch.from_numpy(exprs[0]).to(dev)
+    p0 = torch.from_numpy(poses[0]).to(dev)
+    with torch.no_grad():
+        gaussians = build_gaussians(model, params, state, e0, p0)[0]
+        prep = preprocess(cam, gaussians.xyz, gaussians.get_scaling, gaussians.get_rotation,
+                          gaussians.get_opacity, gaussians.get_features, gaussians.sh_degree,
+                          alive=gaussians.alive)
+    grid = binning.tile_grid(cam.width, cam.height)
+    T = grid[0] * grid[1]
+    n = prep.depth.shape[0]
+    total, max_t, n_big = (int(x) for x in autosize.occupancy_stats(
+        (prep.soa[0], prep.soa[1]), prep.depth, prep.radius, grid))
+    caps = autosize.size_caps(total, max_t, n, T, dataclasses.replace(rcfg, binning="twotier"),
+                              big_count=n_big)
+    log(f"[options] the served frame 0: {total} instances, up to {max_t} tiles a splat, "
+        f"{n_big} splats over {caps.tail_r0} -> probed caps instance_budget "
+        f"{caps.instance_budget}, R {caps.max_tiles_per_gaussian}, tail_k {caps.tail_k}")
+
+    # ---- 1. binning modes: card vs CPU bit for bit, ms, rendered frames
+    def cfg_of(mode, layout, relayout="scatter", **kw):
+        return dataclasses.replace(caps, binning=mode, layout=layout, relayout=relayout, **kw)
+
+    bg = model.bg_color
+    args = (prep.soa[0], prep.soa[1], prep.depth, prep.radius, grid)
+    cpu_args = tuple(x.cpu() for x in args[:4]) + (grid,)
+    kw = dict(max_tiles_per_gaussian=caps.max_tiles_per_gaussian,
+              instance_budget=caps.instance_budget, tail_r0=caps.tail_r0, tail_k=caps.tail_k,
+              chunk=bi.CHUNK)
+    runs, bin_ms, cpu_runs = [], {}, {}
+    t0 = time.perf_counter()
+    for mode in OPTION_MODES:
+        for layout, relayout in OPTION_LAYOUTS:
+            tag = f"{mode}/{layout}/{relayout}"
+            run = dict(kw, sort_mode=mode, layout=layout, relayout=relayout)
+            lists = binning.build_instance_lists(*args, **run)
+            bin_ms[tag] = round(cuda_ms(lambda: binning.build_instance_lists(*args, **run),
+                                        reps=5), 4)
+            # 'count' and 'gather' give the aligned layout whatever it says
+            key = (mode,) if mode in ("count", "gather") else (mode, layout, relayout)
+            if key not in cpu_runs:
+                cpu_runs[key] = binning.build_instance_lists(*cpu_args, **run)
+            same = all(torch.equal(getattr(lists, f).cpu(), getattr(cpu_runs[key], f))
+                       for f in ("instances", "tile_starts", "overflow"))
+            check(same and int(lists.overflow) == 0,
+                  f"[options] binning {tag}: card == CPU bit for bit, overflow 0")
+            with torch.no_grad():
+                img = render(cam, gaussians, bg, config=cfg_of(mode, layout, relayout))["render"]
+            runs.append((tag, lists, img))
+    classes = []          # runs with the same instance array
+    for tag, lists, img in runs:
+        for c in classes:
+            if (torch.equal(lists.instances, c[0][1].instances)
+                    and torch.equal(lists.tile_starts, c[0][1].tile_starts)):
+                c.append((tag, lists, img))
+                break
+        else:
+            classes.append([(tag, lists, img)])
+    for c in classes:
+        check(all(torch.equal(img, c[0][2]) for _, _, img in c),
+              f"[options] frames of one instance array bit-equal: {[x[0] for x in c]}")
+    compact_vs_aligned = torch.equal(runs[0][2], runs[1][2])
+    log(f"[options] binning, each mode x layout x relayout on the card == the CPU's run "
+        f"bit for bit (instances, tile_starts, overflow 0; {len(cpu_runs)} CPU runs, "
+        f"{time.perf_counter() - t0:.1f} s with the renders); {len(classes)} distinct "
+        f"instance arrays: {[[x[0] for x in c] for c in classes]}, each class's frames "
+        f"bit-equal; onesort compact vs aligned frames bit-equal {compact_vs_aligned}")
+    log(f"[options] binning ms (CUDA events, 5 calls): {json.dumps(bin_ms)} [{card}]")
+
+    # ---- 2. the gather transposes: one step's render() gradients
+    rng = np.random.default_rng(3)
+    g_img = torch.from_numpy(rng.normal(size=(cam.height, cam.width, 3)).astype(np.float32)).to(dev)
+    g_t = torch.from_numpy(rng.normal(size=(cam.height, cam.width)).astype(np.float32)).to(dev)
+    fields = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
+
+    def grads(cfg):
+        leaves = {f: getattr(gaussians, f).detach().clone().requires_grad_() for f in fields}
+        probe = torch.zeros((2, n), device=dev, requires_grad=True)
+        out = render(cam, dataclasses.replace(gaussians, **leaves), bg, config=cfg,
+                     means2d_probe=probe)
+        check(int(out["overflow"]) == 0, "[options] transposes: overflow 0")
+        loss = (out["render"] * g_img).sum() + (out["t_final"] * g_t).sum()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        g = torch.autograd.grad(loss, [*leaves.values(), probe], allow_unused=True)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return dict(zip(fields + ("probe",), g)), ev[0].elapsed_time(ev[1])
+
+    transposes = {"slim": cfg_of(caps.binning, "compact"),
+                  "slots": cfg_of("stable", "aligned", bwd_slots=True),
+                  "grouped": cfg_of("twotier", "compact", bwd_grouped=True),
+                  "sorted": cfg_of(caps.binning, "compact", bwd_sorted_scatter=True)}
+    tr_out = {}
+    for name, cfg in transposes.items():
+        grads(cfg)                                             # warm-up
+        (a, ms_a), (b, ms_b) = grads(cfg), grads(cfg)
+        repeat = all(torch.equal(a[f], b[f]) for f in a if a[f] is not None)
+        tr_out[name] = {"grads": a, "ms": round(min(ms_a, ms_b), 4), "bit_equal": repeat}
+    worst = {}
+    for name in ("slots", "grouped", "sorted"):
+        rel = {}
+        for f, ref in tr_out["slim"]["grads"].items():
+            got = tr_out[name]["grads"][f]
+            if ref is None or ref.numel() == 0 or float(ref.abs().max()) == 0.0:
+                continue
+            rel[f] = float((got - ref).abs().max() / ref.abs().max())
+        worst[name] = max(rel.values())
+        check(worst[name] <= TRANSPOSE_RTOL,
+              f"[options] {name} transpose vs slim: {rel} (bound {TRANSPOSE_RTOL})")
+    log(f"[options] one step's render() gradients under each transpose vs slim, the largest "
+        f"difference over each field's largest element: {worst} (bound {TRANSPOSE_RTOL}); "
+        f"ms of the backward (CUDA events, the faster of two, kernel 2 and preprocess's "
+        f"backward included): " + ", ".join(
+            f"{k} {v['ms']:.3f} (two runs bit-equal {v['bit_equal']})"
+            for k, v in tr_out.items()) + f" [{card}]")
+    del tr_out
+
+    # ---- 3. the early exit of kernels 1 and 2 against the plain versions
+    frames = option_frames(model, params, state, cam, e0, p0, rcfg)
+    cut_rows = {}
+    for fname, (inst, starts, bgc, grid_f) in frames.items():
+        s, e = starts[:-1].long(), starts[1:].long()
+        img0, tfin0 = bi.blend_instances(inst, starts, bgc, grid_f)
+        img_e, tfin_e = bi.blend_instances(inst, starts, bgc, grid_f, cutoff=1e-4)
+        check(torch.equal(img0, img_e) and torch.equal(tfin0, tfin_e),
+              f"[options] {fname}: t_cutoff 1e-4 gives the bits of t_cutoff 0")
+        gen = torch.Generator(device=dev).manual_seed(7)
+        g_i = torch.randn(img0.shape, generator=gen, device=dev)
+        g_f = torch.randn(tfin0.shape, generator=gen, device=dev)
+        timing = {"0": {"fwd_ms": cuda_ms(lambda: bi.blend_instances(inst, starts, bgc, grid_f),
+                                          reps=20),
+                        "bwd_ms": cuda_ms(lambda: bi.blend_instances_bwd(
+                            inst, starts, bgc, img0, tfin0, g_i, g_f, grid_f), reps=20),
+                        "columns": int((e - s).sum())}}
+        for c in OPTION_CUTOFFS:
+            img_k, tfin_k, cut, cut_p, agree, fst = cutoff_forward(
+                f"{fname} {c}", inst, starts, bgc, grid_f, c)
+            g_k = bi.blend_instances_bwd(inst, starts, bgc, img_k, tfin_k, g_i, g_f, grid_f,
+                                         cut=cut)
+            g_p = bi.blend_instances_backward_reference(inst, starts, bgc, img_k, tfin_k, g_i,
+                                                        g_f, grid_f, cut=cut_p)
+            col = torch.arange(inst.shape[1], device=dev)
+            tile_of = (torch.searchsorted(starts, col.to(torch.int32), right=True) - 1).clamp(
+                0, T - 1)
+            cols_ok = agree[tile_of] & (col < starts[-1])
+            scale = g_p[:9, cols_ok].abs().amax(dim=1, keepdim=True) + 1e-12
+            rel = float(((g_k[:9, cols_ok] - g_p[:9, cols_ok]).abs() / scale).max())
+            check(rel <= BWD_RTOL, f"[options] {fname} {c}: backward within {BWD_RTOL} of "
+                  f"each row's largest on the tiles whose cut agrees ({rel:.3e})")
+            dirty = bi.blend_instances_bwd(inst, starts, bgc, img_k, tfin_k, g_i, g_f, grid_f,
+                                           out=torch.full_like(g_k, float("nan")), cut=cut)
+            past = (col >= cut[tile_of]) & (col < starts[tile_of + 1])
+            check(torch.equal(dirty, g_k) and bool((dirty[:, past] == 0).all()),
+                  f"[options] {fname} {c}: a NaN-filled backward buffer comes back equal, "
+                  "0 past every cut")
+            fwd_row["max_abs_err"] = max(fwd_row["max_abs_err"], fst["fwd_err"])
+            bwd_row["max_abs_err"] = max(bwd_row["max_abs_err"],
+                                         float((g_k[:, cols_ok] - g_p[:, cols_ok]).abs().max()))
+            timing[str(c)] = dict(fst, **{
+                "fwd_ms": cuda_ms(lambda: bi.blend_instances_fwd(inst, starts, bgc, grid_f,
+                                                                 cutoff=c), reps=20),
+                "bwd_ms": cuda_ms(lambda: bi.blend_instances_bwd(
+                    inst, starts, bgc, img_k, tfin_k, g_i, g_f, grid_f, cut=cut), reps=20),
+                "cut_ms": cuda_ms(lambda: bi.blend_cut(inst, starts, grid_f, c), reps=20),
+                "bwd_rel": rel})
+        segment_split(f"blend_instances_fwd {fname} t_cutoff 1e-3",
+                      lambda: bi.blend_instances_fwd(inst, starts, bgc, grid_f, cutoff=1e-3),
+                      card)
+        cut_rows[fname] = timing
+        log(f"[options] {fname} frame ({int((e - s).sum())} instances, deepest tile "
+            f"{int((e - s).max())}): t_cutoff 1e-4 == 0 bit for bit; by t_cutoff "
+            + "; ".join(f"{k}: kernel 1 {v['fwd_ms']:.4f} ms, kernel 2 {v['bwd_ms']:.4f} ms"
+                        + (f", the cut pass alone {v['cut_ms']:.4f} ms, {v['tiles_cut']} of {T} "
+                           f"tiles cut, columns walked {v['columns']} of "
+                           f"{timing['0']['columns']}, tiles whose cut differs from the plain "
+                           f"version's {v['tiles_off']} ({v['tiles_near']} within margin "
+                           f"{CUT_MARGIN}), forward err {v['fwd_err']:.2e}, backward rel "
+                           f"{v['bwd_rel']:.2e}" if k != "0" else "")
+                        for k, v in timing.items()) + f" (CUDA events, 20 calls) [{card}]")
+    fwd_row["cutoff"] = bwd_row["cutoff"] = cut_rows
+
+    # ---- 4. the options through the CUDA graphs, each with tiles cut
+    gc = OPTION_GRAPH_CUTOFF
+    gcfg = dataclasses.replace(rcfg, binning="count", layout="aligned", t_cutoff=gc)
+    rr = Reenactor(model, opaque_params(params), state, ws, render_cfg=gcfg)
+    m = OPTION_GRAPH_FRAMES
+    counters = zero_counts()
+    served = rr.reenact(exprs[:m], poses[:m], delta, cam)
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
+    g = rr.last_graph
+    n_exp = model.flame.n_exp
+    eager, ovf, cut_tiles = [], [], []
+    for expr, pose in zip(exprs[:m], poses[:m]):
+        ex = np.zeros(n_exp, np.float32)
+        k = min(n_exp, len(expr))
+        ex[:k] = expr[:k]
+        ex[:len(delta)] -= delta[:len(ex)]
+        with torch.no_grad(), swapped_blend(tiles_cut_recorder(gc, cut_tiles)):
+            out = fateavatar_forward(model, rr.params, state, torch.from_numpy(ex).to(dev),
+                                     torch.from_numpy(pose).to(dev), cam, render_cfg=gcfg)
+        ovf.append(int(out["overflow"]))
+        eager.append(torch.clamp(torch.round(out["rgb_image"] * 255.0), 0, 255)
+                     .to(torch.uint8).cpu().numpy())
+    same = all(np.array_equal(a, b) for a, b in zip(served, eager))
+    log(f"[options] Reenactor.reenact of the opaque avatar with binning count, layout "
+        f"aligned, t_cutoff {gc}: {m} frames through the graph vs eager forwards bit-equal "
+        f"{same}, overflow {ovf}, tiles cut by each frame {cut_tiles} of {T}; wrapper "
+        f"launches {wrapper} ({WARMUP} warm-up calls + the capture), {g.replays} replays x "
+        f"{g.launches_per_replay}")
+    check(same and not any(ovf) and g.launches_per_replay == {"blend_instances_fwd": 1},
+          "[options] the served frames' graph under the options == eager, bit for bit")
+    check(sum(cut_tiles) > 0, "[options] the options' graph replays frames with tiles cut")
+    del rr
+
+    tr = trainer
+    keep_cfg = tr.render_cfg
+    tr.regrow_caps()    # the caps of its current splats (densified since its autosize)
+    tracking = tr.tracking_enabled
+    tr.tracking_enabled = False
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                    allow_tf32=torch.backends.cudnn.allow_tf32), \
+            deterministic_sums() as flagged:
+        snap = graph_snapshot(tr)
+        frame = tr._make_frame(tr.train_dataset.sample(0), tr.train_tables)
+        # the blend's inputs do not depend on the cutoff: the tiles each
+        # candidate cuts, from one eager step at the first
+        tc = TRAIN_GRAPH_CUTOFFS[0]
+        tr.set_render_cfg(dataclasses.replace(tr.render_cfg, t_cutoff=tc))
+        seen = []
+        with swapped_blend(lambda inst, starts, bg, grid, **kw: seen.append(
+                (inst.detach(), starts, grid)) or bi.blend_instances(inst, starts, bg, grid,
+                                                                     **kw)):
+            ts1, aux1 = tr.train_step(tr.ts, frame)
+        inst, starts, grid_t = seen[0]
+        tr_cut = {c: int((bi.blend_cut(inst, starts, grid_t, c).long()
+                          < starts[1:].long()).sum()) for c in TRAIN_GRAPH_CUTOFFS}
+        t_tiles = starts.shape[0] - 1
+        del seen, inst
+        graph_restore(tr, snap)
+        tc = next((c for c in TRAIN_GRAPH_CUTOFFS if tr_cut[c] > 0), tc)
+        if tc != TRAIN_GRAPH_CUTOFFS[0]:
+            tr.set_render_cfg(dataclasses.replace(tr.render_cfg, t_cutoff=tc))
+            ts1, aux1 = tr.train_step(tr.ts, frame)
+            graph_restore(tr, snap)
+        counters = zero_counts()
+        scan = tr._maybe_scan_epoch()
+        tr._load_scan_state(scan)
+        scan.graph()
+        torch.cuda.synchronize()
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
+    diff = {f.name: float((getattr(scan.ts.params, f.name) - getattr(ts1.params, f.name))
+                          .abs().max())
+            for f in dataclasses.fields(ts1.params)}
+    loss_same = float(scan.aux["loss"][0]) == float(aux1["loss"])
+    same = loss_same and all(v == 0.0 for v in diff.values())
+    ovf = int(scan.aux["overflow"][0]) + int(aux1["overflow"])
+    log(f"[options] one Trainer step at t_cutoff {tc} (tiles each t_cutoff cuts on its "
+        f"frame: {tr_cut} of {t_tiles}; float32 sums in a fixed order, "
+        f"deterministic cuDNN), eager vs the graph's first replay: loss "
+        f"{float(aux1['loss']):.8f} vs {float(scan.aux['loss'][0]):.8f}, bit-equal {same} "
+        f"(largest parameter difference {max(diff.values()):.1e}), overflow {ovf}; wrapper "
+        f"launches {wrapper}, per replay {scan.graph.launches_per_replay}; ops torch still "
+        f"flagged nondeterministic: {flagged or 'none'}")
+    check(same and ovf == 0 and tr_cut[tc] > 0, f"[options] the Trainer's graph step at "
+          f"t_cutoff {tc} == eager, bit for bit, overflow 0, tiles cut")
+    graph_restore(tr, snap)
+    tr.tracking_enabled = tracking
+    tr.set_render_cfg(keep_cfg)
+    log(f"[options] phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return {"binning_ms": bin_ms, "cutoff": cut_rows}
+
+
+# ---------------------------------------------------------------------------
 # [baselines]: the four baseline families through cli/train_baseline
 # ---------------------------------------------------------------------------
 
@@ -3655,6 +4069,57 @@ def blend_float64(inst, starts, bg, grid):
     return Float64Blend.apply(inst, bg)
 
 
+def deep_cutoff_reading(tag, inst, starts, bg, grid, card):
+    """Kernels 1 and 2 at t_cutoff 0 and 1e-3 on one training frame's deep
+    lists (MonoGaussianAvatar at its timed size): ms per call (CUDA
+    events), each launch's device ms (pass A's share of the walk), the cut
+    pass's own ms and the columns the exit walks; the cutoff forward gated
+    against the plain version as in [options]. A reading: how much of pass
+    A's work lies past the point where a tile saturates."""
+    import torch
+
+    from fateavatar_tpu_torch.render import blend_instances as bi
+
+    s, e = starts[:-1].long(), starts[1:].long()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    img0, tfin0 = bi.blend_instances(inst, starts, bg, grid)
+    g_i = torch.randn(img0.shape, generator=gen, device="cuda")
+    g_f = torch.randn(tfin0.shape, generator=gen, device="cuda")
+    res = {}
+    for c in (0.0, 1e-3):
+        if c:
+            img, tfin, cut, _, _, row = cutoff_forward(f"{tag} {c}", inst, starts, bg, grid, c)
+            row["cut_ms"] = cuda_ms(lambda: bi.blend_cut(inst, starts, grid, c), reps=10)
+        else:
+            img, tfin, cut, row = img0, tfin0, None, {"columns": int((e - s).sum())}
+
+        def fwd():
+            return bi.blend_instances_fwd(inst, starts, bg, grid, cutoff=c)
+
+        def bwd():
+            return bi.blend_instances_bwd(inst, starts, bg, img, tfin, g_i, g_f, grid, cut=cut)
+
+        row.update(fwd_ms=cuda_ms(fwd, reps=10), bwd_ms=cuda_ms(bwd, reps=10),
+                   fwd_split=segment_split(f"{tag} kernel 1 at t_cutoff {c}", fwd, card),
+                   bwd_split=segment_split(f"{tag} kernel 2 at t_cutoff {c}", bwd, card))
+        for d in ("fwd", "bwd"):
+            split = row[f"{d}_split"]
+            row[f"{d}_pass_a_share"] = sum(v for k, v in split.items()
+                                           if k.endswith(f"{d}_products")) / sum(split.values())
+        res[str(c)] = row
+    a, b = res["0.0"], res["0.001"]
+    log(f"{tag} the early exit on frame 0's lists ({a['columns']} instances, the deepest tile "
+        f"{int((e - s).max())}): t_cutoff 0 -> 1e-3: kernel 1 {a['fwd_ms']:.4f} -> "
+        f"{b['fwd_ms']:.4f} ms (pass A's share {a['fwd_pass_a_share']:.1%} -> "
+        f"{b['fwd_pass_a_share']:.1%}), kernel 2 {a['bwd_ms']:.4f} -> {b['bwd_ms']:.4f} ms "
+        f"(pass A {a['bwd_pass_a_share']:.1%} -> {b['bwd_pass_a_share']:.1%}); the cut pass "
+        f"alone {b['cut_ms']:.4f} ms; columns walked {b['columns']} of {a['columns']} "
+        f"({b['columns'] / max(a['columns'], 1):.1%}), {b['tiles_cut']} tiles cut, "
+        f"{b['tiles_off']} cut elsewhere than the plain version ({b['tiles_near']} within "
+        f"margin {CUT_MARGIN}), forward err {b['fwd_err']:.2e} (CUDA events, 10 calls) [{card}]")
+    return res
+
+
 def baseline_family(fam, cli, bws, card):
     """One family: cli/train_baseline --epochs 1 (its main without the
     evaluation: parse_args, build_trainer, train), then main itself with
@@ -3858,8 +4323,11 @@ def baseline_family(fam, cli, bws, card):
     frame = tr._make_frame(tr.train_dataset.sample(0), tr.train_tables)
     depth = []
 
+    inputs = []
+
     def recording(inst, starts, bg, grid):
         depth.append((int(starts[-1]), int((starts[1:] - starts[:-1]).max())))
+        inputs.append((inst.detach(), starts, bg.detach(), grid))
         return bi.blend_instances(inst, starts, bg, grid)
 
     with swapped_blend(recording):
@@ -3906,6 +4374,8 @@ def baseline_family(fam, cli, bws, card):
         f"it, kernels {far['kernels'][1]:.2e} ({far['kernels'][0]}), plain float32 "
         f"{far['plain'][1]:.2e} ({far['plain'][0]})")
     out["float64_rel_l2"] = {side: r[1] for side, r in far.items()}
+    if fam == "monogaussianavatar":
+        out["cutoff"] = deep_cutoff_reading(tag, *inputs[0], card)
     torch.cuda.empty_cache()
     out.update(ms_step_tracking=t_ms["with tracking"], ms_step=t_ms["without tracking"],
                peak_gib=peak, worst_rel_l2=max(w[1] for w in worst), launches=launches,
@@ -4634,6 +5104,10 @@ def main():
                     (model, params, state, ws, rcfg, tcfg, cam, exprs, poses, delta),
                     rows, card)
         lap("graph")
+        options = options_phase(model, reenactor.params, state, ws, rcfg, cam, exprs, poses,
+                                delta, trainer, rows, card)
+        lap("options")
+        log("[options] summary " + json.dumps(options))
         bake = bake_phase(cli, rows, card)
         lap("bake")
         edit = edit_phase(cli, card)

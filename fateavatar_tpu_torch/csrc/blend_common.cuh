@@ -344,15 +344,21 @@ __host__ __device__ constexpr int64_t dense_unit_capacity(int64_t m, int num_til
 
 // Tile t's column range [s, e) in the compact layout (the instance
 // kernels): [tile_starts[t], tile_starts[t + 1]), clamped into [0, m) so
-// that no input makes a block read out of bounds.
+// that no input makes a block read out of bounds. With `cut` (the early
+// exit of t_cutoff > 1e-4, "the early exit" below) the range ends at
+// cut[t].
 struct CompactRanges {
   const int* tile_starts;
   int64_t m;
+  const int* cut = nullptr;
   __device__ __forceinline__ void operator()(int t, int64_t& s, int64_t& e) const {
     s = clamp64(tile_starts[t], 0, m);
     e = clamp64(tile_starts[t + 1], s, m);
+    if (cut != nullptr) e = clamp64(cut[t], s, e);
   }
 };
+
+
 
 // Tile t's column range in the dense layout (the tile kernels): the first
 // min(counts[t], K) of its K slots [t K, (t + 1) K).
@@ -371,7 +377,8 @@ struct DenseRanges {
 // `cap` exist only in the compact layout when tile_starts decreases
 // (overlapping ranges); they are dropped, so that no later launch indexes
 // past the scratch. The dense layout never exceeds dense_unit_capacity.
-template <typename Ranges>
+// LEN: the columns of a unit (the early exit's windows are shorter).
+template <typename Ranges, int LEN = SEG>
 __device__ __forceinline__ void plan_segments(const Ranges& ranges, int num_tiles, int cap,
                                               int* __restrict__ unit_start,
                                               int* __restrict__ unit_tile) {
@@ -384,7 +391,7 @@ __device__ __forceinline__ void plan_segments(const Ranges& ranges, int num_tile
   for (int t = t0; t < t1; ++t) {
     int64_t s, e;
     ranges(t, s, e);
-    mine += (e - s + SEG - 1) / SEG;
+    mine += (e - s + LEN - 1) / LEN;
   }
   // exclusive scan of `mine` over the block: in each warp, then over warps
   long long incl = mine;
@@ -407,7 +414,7 @@ __device__ __forceinline__ void plan_segments(const Ranges& ranges, int num_tile
   for (int t = t0; t < t1; ++t) {
     int64_t s, e;
     ranges(t, s, e);
-    const long long n = (e - s + SEG - 1) / SEG;
+    const long long n = (e - s + LEN - 1) / LEN;
     unit_start[t] = static_cast<int>(u < cap ? u : cap);
     for (long long k = 0; k < n && u + k < cap; ++k) unit_tile[u + k] = t;
     u += n;
@@ -423,7 +430,7 @@ struct Unit {
 };
 
 // Unit u of the plan; false for a block past the units used.
-template <typename Ranges>
+template <typename Ranges, int LEN = SEG>
 __device__ __forceinline__ bool unit_of(int u, const Ranges& ranges, int num_tiles,
                                         const int* __restrict__ unit_start,
                                         const int* __restrict__ unit_tile, Unit& un) {
@@ -434,8 +441,8 @@ __device__ __forceinline__ bool unit_of(int u, const Ranges& ranges, int num_til
   un.k = u - un.u0;
   int64_t s, e;
   ranges(un.t, s, e);
-  un.a = s + static_cast<int64_t>(un.k) * SEG;
-  un.b = un.a + SEG < e ? un.a + SEG : e;
+  un.a = s + static_cast<int64_t>(un.k) * LEN;
+  un.b = un.a + LEN < e ? un.a + LEN : e;
   return true;
 }
 
@@ -578,6 +585,99 @@ __device__ __forceinline__ void backward_segment(
   const float q_in = segment_entry(prod, usum, un, pu);
   backward_tile<NOUT>(data, valid, m, un.a, un.b, un.t, grid_x, img, tfin, gimg, gtfin,
                       gout, q_in, pu);
+}
+
+// ---------------------------------------------------------------------------
+// The early exit of t_cutoff > 1e-4 (the Pallas kernels' `cutoff`,
+// fateavatar_tpu/render/blend_instances.py:157-170 and 320-379).
+//
+// The Pallas kernel walks tile t's range [s, e) in windows of CUT_WINDOW
+// columns counted from absolute multiples of CUT_WINDOW (window i = [w0 +
+// 128 i, w0 + 128 (i + 1)) clipped to the range, w0 = s rounded down), and
+// before each window after the first it goes on only while some pixel's q
+// is >= cutoff: q, the product of (1 - alpha) over every instance of the
+// range so far that passes the skip test, termination ignored (pass A's
+// product). The windows it runs are the exact blend of the shorter range
+// [s, cut[t]); the rest get neither colour nor gradient.
+//
+// cut[t] comes from two launches, before the plan:
+//   window products  one block per (tile, window) of the window plan
+//                    (plan_segments over WindowRanges, CUT_WINDOW columns a
+//                    unit): each pixel's product of its window's (1 - alpha);
+//   cut scan         one block per tile: the pixels fold their windows'
+//                    products in order and the block stops at the first
+//                    window boundary where no pixel is >= cutoff.
+// The products take every window of every range, in parallel, as pass A
+// does; the scan is one multiply a window.
+// ---------------------------------------------------------------------------
+
+constexpr int CUT_WINDOW = 128;
+
+// Tile t's windows: its compact range with the start rounded down to a
+// multiple of CUT_WINDOW, so that plan_segments<WindowRanges, CUT_WINDOW>
+// makes one unit per window.
+struct WindowRanges {
+  CompactRanges tiles;
+  __device__ __forceinline__ void operator()(int t, int64_t& s, int64_t& e) const {
+    tiles(t, s, e);
+    s = s / CUT_WINDOW * CUT_WINDOW;
+  }
+};
+
+// Windows the plan can have: one per CUT_WINDOW columns, plus one a tile
+// for a range that starts mid-window.
+__host__ __device__ constexpr int64_t window_capacity(int64_t m, int num_tiles) {
+  return (m + CUT_WINDOW - 1) / CUT_WINDOW + num_tiles;
+}
+
+// The product of (1 - alpha) of window unit u at the calling thread's
+// pixel, over the window's columns inside the tile's range, into prod[u]
+// ([BLOCK] per unit).
+__device__ __forceinline__ void window_products(const float* __restrict__ data,
+                                                const float* __restrict__ valid, int64_t m,
+                                                const Unit& un, int u, int grid_x,
+                                                const CompactRanges& tiles,
+                                                float* __restrict__ prod) {
+  __shared__ float sh[NG][CUT_WINDOW];
+  const int tid = threadIdx.x;
+  int64_t s, e;
+  tiles(un.t, s, e);
+  const int64_t lo = un.a > s ? un.a : s;
+  const int n = static_cast<int>(un.b - lo);
+  if (tid < n) stage(sh, tid, data, valid, m, lo + tid);
+  __syncthreads();
+  float px, py;
+  pixel_of(un.t, grid_x, px, py);
+  float q = 1.0f;
+  for (int k = 0; k < n; ++k) {
+    Splat sp;
+    if (splat_at(sh[0][k], sh[1][k], sh[2][k], sh[3][k], sh[4][k], sh[8][k], px, py, sp))
+      q = next_transmittance(q, sp.alpha);
+  }
+  prod[static_cast<int64_t>(u) * BLOCK + tid] = q;
+}
+
+// cut[t] for the calling block (one thread per pixel): the tile's windows
+// [unit_start[t], unit_start[t + 1]) of the window plan folded in order,
+// stopping before the first window (after window 0) at whose start every
+// pixel's q is below cutoff; the cut is that window's start, clipped to
+// the range.
+__device__ __forceinline__ void cut_scan(int t, const CompactRanges& tiles,
+                                         const int* __restrict__ unit_start,
+                                         const float* __restrict__ prod, float cutoff,
+                                         int* __restrict__ cut) {
+  int64_t s, e;
+  tiles(t, s, e);
+  const int64_t w0 = s / CUT_WINDOW * CUT_WINDOW;
+  const int u0 = unit_start[t], nwin = unit_start[t + 1] - u0;
+  float q = 1.0f;
+  int i = 0;
+  for (; i < nwin; ++i) {
+    if (i > 0 && __syncthreads_or(q >= cutoff) == 0) break;
+    q = __fmul_rn(q, prod[static_cast<int64_t>(u0 + i) * BLOCK + threadIdx.x]);
+  }
+  if (threadIdx.x == 0)
+    cut[t] = static_cast<int>(clamp64(w0 + static_cast<int64_t>(i) * CUT_WINDOW, s, e));
 }
 
 // Zeroes row[lo, hi) with the calling block: scalar stores up to the first

@@ -37,8 +37,11 @@
 // with plain stores (no atomics; the result does not depend on
 // scheduling), zeros after its pixels all stopped. Columns outside every
 // range (before tile_starts[0] and from tile_starts[T] on, including the
-// padding render() appends) are zeroed by extra blocks of the walk. Every
-// element of the output is written on every call, whatever the buffer held.
+// padding render() appends) are zeroed by extra blocks of the walk, and so,
+// with the early exit of t_cutoff > 1e-4, are the columns of each range
+// past the forward's cut (the Pallas kernel's zero-fill of the windows it
+// skipped). Every element of the output is written on every call, whatever
+// the buffer held.
 
 #include "blend_common.cuh"
 
@@ -50,31 +53,33 @@ constexpr int ROW = 16;              // rows of the [16, M] arrays
 
 __global__ void __launch_bounds__(PLAN_THREADS)
 blend_instances_bwd_plan(const int* __restrict__ tile_starts, int64_t m, int num_tiles,
-                         int cap, int* __restrict__ unit_start, int* __restrict__ unit_tile) {
-  plan_segments(CompactRanges{tile_starts, m}, num_tiles, cap, unit_start, unit_tile);
+                         int cap, const int* __restrict__ cut, int* __restrict__ unit_start,
+                         int* __restrict__ unit_tile) {
+  plan_segments(CompactRanges{tile_starts, m, cut}, num_tiles, cap, unit_start, unit_tile);
 }
 
 // row 9 of the [16, M] array is the valid flag
 __global__ void __launch_bounds__(BLOCK)
 blend_instances_bwd_products(const float* __restrict__ inst, int64_t m,
                              const int* __restrict__ tile_starts, int num_tiles, int grid_x,
-                             const int* __restrict__ unit_start,
+                             const int* __restrict__ cut, const int* __restrict__ unit_start,
                              const int* __restrict__ unit_tile,
                              const float* __restrict__ gimg, float* __restrict__ prod,
                              float* __restrict__ usum) {
   Unit un;
   const int u = blockIdx.x;
-  const CompactRanges tiles{tile_starts, m};
+  const CompactRanges tiles{tile_starts, m, cut};
   if (!unit_of(u, tiles, num_tiles, unit_start, unit_tile, un)) return;
   segment_products<true>(inst, inst + 9 * m, m, un, u, grid_x, gimg, prod, usum);
 }
 
 // Blocks [0, cap) are the units; blocks from cap on zero the columns no
-// tile owns.
+// tile owns and, with `cut`, the columns [cut[t], end) of each tile's range
+// that the early exit skipped.
 __global__ void __launch_bounds__(BLOCK)
 blend_instances_bwd_walk(const float* __restrict__ inst, int64_t m,
                          const int* __restrict__ tile_starts, int num_tiles, int grid_x,
-                         int cap, const int* __restrict__ unit_start,
+                         int cap, const int* __restrict__ cut, const int* __restrict__ unit_start,
                          const int* __restrict__ unit_tile, const float* __restrict__ img,
                          const float* __restrict__ tfin, const float* __restrict__ gimg,
                          const float* __restrict__ gtfin, const float* __restrict__ prod,
@@ -91,10 +96,21 @@ blend_instances_bwd_walk(const float* __restrict__ inst, int64_t m,
         for (int c = 0; c < ROW; ++c) gout[c * m + j] = 0.0f;
       }
     }
+    if (cut != nullptr) {
+      const CompactRanges whole{tile_starts, m};
+      for (int t = blockIdx.x - cap; t < num_tiles; t += gridDim.x - cap) {
+        int64_t s, e;
+        whole(t, s, e);
+        for (int64_t j = clamp64(cut[t], s, e) + tid; j < e; j += BLOCK) {
+#pragma unroll
+          for (int c = 0; c < ROW; ++c) gout[c * m + j] = 0.0f;
+        }
+      }
+    }
     return;
   }
   Unit un;
-  const CompactRanges tiles{tile_starts, m};
+  const CompactRanges tiles{tile_starts, m, cut};
   if (!unit_of(blockIdx.x, tiles, num_tiles, unit_start, unit_tile, un)) return;
   backward_segment<ROW>(inst, inst + 9 * m, m, un, grid_x, img, tfin, gimg, gtfin, prod,
                         usum, gout);
@@ -114,15 +130,16 @@ extern "C" int64_t blend_instances_bwd_scratch_floats(int64_t m, int num_tiles) 
 // img [num_tiles, 3, 256], t_final [num_tiles, 256], g_img and g_tfin of the
 // same shapes, all float32, scratch of scratch_floats >=
 // blend_instances_bwd_scratch_floats(m, num_tiles) floats; writes every
-// element of gout
-// [16, m]. Queues its three launches on `stream`, does not synchronise, and
-// returns the first cudaGetLastError() that is not cudaSuccess
-// (cudaErrorInvalidValue for a short scratch).
+// element of gout [16, m]. `cut` [num_tiles] (the forward's, t_cutoff >
+// 1e-4) or nullptr: with it each tile's range ends at cut[t], and the
+// columns past it are zeros. Queues its three launches on `stream`, does not
+// synchronise, and returns the first cudaGetLastError() that is not
+// cudaSuccess (cudaErrorInvalidValue for a short scratch).
 extern "C" int blend_instances_bwd(const float* inst, int64_t m, const int* tile_starts,
                                    const float* img, const float* tfin, const float* gimg,
                                    const float* gtfin, float* gout, int num_tiles,
                                    int grid_x, float* scratch, int64_t scratch_floats,
-                                   cudaStream_t stream) {
+                                   const int* cut, cudaStream_t stream) {
   const int64_t cap = num_tiles > 0 ? unit_capacity(m, num_tiles) : 0;
   const int64_t zero_blocks = m > 0 ? (m + BLOCK - 1) / BLOCK : 0;
   const int64_t extra = zero_blocks < 1024 ? zero_blocks : 1024;
@@ -136,14 +153,14 @@ extern "C" int blend_instances_bwd(const float* inst, int64_t m, const int* tile
     if (scratch_floats < blend_instances_bwd_scratch_floats(m, num_tiles))
       return static_cast<int>(cudaErrorInvalidValue);
     blend_instances_bwd_plan<<<1, PLAN_THREADS, 0, stream>>>(
-        tile_starts, m, num_tiles, static_cast<int>(cap), unit_start, unit_tile);
+        tile_starts, m, num_tiles, static_cast<int>(cap), cut, unit_start, unit_tile);
     if ((err = last_error()) != 0) return err;
     blend_instances_bwd_products<<<static_cast<unsigned>(cap), BLOCK, 0, stream>>>(
-        inst, m, tile_starts, num_tiles, grid_x, unit_start, unit_tile, gimg, prod, usum);
+        inst, m, tile_starts, num_tiles, grid_x, cut, unit_start, unit_tile, gimg, prod, usum);
     if ((err = last_error()) != 0) return err;
   }
   blend_instances_bwd_walk<<<static_cast<unsigned>(cap + extra), BLOCK, 0, stream>>>(
-      inst, m, tile_starts, num_tiles, grid_x, static_cast<int>(cap), unit_start, unit_tile,
-      img, tfin, gimg, gtfin, prod, usum, gout);
+      inst, m, tile_starts, num_tiles, grid_x, static_cast<int>(cap), cut, unit_start,
+      unit_tile, img, tfin, gimg, gtfin, prod, usum, gout);
   return last_error();
 }

@@ -146,3 +146,86 @@ def make_camera(
         znear=znear,
         zfar=zfar,
     )
+
+
+def make_camera_np(
+    R,
+    T,
+    fovx,
+    fovy,
+    width: int,
+    height: int,
+    intrinsics=None,
+    znear: float = 0.01,
+    zfar: float = 100.0,
+    device="cuda",
+) -> Camera:
+    """:func:`make_camera` with the matrices built in numpy on the host (the
+    JAX package's ``make_camera_np``, camera.py:166-227), then moved to
+    ``device`` in one transfer per field: no device work before the copy."""
+    import numpy as np
+
+    R = np.asarray(R, np.float32)
+    T = np.asarray(T, np.float32)
+    fovx = np.float32(fovx)
+    fovy = np.float32(fovy)
+
+    view = np.eye(4, dtype=np.float32)
+    view[:3, :3] = R.T
+    view[:3, 3] = T
+
+    top = np.tan(fovy / 2.0) * znear
+    bottom = -top
+    right = np.tan(fovx / 2.0) * znear
+    left = -right
+    if intrinsics is not None:
+        K = np.asarray(intrinsics, np.float32)
+        off_x = (K[0, 2] - width / 2.0) / K[0, 0] * znear
+        off_y = (K[1, 2] - height / 2.0) / K[1, 1] * znear
+        top += off_y
+        bottom += off_y
+        left += off_x
+        right += off_x
+    P = np.zeros((4, 4), np.float32)
+    P[0, 0] = 2.0 * znear / (right - left)
+    P[0, 2] = (right + left) / (right - left)
+    P[1, 1] = 2.0 * znear / (top - bottom)
+    P[1, 2] = (top + bottom) / (top - bottom)
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    P[3, 2] = 1.0
+
+    def dev(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(device)
+
+    return Camera(
+        view=dev(view),
+        proj=dev(P),
+        full_proj=dev(P @ view),
+        campos=dev(-view[:3, :3].T @ view[:3, 3]),
+        fovx=dev(fovx),
+        fovy=dev(fovy),
+        width=width,
+        height=height,
+        znear=znear,
+        zfar=zfar,
+    )
+
+
+def look_at_camera(eye, target, up, fovx: float, fovy: float, width: int, height: int,
+                   device="cuda") -> Camera:
+    """A camera at ``eye`` looking at ``target`` (camera.py:230-255 of the
+    JAX package): +z forward in view space, as 3DGS has it; the rotation's
+    columns are the camera's right, down and forward axes in world space."""
+    eye = torch.as_tensor(eye, dtype=torch.float32, device=device)
+    target = torch.as_tensor(target, dtype=torch.float32, device=device)
+    up = torch.as_tensor(up, dtype=torch.float32, device=device)
+    fwd = target - eye
+    fwd = fwd / torch.linalg.norm(fwd)
+    right = torch.linalg.cross(fwd, up)
+    right = right / torch.linalg.norm(right)
+    down = torch.linalg.cross(fwd, right)
+    R_c2w = torch.stack([right, down, fwd], dim=1)
+    # 3DGS convention: Camera(R, T) with R = c2w rotation, T = w2v translation
+    T = -R_c2w.T @ eye
+    return make_camera(R_c2w, T, fovx, fovy, width, height, device=device)

@@ -117,3 +117,33 @@ def size_caps(total: int, max_t: int, n: int, num_tiles: int, base_cfg,
         k = int(np.ceil(max(big_count, 1) * big_slack / 256.0)) * 256
         cfg = dataclasses.replace(cfg, tail_k=min(max(k, 256), n))
     return cfg
+
+
+def autosize_from_trainstate(model, ts, frame, base_cfg, **kw):
+    """:func:`autosize_render_config` of a TrainState's params and state."""
+    return autosize_render_config(model, ts.params, ts.state, frame, base_cfg, **kw)
+
+
+def make_occupancy_probe(model, camera=None):
+    """An occupancy probe for scouting a run's capacity needs (FLAME +
+    preprocess only, no sort, no blend; autosize.py:146-178 of the JAX
+    package). With ``camera``: ``(params, state, expression, flame_pose) ->
+    (total, max_t, n_big)`` with the camera closed over; without, the camera
+    is the fifth argument. The three counts come back as host ints, in one
+    copy at the end."""
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians
+
+    @torch.no_grad()
+    def probe(params, state, expression, flame_pose, cam=None):
+        cam = camera if cam is None else cam
+        g, _, _ = build_gaussians(model, params, state, expression, flame_pose)
+        prep = preprocess(cam, g.xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                          g.get_features, g.sh_degree, alive=g.alive)
+        grid = binning.tile_grid(cam.width, cam.height)
+        stats = occupancy_stats((prep.soa[0], prep.soa[1]), prep.depth, prep.radius, grid)
+        return tuple(torch.stack([x.to(torch.int64) for x in stats]).tolist())
+
+    if camera is not None:
+        return lambda params, state, expression, flame_pose: probe(
+            params, state, expression, flame_pose)
+    return probe

@@ -5,7 +5,7 @@ InclusiveSum -> duplicateWithKeys -> RadixSort -> identifyTileRanges
 (rasterizer_impl.cu:70-336) as a few sorts and scans at static sizes.
 
 * :func:`build_instance_lists` — the flat instance array of the instance
-  blend, ``compact`` layout, ``sort_mode`` ``onesort`` and ``twotier``;
+  blend, in every ``sort_mode`` and both layouts of the JAX package;
 * :func:`build_tile_lists` and :func:`build_tile_lists_scan` — the dense
   ``[T, K]`` per-tile lists of the ``kernel="tiles"`` blend (one stable
   sort, or the sort-free counting scan).
@@ -43,6 +43,13 @@ class InstanceLists(NamedTuple):
                                # unused slots = -1)
     tile_starts: torch.Tensor  # [num_tiles + 1] int32 range offsets
     overflow: torch.Tensor     # [] int32 instances dropped (budget/R caps)
+    slots: torch.Tensor | None = None         # [N, R] int32 output slot of each
+                               # gaussian's instances (gaussian order;
+                               # sentinel M + T * chunk): return_slots
+    group_counts: torch.Tensor | None = None  # [N] int32 kept instances per
+                               # gaussian id: return_groups
+    group_tail: torch.Tensor | None = None    # [K] int32 gaussian ids allowed
+                               # more than tail_r0 instances ('twotier')
 
 
 def tile_grid(width: int, height: int) -> tuple:
@@ -83,6 +90,9 @@ def _rect_walk(r, rect_w, rmin_x, rmin_y, tx):
     return (rmin_y + q) * tx + rmin_x + (r - q * rect_w)
 
 
+SORT_MODES = ("onesort", "twotier", "stable", "count", "gather", "twokey")
+
+
 def build_instance_lists(
     mean_x: torch.Tensor,
     mean_y: torch.Tensor,
@@ -95,36 +105,70 @@ def build_instance_lists(
     layout: str = "compact",
     tail_r0: int = 4,
     tail_k: int = 0,
+    chunk: int = 64,
+    relayout: str = "scatter",
+    return_slots: bool = False,
+    return_groups: bool = False,
 ) -> InstanceLists:
-    """Tile-sorted instance array plus per-tile [start, end) offsets.
+    """Tile-sorted instance array plus per-tile [start, end) offsets
+    (binning.py:190-678 of the JAX package), bit-exact with it.
 
-    ``onesort``: every gaussian expands up to R = ``max_tiles_per_gaussian``
-    candidates and ONE stable sort by tile groups them. ``twotier``: every
-    gaussian expands up to ``tail_r0``, only the ``tail_k`` largest
-    footprints (0 = max(256, N // 16)) up to R, and the sort key packs
-    (tile, depth rank) into one int32. Instances past the static budget
-    M (0 = min(4N, N*R)) or past a gaussian's cap are counted in
-    ``overflow``.
+    Every visible gaussian expands up to R = ``max_tiles_per_gaussian``
+    candidates over its rect, row-major; the first M = ``instance_budget``
+    (0 = min(4N, N*R)) in depth order are kept; instances past the budget or
+    a gaussian's cap are counted in ``overflow``. ``sort_mode``:
+
+    * ``onesort``: ONE stable sort of all N*R candidates by tile;
+    * ``twotier``: R0 = ``tail_r0`` candidates each, R for the ``tail_k``
+      largest footprints (0 = max(256, N // 16)), sorted on one packed
+      (tile, depth rank) key;
+    * ``stable``: the compaction scatter, then one stable tile sort;
+    * ``twokey``: no depth argsort; the compacted instances sorted on
+      (tile, depth). The JAX package's sort is unstable there, so depth ties
+      in a tile have no defined order; this one breaks them by compaction
+      index (gaussian index, then rect walk): equal to it where depths are
+      distinct;
+    * ``count`` and ``gather``: the JAX package's sort-free and scatter-free
+      ways to the result of ``stable`` in the aligned layout, which they
+      always give: that result, from ``stable``'s code, with no slots or
+      groups (the JAX package returns none for them).
+
+    ``layout``: ``compact`` (the sorted array, raw ranges) or ``aligned``
+    (each range padded to a multiple of ``chunk`` with -1, length M + T *
+    chunk). ``relayout`` names how the JAX package builds the aligned array
+    (``scatter``, or ``gather`` of the inverse map); both give the same
+    array, which is scattered here.
+    ``return_slots`` (aligned ``stable`` / ``onesort``): [N, R] output slot
+    of each gaussian's instances (sentinel M + T * chunk).
+    ``return_groups`` (``onesort`` / ``twotier``): kept instances per
+    gaussian id, and for ``twotier`` the ids allowed more than R0.
     """
-    if sort_mode not in ("onesort", "twotier"):
-        raise NotImplementedError(
-            f"binning {sort_mode!r} is not ported; use 'onesort' or 'twotier'")
-    if layout != "compact":
-        raise NotImplementedError(f"layout {layout!r} is not ported; use 'compact'")
+    if sort_mode not in SORT_MODES:
+        raise ValueError(f"unknown sort_mode {sort_mode!r}; one of {SORT_MODES}")
     dev = mean_x.device
     n = mean_x.shape[0]
     ty, tx = grid
     num_tiles = ty * tx
     R = max_tiles_per_gaussian
     M = instance_budget or min(4 * n, n * R)
+    M_out = M + num_tiles * chunk
+    if sort_mode in ("count", "gather"):
+        sort_mode, layout, return_slots, return_groups = "stable", "aligned", False, False
 
     visible = radius > 0
-    order = _depth_order(depth, visible)
-    mx_s = mean_x[order]
-    my_s = mean_y[order]
-    # the JAX package carries radius through a float32 row gather
-    radius_s = radius.to(torch.float32)[order].to(torch.int32)
-    visible_s = visible[order]
+    if sort_mode == "twokey":
+        # no depth argsort: the instances sort on (tile, depth) instead
+        order = torch.arange(n, device=dev)
+        mx_s, my_s = mean_x, mean_y
+        radius_s = torch.where(visible, radius, 0)
+        visible_s = visible
+    else:
+        order = _depth_order(depth, visible)
+        mx_s = mean_x[order]
+        my_s = mean_y[order]
+        # the JAX package carries radius through a float32 row gather
+        radius_s = radius.to(torch.float32)[order].to(torch.int32)
+        visible_s = visible[order]
 
     rmin_x, rmin_y, rmax_x, rmax_y = gaussian_rect(mx_s, my_s, radius_s, grid)
     rect_w = torch.clamp_min(rmax_x - rmin_x, 1)      # division safety only
@@ -132,6 +176,7 @@ def build_instance_lists(
     n_tiles_touched = torch.where(
         visible_s, (rmax_x - rmin_x) * (rmax_y - rmin_y), zero)
 
+    sel_idx = None
     if sort_mode == "twotier":
         # everyone gets R0 candidates; the K largest footprints get R
         R0 = min(tail_r0, R)
@@ -151,9 +196,37 @@ def build_instance_lists(
     csum = torch.cumsum(touched_capped, 0, dtype=torch.int32)
     offsets = csum - touched_capped                             # exclusive
     n_valid = torch.sum(touched_capped)
-    dropped = dropped + torch.clamp_min(n_valid - M, 0)
+    dropped = (dropped + torch.clamp_min(n_valid - M, 0)).to(torch.int32)
+    r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+    # a candidate is kept under its gaussian's cap and inside the budget
+    keep = (r < touched_capped[:, None]) & (offsets[:, None] + r < M)      # [N, R]
+    sort_m = None
 
-    if sort_mode == "twotier":
+    if sort_mode in ("stable", "twokey"):
+        # the compaction scatter: candidate r of depth rank i to slot
+        # offsets[i] + r (binning.py:373-390)
+        w, cx, cy = rect_w[:, None], rmin_x[:, None], rmin_y[:, None]
+        tile_id = (cy + torch.div(r, w, rounding_mode="floor")) * tx + cx + torch.remainder(r, w)
+        dest = torch.where(keep, offsets[:, None] + r, M).reshape(-1).long()
+        comp_tiles = torch.full((M + 1,), num_tiles, dtype=torch.int32, device=dev)
+        comp_tiles[dest] = tile_id.reshape(-1).to(torch.int32)   # slot M takes the rest
+        comp_tiles = comp_tiles[:M]
+        comp_gauss = torch.full((M + 1,), -1, dtype=torch.int32, device=dev)
+        comp_gauss[dest] = order.to(torch.int32)[:, None].expand(n, R).reshape(-1)
+        comp_gauss = comp_gauss[:M]
+        if sort_mode == "stable":
+            sort_tiles, perm = torch.sort(comp_tiles, stable=True)
+            sort_m = perm.to(torch.int32)
+        else:
+            # (tile, depth, compaction index): a stable sort on depth, then
+            # a stable one on tile
+            comp_depth = torch.where(comp_gauss >= 0, depth[comp_gauss.clamp_min(0).long()],
+                                     float("inf"))
+            perm = torch.sort(comp_depth, stable=True)[1]
+            sort_tiles, p2 = torch.sort(comp_tiles[perm], stable=True)
+            perm = perm[p2]
+        sort_gauss = comp_gauss[perm]
+    elif sort_mode == "twotier":
         # key = tile * rank_lim + depth rank: one int32 sort key, unique per
         # valid candidate, so main and tail candidates interleave in depth
         # order within a tile
@@ -162,17 +235,19 @@ def build_instance_lists(
             raise NotImplementedError(
                 f"twotier packed key overflows int32 at n={n}, "
                 f"num_tiles={num_tiles} — use binning='onesort'")
+        if return_slots:
+            raise NotImplementedError("slots not supported with twotier")
         rank_all = torch.arange(n, dtype=torch.int32, device=dev)
 
         def tier(r0, r1, idx):
             """Flat [Nt*(r1-r0)] keys / gaussian ids for ranks [r0, r1) of
             the gaussians at depth ranks ``idx`` (None = all), g-major."""
             pick = (lambda v: v) if idx is None else (lambda v: v[idx])
-            r = torch.arange(r0, r1, dtype=torch.int32, device=dev)[None, :]
+            rr = torch.arange(r0, r1, dtype=torch.int32, device=dev)[None, :]
             w, cx, cy = pick(rect_w)[:, None], pick(rmin_x)[:, None], pick(rmin_y)[:, None]
-            valid = (r < pick(touched_capped)[:, None]) & (
-                pick(offsets)[:, None] + r < M)
-            tile_id = torch.where(valid, _rect_walk(r, w, cx, cy, tx), num_tiles)
+            valid = (rr < pick(touched_capped)[:, None]) & (
+                pick(offsets)[:, None] + rr < M)
+            tile_id = torch.where(valid, _rect_walk(rr, w, cx, cy, tx), num_tiles)
             key = tile_id * rank_lim + pick(rank_all)[:, None]
             gauss = torch.where(valid, pick(order).to(torch.int32)[:, None], -1)
             return key.reshape(-1), gauss.reshape(-1)
@@ -186,36 +261,81 @@ def build_instance_lists(
         sort_keys, perm = torch.sort(keys, stable=True)
         sort_gauss = gauss[perm]
         sort_tiles = torch.div(sort_keys, rank_lim, rounding_mode="floor")
-        S = keys.shape[0]
     else:
-        # stable-sort ALL N*R candidates by tile: invalid / over-budget slots
-        # carry the sentinel tile and sort last, so the first M entries are
-        # the compacted, tile-grouped, depth-ordered instances
-        r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+        # onesort: stable-sort ALL N*R candidates by tile: invalid /
+        # over-budget slots carry the sentinel tile and sort last, so the
+        # first M entries are the compacted, tile-grouped, depth-ordered
+        # instances
         w, cx, cy = rect_w[:, None], rmin_x[:, None], rmin_y[:, None]
-        keep = (r < touched_capped[:, None]) & (offsets[:, None] + r < M)
         tile_all = torch.where(keep, _rect_walk(r, w, cx, cy, tx), num_tiles)
         gauss_all = torch.where(keep, order.to(torch.int32)[:, None], -1)
         sort_tiles, perm = torch.sort(tile_all.reshape(-1), stable=True)
         sort_gauss = gauss_all.reshape(-1)[perm]
-        S = n * R
+        if return_slots:    # the compact index m, carried through the sort
+            sort_m = torch.where(keep, offsets[:, None] + r, M).reshape(-1)[perm]
 
-    keep_m = min(M, S)
-    sort_tiles = sort_tiles[:keep_m].to(torch.int32)
-    sort_gauss = sort_gauss[:keep_m]
-    if keep_m < M:
-        sort_tiles = torch.cat([sort_tiles, sort_tiles.new_full((M - keep_m,), num_tiles)])
-        sort_gauss = torch.cat([sort_gauss, sort_gauss.new_full((M - keep_m,), -1)])
+    if sort_mode in ("onesort", "twotier"):
+        S = sort_tiles.shape[0]
+        keep_m = min(M, S)
+        sort_tiles = sort_tiles[:keep_m].to(torch.int32)
+        sort_gauss = sort_gauss[:keep_m]
+        if sort_m is not None:
+            sort_m = sort_m[:keep_m]
+        if keep_m < M:
+            sort_tiles = torch.cat([sort_tiles, sort_tiles.new_full((M - keep_m,), num_tiles)])
+            sort_gauss = torch.cat([sort_gauss, sort_gauss.new_full((M - keep_m,), -1)])
+            if sort_m is not None:
+                sort_m = torch.cat([sort_m, sort_m.new_full((M - keep_m,), M)])
 
-    # the raw (unaligned) offsets ARE the ranges of the compact layout
-    tile_starts = torch.searchsorted(
+    group_counts = group_tail = None
+    if return_groups:
+        # kept instances per gaussian id, for the sort-based transpose
+        if sort_mode not in ("onesort", "twotier"):
+            raise NotImplementedError(
+                f"return_groups requires 'onesort'/'twotier', got {sort_mode!r}")
+        kept = torch.minimum(touched_capped, torch.clamp_min(M - offsets, 0))
+        group_counts = kept[torch.argsort(order)]
+        if sort_mode == "twotier":
+            group_tail = order[sel_idx].to(torch.int32)
+
+    raw_starts = torch.searchsorted(
         sort_tiles, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
         right=False).to(torch.int32)
-    return InstanceLists(
-        instances=sort_gauss.contiguous(),
-        tile_starts=tile_starts,
-        overflow=dropped.to(torch.int32),
-    )
+    if layout == "compact":
+        # the raw (unaligned) offsets are the ranges of the compact layout
+        if return_slots:
+            raise NotImplementedError("slots not supported with compact")
+        return InstanceLists(instances=sort_gauss.contiguous(), tile_starts=raw_starts,
+                             overflow=dropped, group_counts=group_counts,
+                             group_tail=group_tail)
+
+    # the chunk-aligned re-layout (binning.py:616-645)
+    counts = raw_starts[1:] - raw_starts[:-1]
+    padded = (counts + chunk - 1) // chunk * chunk
+    aligned = torch.cat([counts.new_zeros(1), torch.cumsum(padded, 0)]).to(torch.int32)
+    tile_of = torch.clamp(sort_tiles, 0, num_tiles - 1).long()
+    rank = torch.arange(M, dtype=torch.int32, device=dev) - raw_starts[tile_of]
+    dst = torch.where(sort_tiles < num_tiles, aligned[tile_of] + rank, M_out)
+    instances = torch.full((M_out + 1,), -1, dtype=torch.int32, device=dev)
+    instances[dst.long()] = sort_gauss
+    instances = instances[:M_out]
+
+    slots = None
+    if return_slots:
+        if sort_mode not in ("stable", "onesort"):
+            raise NotImplementedError(
+                f"return_slots requires sort_mode 'stable'/'onesort', got {sort_mode!r}")
+        # invert the sort permutation (the compact index m of each sorted
+        # instance), then read each candidate's output slot
+        k_of_m = torch.argsort(sort_m, stable=True)
+        dst_by_m = dst[k_of_m]
+        m_nr = torch.clamp_max(offsets[:, None] + r, M - 1).long()
+        slot_sorted = torch.where(keep, dst_by_m[m_nr], M_out)
+        slots = slot_sorted[torch.argsort(order)].to(torch.int32)
+
+    return InstanceLists(instances=instances.contiguous(), tile_starts=aligned,
+                         overflow=dropped, slots=slots, group_counts=group_counts,
+                         group_tail=group_tail)
 
 
 def build_tile_lists(

@@ -46,8 +46,12 @@ CHUNK = 128     # instances per window of the plain version
 
 # the C entry points' signatures (csrc/blend_instances*.cu)
 _PTR, _INT, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_FWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR)
-_BWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR)
+_FLT = ctypes.c_float
+_FWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _FLT, _PTR, _PTR,
+             _I64, _PTR)
+_BWD_ARGS = (_PTR, _I64, _PTR, _PTR, _PTR, _PTR, _PTR, _PTR, _INT, _INT, _PTR, _I64, _PTR,
+             _PTR)
+_CUT_ARGS = (_PTR, _I64, _PTR, _INT, _INT, _FLT, _PTR, _PTR, _I64, _PTR)
 
 
 @functools.lru_cache(maxsize=64)
@@ -110,6 +114,58 @@ def _window(rows, valid, s, e, i, chunk):
     return pos, in_range, rows[:9, col][..., None], ok[..., None]
 
 
+def window_cut(rows, valid, s, e, grid, cutoff, window=CHUNK, return_margin=False):
+    """The plain version of the early exit's cut (the Pallas kernels'
+    ``cutoff`` > 0, blend_instances.py:157-170 of the JAX package): tile t
+    walks its range [s[t], e[t]) in ``window``-column windows counted from
+    absolute multiples of ``window``, window 0 always, each later one only
+    while some pixel's q >= ``cutoff`` (q the product of (1 - alpha) over
+    every instance of the range so far that passes the skip test,
+    termination ignored). Returns cut [T] int64: the end of the last window
+    run, clipped to e. The blend of [s, cut) is the early exit's result.
+    With ``return_margin`` also each tile's smallest |max q - cutoff| /
+    cutoff over the decisions it took (inf for a tile that took none): how
+    far another rounding of q would have to move to change its cut."""
+    ty, tx = grid
+    dev = rows.device
+    m = rows.shape[1]
+    px, py = _tile_pixel_coords(grid, dev)
+    px, py = px[:, None, :], py[:, None, :]                   # [T, 1, P]
+    w0 = torch.div(s, window, rounding_mode="floor") * window
+    nwin = torch.div(e - w0 + window - 1, window, rounding_mode="floor")
+    q = torch.ones((ty * tx, P), dtype=rows.dtype, device=dev)
+    ran = torch.zeros_like(s)
+    going = nwin > 0
+    margin = torch.full((ty * tx,), float("inf"), dtype=torch.float64, device=dev)
+    lane = torch.arange(window, device=dev)
+    i = 0
+    while True:
+        going = going & (i < nwin)
+        if i > 0:
+            top = q.amax(dim=1)
+            margin = torch.where(going, torch.minimum(
+                margin, (top.double() - cutoff).abs() / cutoff), margin)
+            going = going & (top >= cutoff)
+        act = torch.nonzero(going).squeeze(1)           # the tiles that run window i
+        if act.numel() == 0:
+            break
+        pos = w0[act, None] + i * window + lane                   # [A, W]
+        ok = (pos >= s[act, None]) & (pos < e[act, None])
+        col = pos.clamp(0, m - 1)
+        data = rows[:9, col][..., None]                           # [9, A, W, 1]
+        ok = (ok & (valid[col] > 0))[..., None]
+        dx = data[0] - px[act]
+        dy = data[1] - py[act]
+        power = -0.5 * (data[2] * dx * dx + data[4] * dy * dy) - data[3] * dx * dy
+        alpha = torch.clamp_max(data[8] * torch.exp(torch.clamp_max(power, 0.0)), ALPHA_MAX)
+        alpha = torch.where((power <= 0.0) & (alpha >= ALPHA_MIN) & ok, alpha, 0.0)
+        q = q.index_put((act,), q[act] * torch.cumprod(1.0 - alpha, dim=1)[:, -1])
+        ran = ran + going.to(ran.dtype)
+        i += 1
+    cut = torch.minimum(e, w0 + window * ran)
+    return (cut, margin) if return_margin else cut
+
+
 def blend_windows(rows, valid, s, e, bg, grid, chunk):
     """The plain blend: tile t walks the columns [s[t], e[t]) of ``rows``
     ([>= 9, M]: mean xy, conic abc, rgb, opacity) in ``chunk``-column
@@ -119,7 +175,8 @@ def blend_windows(rows, valid, s, e, bg, grid, chunk):
     [T, chunk, P] tensors. Sums run in ``rows``' dtype. Returns (img [T,3,P], t_final [T,P],
     evaluated [T,P], blended [T,P]): ``evaluated`` counts the instances each
     pixel reaches before it terminates, the pairs a sequential per-pixel
-    loop computes; ``blended`` those of them it blends."""
+    loop computes; ``blended`` those of them it blends. The early exit
+    passes each range ending at its :func:`window_cut`."""
     ty, tx = grid
     T = ty * tx
     dev = rows.device
@@ -132,10 +189,14 @@ def blend_windows(rows, valid, s, e, bg, grid, chunk):
     blended = torch.zeros((T, P), dtype=torch.int64, device=dev)
     longest = int((e - s).max()) if T else 0
     for i in range((longest + chunk - 1) // chunk):
-        _, in_range, data, ok = _window(rows, valid, s, e, i, chunk)
-        in_range = in_range[..., None]                        # [T, W, 1]
-        dx = data[0] - px
-        dy = data[1] - py
+        # only the tiles whose range reaches window i: it is a no-op for
+        # the others
+        act = torch.nonzero(e - s > i * chunk).squeeze(1)
+        _, in_range, data, ok = _window(rows, valid, s[act], e[act], i, chunk)
+        in_range = in_range[..., None]                        # [A, W, 1]
+        t_a, q_a = t_carry[act], q_carry[act]
+        dx = data[0] - px[act]
+        dy = data[1] - py[act]
         power = -0.5 * (data[2] * dx * dx + data[4] * dy * dy) - data[3] * dx * dy
         raw = data[8] * torch.exp(torch.clamp_max(power, 0.0))
         alpha = _clamp_straight_through(raw)
@@ -144,34 +205,69 @@ def blend_windows(rows, valid, s, e, bg, grid, chunk):
         # CUDA termination (forward.cu:346-351): q, the transmittance with
         # every alpha applied, is monotone; an instance counts while q
         # stays >= T_EPS, the crossing one is dropped and T freezes
-        q_incl = q_carry[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
-        q_excl = torch.cat([q_carry[:, None, :], q_incl[:, :-1]], dim=1)
-        evaluated += ((q_excl >= T_EPS) & in_range).sum(dim=1)
+        q_incl = q_a[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
+        q_excl = torch.cat([q_a[:, None, :], q_incl[:, :-1]], dim=1)
+        evaluated = evaluated.index_add(0, act, ((q_excl >= T_EPS) & in_range).sum(dim=1))
         alpha = torch.where(q_incl >= T_EPS, alpha, 0.0)
-        blended += (alpha > 0).sum(dim=1)
+        blended = blended.index_add(0, act, (alpha > 0).sum(dim=1))
         t_incl = torch.cumprod(1.0 - alpha, dim=1)
         t_excl = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
-        w = alpha * t_excl * t_carry[:, None, :]              # [T, W, P]
-        acc += torch.einsum("twp,dtw->tdp", w, data[5:8, :, :, 0])
-        t_carry = t_carry * t_incl[:, -1]
-        q_carry = q_incl[:, -1]
+        w = alpha * t_excl * t_a[:, None, :]                  # [A, W, P]
+        acc = acc.index_add(0, act, torch.einsum("twp,dtw->tdp", w, data[5:8, :, :, 0]))
+        t_carry = t_carry.index_put((act,), t_a * t_incl[:, -1])
+        q_carry = q_carry.index_put((act,), q_incl[:, -1])
     img = acc + t_carry[:, None, :] * bg[None, :, None]
     return img, t_carry, evaluated, blended
 
 
-def blend_instances_reference(inst_data, tile_starts, bg, grid):
+def _plain_forward(inst_data, tile_starts, bg, grid, cutoff):
+    """The plain forward, (img, t_final, cut): with ``cutoff`` > 1e-4 each
+    range ends at its :func:`window_cut` (``cut``, int32 [T]), else the
+    exact blend (``cut`` None)."""
+    s, e = _ranges(tile_starts)
+    cut = None
+    if cutoff > T_EPS:
+        cut = window_cut(inst_data, inst_data[9], s, e, grid, cutoff).to(torch.int32)
+        e = cut.long()
+    img, t_final, _, _ = blend_windows(inst_data, inst_data[9], s, e, bg, grid, CHUNK)
+    return img, t_final, cut
+
+
+def blend_instances_reference(inst_data, tile_starts, bg, grid, cutoff=0.0):
     """Plain PyTorch version of the forward kernel: (img_tiles [T,3,P],
-    t_final [T,P]). The CPU path, and the oracle the kernel is held against.
-    Differentiable by autograd (with the straight-through clamp): an
-    independent check of the backward."""
+    t_final [T,P]), with the early exit of ``cutoff`` > 1e-4. The CPU path,
+    and the oracle the kernel is held against. Differentiable by autograd
+    (with the straight-through clamp): an independent check of the
+    backward."""
     _check_inputs(inst_data, tile_starts, bg, grid)
-    img, t_final, _, _ = blend_windows(inst_data, inst_data[9], *_ranges(tile_starts),
-                                        bg, grid, CHUNK)
-    return img, t_final
+    return _plain_forward(inst_data, tile_starts, bg, grid, cutoff)[:2]
 
 
-def _ranges(tile_starts):
-    return tile_starts[:-1].long(), tile_starts[1:].long()
+def _ranges(tile_starts, cut=None):
+    """Each tile's (start, end) as int64, the end at ``cut`` when given."""
+    s, e = tile_starts[:-1].long(), tile_starts[1:].long()
+    return (s, e) if cut is None else (s, torch.minimum(e, cut.long()))
+
+
+def blend_cut(inst_data, tile_starts, grid, cutoff):
+    """The early exit's cut column of each tile, int32 [T]
+    (:func:`window_cut`): on a CUDA tensor the cut's launches that kernel 1
+    queues first (``blend_instances_cut`` of csrc/blend_instances.cu: each
+    128-column window's products, then each tile's scan; not counted as a
+    launch of kernel 1), on a CPU tensor the plain version."""
+    _check_inputs(inst_data, tile_starts,
+                  torch.zeros(3, dtype=torch.float32, device=inst_data.device), grid)
+    if inst_data.device.type == "cpu":
+        return window_cut(inst_data, inst_data[9], *_ranges(tile_starts), grid,
+                          cutoff).to(torch.int32)
+    ty, tx = grid
+    m = inst_data.shape[1]
+    cut = torch.empty((ty * tx,), dtype=torch.int32, device=inst_data.device)
+    buf = scratch("blend_instances", "blend_instances_cut", m, ty * tx, inst_data.device)
+    cuda_build.launch("blend_instances", "blend_instances_cut", _CUT_ARGS, (
+        inst_data.data_ptr(), m, tile_starts.data_ptr(), ty * tx, tx, cutoff, cut.data_ptr(),
+        buf.data_ptr(), buf.numel()), inst_data.device)
+    return cut
 
 
 def window_pair_counts(rows, valid, s, e, grid, chunk=CHUNK):
@@ -207,7 +303,7 @@ def _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
 
 
 def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
-                                       g_img, g_tfin, grid):
+                                       g_img, g_tfin, grid, cut=None):
     """Plain PyTorch version of the backward kernel: g_inst [16, M], the
     gradient of rows 0-8 of ``inst_data`` (rows 9-15 and every column outside
     the tiles' ranges are zero), given the forward's outputs and their
@@ -216,10 +312,12 @@ def blend_instances_backward_reference(inst_data, tile_starts, bg, img, t_final,
     once, with the same cumulative products, so it agrees with the plain
     forward on which instances are kept and where each pixel terminates.
     ``bg`` enters only through ``img``; its own gradient is
-    ``einsum("tdp,tp->d", g_img, t_final)``."""
+    ``einsum("tdp,tp->d", g_img, t_final)``. Under the early exit, ``cut``
+    is the forward's cut (int32 [T]): each range ends there, and the columns
+    past it get 0."""
     _check_backward_inputs(inst_data, tile_starts, bg, img, t_final, g_img,
                            g_tfin, grid)
-    return backward_windows(inst_data, inst_data[9], *_ranges(tile_starts), img,
+    return backward_windows(inst_data, inst_data[9], *_ranges(tile_starts, cut), img,
                             t_final, g_img, g_tfin, grid, CHUNK, ROW)
 
 
@@ -230,7 +328,8 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
     outside the tiles' ranges, zero). Walks the same ``chunk``-column
     windows with the same cumulative products as the forward, so it agrees
     with it on which instances are kept and where each pixel terminates.
-    Sums run in ``rows``' dtype."""
+    Sums run in ``rows``' dtype. The early exit passes the forward's
+    shortened ranges; the columns past them get 0."""
     ty, tx = grid
     T = ty * tx
     dev = rows.device
@@ -248,9 +347,12 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
     g_out = torch.zeros((n_out, m + 1), dtype=rows.dtype, device=dev)
     longest = int((e - s).max()) if T else 0
     for i in range((longest + chunk - 1) // chunk):
-        pos, in_range, data, ok = _window(rows, valid, s, e, i, chunk)
-        dx = data[0] - px
-        dy = data[1] - py
+        # only the tiles whose range reaches window i
+        act = torch.nonzero(e - s > i * chunk).squeeze(1)
+        pos, in_range, data, ok = _window(rows, valid, s[act], e[act], i, chunk)
+        t_a, q_a, pu_a, g_a = t_carry[act], q_carry[act], pu_carry[act], g[act]
+        dx = data[0] - px[act]
+        dy = data[1] - py[act]
         ca, cb, cc = data[2], data[3], data[4]
         power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
         exp_power = torch.exp(torch.clamp_max(power, 0.0))
@@ -260,19 +362,19 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
         alpha = torch.where(keep, alpha, 0.0)
         # the forward's termination: the crossing instance and every later
         # one are dropped (backward.cu:486-488)
-        q_incl = q_carry[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
+        q_incl = q_a[:, None, :] * torch.cumprod(1.0 - alpha, dim=1)
         alive = q_incl >= T_EPS
         keep = keep & alive
         alpha = torch.where(alive, alpha, 0.0)
         om = 1.0 - alpha
         t_incl = torch.cumprod(om, dim=1)
         t_excl = torch.cat([torch.ones_like(t_incl[:, :1]), t_incl[:, :-1]], dim=1)
-        t_j = t_excl * t_carry[:, None, :]                    # [T, W, P]
+        t_j = t_excl * t_a[:, None, :]                        # [A, W, P]
         w = alpha * t_j
-        gdotc = (g[:, 0] * data[5] + g[:, 1] * data[6]) + g[:, 2] * data[7]
-        pu = pu_carry[:, None, :] + torch.cumsum(w * gdotc, dim=1)
+        gdotc = (g_a[:, 0] * data[5] + g_a[:, 1] * data[6]) + g_a[:, 2] * data[7]
+        pu = pu_a[:, None, :] + torch.cumsum(w * gdotc, dim=1)
         inv_om = 1.0 / om
-        dalpha = t_j * gdotc - (gdotimg - pu) * inv_om - gt_tn * inv_om
+        dalpha = (t_j * gdotc - (gdotimg[act] - pu) * inv_om - gt_tn[act] * inv_om)
         dalpha = torch.where(keep, dalpha, 0.0)
         # straight through the 0.99 clamp: the unclamped raw = op * G
         g_power = dalpha * raw
@@ -282,24 +384,25 @@ def backward_windows(rows, valid, s, e, img, t_final, g_img, g_tfin, grid,
             g_power * (-0.5 * dx * dx),
             g_power * (-dx * dy),
             g_power * (-0.5 * dy * dy),
-            w * g[:, 0],
-            w * g[:, 1],
-            w * g[:, 2],
+            w * g_a[:, 0],
+            w * g_a[:, 1],
+            w * g_a[:, 2],
             dalpha * exp_power,
-        ]).sum(dim=-1)                                        # [9, T, W]
+        ]).sum(dim=-1)                                        # [9, A, W]
         col = torch.where(in_range, pos, m).reshape(-1)
         g_out[:9].index_put_((torch.arange(9, device=dev)[:, None], col[None, :]),
                              partials.reshape(9, -1))
-        t_carry = t_carry * t_incl[:, -1]
-        q_carry = q_incl[:, -1]
-        pu_carry = pu[:, -1]
+        t_carry[act] = t_a * t_incl[:, -1]
+        q_carry[act] = q_incl[:, -1]
+        pu_carry[act] = pu[:, -1]
     return g_out[:, :m].contiguous()
 
 
 def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
-                        grid, out=None):
+                        grid, out=None, cut=None):
     """Backward of the instance blend: g_inst [16, M] (see
-    :func:`blend_instances_backward_reference`).
+    :func:`blend_instances_backward_reference`). ``cut``: the forward's cut
+    columns (int32 [T]) under the early exit, else None.
 
     A CUDA tensor launches the kernel (and counts the launch in
     ``blend_instances_bwd.launches``), writing every element of ``out``
@@ -308,7 +411,7 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
                            g_tfin, grid)
     if inst_data.device.type == "cpu":
         return blend_instances_backward_reference(
-            inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, grid)
+            inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, grid, cut=cut)
     if inst_data.device.type != "cuda":
         raise ValueError(f"blend_instances_bwd runs on cuda or cpu, not {inst_data.device}")
     ins = (inst_data, tile_starts, img, t_final, g_img, g_tfin)
@@ -326,7 +429,8 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
     cuda_build.launch("blend_instances_bwd", "blend_instances_bwd", _BWD_ARGS, (
         inst_data.data_ptr(), m, tile_starts.data_ptr(), img.data_ptr(),
         t_final.data_ptr(), g_img.data_ptr(), g_tfin.data_ptr(), out.data_ptr(),
-        ty * tx, tx, buf.data_ptr(), buf.numel()), inst_data.device)
+        ty * tx, tx, buf.data_ptr(), buf.numel(), None if cut is None else cut.data_ptr()),
+        inst_data.device)
     blend_instances_bwd.launches += 1
     return out
 
@@ -334,11 +438,14 @@ def blend_instances_bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin,
 blend_instances_bwd.launches = 0
 
 
-def _blend_forward(inst_data, tile_starts, bg, grid):
-    """The forward on one device: the kernel on CUDA, the plain version on
-    the CPU."""
+def blend_instances_fwd(inst_data, tile_starts, bg, grid, cutoff=0.0):
+    """The forward on one device, (img [T,3,P], t_final [T,P], cut): the
+    kernel on CUDA (counted in ``blend_instances.launches``), the plain
+    version on the CPU. ``cut`` is each tile's cut column (int32 [T]) when
+    ``cutoff`` > 1e-4 (the early exit), else None."""
+    _check_inputs(inst_data, tile_starts, bg, grid)
     if inst_data.device.type == "cpu":
-        return blend_instances_reference(inst_data, tile_starts, bg, grid)
+        return _plain_forward(inst_data, tile_starts, bg, grid, cutoff)
     if inst_data.device.type != "cuda":
         raise ValueError(f"blend_instances runs on cuda or cpu, not {inst_data.device}")
     if not (inst_data.is_contiguous() and tile_starts.is_contiguous()
@@ -350,12 +457,18 @@ def _blend_forward(inst_data, tile_starts, bg, grid):
     t_final = torch.empty((T, P), dtype=torch.float32, device=inst_data.device)
     m = inst_data.shape[1]
     buf = scratch("blend_instances", "blend_instances_fwd", m, T, inst_data.device)
+    cut = cut_buf = None
+    if cutoff > T_EPS:
+        cut = torch.empty((T,), dtype=torch.int32, device=inst_data.device)
+        cut_buf = scratch("blend_instances", "blend_instances_cut", m, T, inst_data.device)
     cuda_build.launch("blend_instances", "blend_instances_fwd", _FWD_ARGS, (
         inst_data.data_ptr(), m, tile_starts.data_ptr(), bg.data_ptr(),
-        img.data_ptr(), t_final.data_ptr(), T, tx, buf.data_ptr(), buf.numel()),
-        inst_data.device)
+        img.data_ptr(), t_final.data_ptr(), T, tx, buf.data_ptr(), buf.numel(),
+        cutoff, None if cut is None else cut.data_ptr(),
+        None if cut_buf is None else cut_buf.data_ptr(),
+        0 if cut_buf is None else cut_buf.numel()), inst_data.device)
     blend_instances.launches += 1
-    return img, t_final
+    return img, t_final, cut
 
 
 class _BlendInstances(torch.autograd.Function):
@@ -365,43 +478,47 @@ class _BlendInstances(torch.autograd.Function):
     picks kernel or plain version."""
 
     @staticmethod
-    def forward(ctx, inst_data, tile_starts, bg, grid, plain):
-        fwd = blend_instances_reference if plain else _blend_forward
-        img, t_final = fwd(inst_data, tile_starts, bg, grid)
-        ctx.save_for_backward(inst_data, tile_starts, bg, img, t_final)
+    def forward(ctx, inst_data, tile_starts, bg, grid, plain, cutoff):
+        fwd = _plain_forward if plain else blend_instances_fwd
+        img, t_final, cut = fwd(inst_data, tile_starts, bg, grid, cutoff)
+        # both directions use the forward's cut
+        ctx.save_for_backward(inst_data, tile_starts, bg, img, t_final, cut)
         ctx.grid, ctx.plain = grid, plain
         return img, t_final
 
     @staticmethod
     def backward(ctx, g_img, g_tfin):
-        inst_data, tile_starts, bg, img, t_final = ctx.saved_tensors
+        inst_data, tile_starts, bg, img, t_final, cut = ctx.saved_tensors
         g_img, g_tfin = g_img.contiguous(), g_tfin.contiguous()
         bwd = blend_instances_backward_reference if ctx.plain else blend_instances_bwd
-        g_inst = bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, ctx.grid)
+        g_inst = bwd(inst_data, tile_starts, bg, img, t_final, g_img, g_tfin, ctx.grid,
+                     cut=cut)
         g_bg = torch.einsum("tdp,tp->d", g_img, t_final)
-        return g_inst, None, g_bg, None, None
+        return g_inst, None, g_bg, None, None, None
 
 
-def blend_instances(inst_data, tile_starts, bg, grid):
+def blend_instances(inst_data, tile_starts, bg, grid, cutoff=0.0):
     """Instance-range blend. inst_data [16, M] float32 (see module
-    docstring), tile_starts [T+1] int32 (compact, unaligned ranges), bg [3]
+    docstring), tile_starts [T+1] int32 (compact or aligned ranges), bg [3]
     float32, grid (tiles_y, tiles_x). Returns (img_tiles [T,3,P], t_final
-    [T,P]), differentiable in ``inst_data`` and ``bg``.
+    [T,P]), differentiable in ``inst_data`` and ``bg``. ``cutoff`` > 1e-4:
+    the chunk-granular early exit (:func:`window_cut`); <= 1e-4 the exact
+    blend.
 
     A CUDA tensor launches the forward kernel (counted in
     ``blend_instances.launches``) and, in the backward, the backward kernel
     (``blend_instances_bwd.launches``); a CPU tensor runs the plain
     versions."""
     _check_inputs(inst_data, tile_starts, bg, grid)
-    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, False)
+    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, False, cutoff)
 
 
 blend_instances.launches = 0
 
 
-def blend_instances_plain(inst_data, tile_starts, bg, grid):
+def blend_instances_plain(inst_data, tile_starts, bg, grid, cutoff=0.0):
     """:func:`blend_instances` with both directions through the plain
     versions on any device: the yardstick the kernels are held against on
     the card."""
     _check_inputs(inst_data, tile_starts, bg, grid)
-    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, True)
+    return _BlendInstances.apply(inst_data, tile_starts, bg, grid, True, cutoff)

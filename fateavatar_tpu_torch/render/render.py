@@ -4,8 +4,9 @@ volume_rendering/render_3dgs.py:7-81.
 Port of ``fateavatar_tpu/render/render.py``: per-Gaussian preprocess, then
 one of the two routes the JAX package's ``RenderConfig.kernel`` selects:
 
-* ``"instances"``: instance binning (twotier / onesort, compact layout) ->
-  the packed instance gather -> the instance blend;
+* ``"instances"``: instance binning (every mode and layout of the JAX
+  package) -> the packed instance gather (one of three transposes) -> the
+  instance blend (with the optional ``t_cutoff`` early exit);
 * ``"tiles"``: dense [T, K] per-tile lists (``build_tile_lists``, or
   ``build_tile_lists_scan`` for ``binning="scan"``) -> the dense gather ->
   the dense-list blend.
@@ -53,31 +54,52 @@ KERNEL_COUNTERS = {
 
 @dataclass(frozen=True)
 class RenderConfig:
-    """The render settings the two routes read (a subset of the JAX
-    package's ``RenderConfig``, same names and defaults)."""
+    """The render settings (the JAX package's ``RenderConfig``, same names
+    and defaults, but ``impl``: the tensor's device picks the path)."""
 
     max_per_tile: int = 1024      # 'tiles': K, the slots of each tile's list
     max_tiles_per_gaussian: int = 16
     # 0 = min(4N, N*R) on the 'instances' route, min(6N, N*R) on 'tiles'
     instance_budget: int = 0
     chunk: int = 64               # 'tiles': slots per window of the plain blend
-    # 'instances': 'onesort' (one stable sort of all N*R candidates) or
-    # 'twotier' (R0 candidates each, R for the tail_k largest footprints);
-    # 'tiles': 'scan' (the sort-free counting binning), any other value
-    # the one stable sort of build_tile_lists
+    # 'instances': a sort_mode of binning.build_instance_lists ('onesort',
+    # 'twotier', 'count', 'gather', 'twokey'; any other name, 'sort' and
+    # 'scan' among them, is 'stable'); 'tiles': 'scan' (the sort-free
+    # counting binning), any other value the one stable sort of
+    # build_tile_lists
     binning: str = "onesort"
+    # the JAX package's 'count' block; accepted for its configs and unused:
+    # 'count' gives the result of 'stable' whatever the block
+    count_block: int = 256
     tail_r0: int = 4
     tail_k: int = 0               # 0 = max(256, N // 16)
-    layout: str = "compact"
-    # 'instances' (flat per-tile ranges) or 'tiles' (dense [T, K] lists)
-    kernel: str = "instances"
-    # 'instances': the chunk-granular early exit of the Pallas kernel; values
-    # <= 1e-4 give the exact blend (0.0, the yaml default), larger ones are
-    # not ported. 'tiles' ignores it, as the JAX package does
-    t_cutoff: float = 0.0
     # consumed by the Trainer at startup: measure the dataset's occupancy
     # and replace budget / R / tail_k with sized values (render/autosize.py)
     autosize: bool = False
+    # the transpose of the instance gather ('instances' route); all give
+    # the same sums up to their order (render.py:60-77 of the JAX package):
+    #   bwd_sorted_scatter: the JAX package's presorted scatter-add, which
+    #     only reorders the slim transpose's sums: the slim one here
+    #   bwd_slots: the [N, R] slot table of an aligned 'stable' / 'onesort'
+    #     binning, gathered and summed (no atomics)
+    #   bwd_grouped: one sort of the ids, then [N, r0] (+ the twotier tail's
+    #     [K, R - r0]) gathers and masked sums; 'onesort' / 'twotier' only
+    # with none of them (or none that applies), the slim 9-channel index_add_
+    bwd_sorted_scatter: bool = False
+    bwd_slots: bool = False
+    bwd_grouped: bool = False
+    # the aligned layout's re-layout: 'scatter', or 'gather' (the inverse map)
+    relayout: str = "scatter"
+    # 'compact' (raw ranges) or 'aligned' (each range padded to 128)
+    layout: str = "compact"
+    # 'instances' (flat per-tile ranges) or 'tiles' (dense [T, K] lists)
+    kernel: str = "instances"
+    # 'instances': the chunk-granular early exit of kernels 1 and 2: a tile
+    # stops after the first 128-column window (counted from absolute
+    # multiples of 128) before which all its pixels' transmittance is below
+    # t_cutoff. Values <= 1e-4 give the exact blend (0.0, the yaml default).
+    # 'tiles' ignores it, as the JAX package does
+    t_cutoff: float = 0.0
 
 
 class _TakePackedSlim(torch.autograd.Function):
@@ -97,13 +119,9 @@ class _TakePackedSlim(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, soa9, ids):
-        n = soa9.shape[0]
-        packed = torch.zeros((n + 1, 16), dtype=soa9.dtype, device=soa9.device)
-        packed[:n, :9] = soa9
-        packed[:n, 9] = 1.0
         ctx.save_for_backward(ids)
-        ctx.n = n
-        return packed[ids].T.contiguous()
+        ctx.n = soa9.shape[0]
+        return _gather_rows(soa9, ids)
 
     @staticmethod
     def backward(ctx, g):
@@ -115,6 +133,70 @@ class _TakePackedSlim(torch.autograd.Function):
         g9 = torch.zeros((n + spread, 9), dtype=g.dtype, device=g.device)
         g9.index_add_(0, rows, g[:9].T)
         return g9[:n], None
+
+
+def _gather_rows(soa9, ids):
+    """The slim gather's forward: rows ``ids`` of [N+1, 16] (9 channels,
+    valid = 1, zero pad; row N the sentinel with valid = 0), as [16, M]."""
+    n = soa9.shape[0]
+    packed = torch.zeros((n + 1, 16), dtype=soa9.dtype, device=soa9.device)
+    packed[:n, :9] = soa9
+    packed[:n, 9] = 1.0
+    return packed[ids].T.contiguous()
+
+
+class _TakePackedSlots(torch.autograd.Function):
+    """The instance gather whose transpose reads each gaussian's <= R
+    instance gradients through the binning's ``slots`` [N, R] table and sums
+    them (``_take_packed``, render.py:97-124 of the JAX package): gathers
+    and a sum, no atomics, so the result does not depend on scheduling.
+    Slots past the instances (the sentinel M) read a zero row."""
+
+    @staticmethod
+    def forward(ctx, soa9, ids, slots):
+        ctx.save_for_backward(slots)
+        return _gather_rows(soa9, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        slots, = ctx.saved_tensors
+        gt = torch.cat([g[:9].T, g.new_zeros((1, 9))])             # [M + 1, 9]
+        return gt[slots.long().clamp_max(gt.shape[0] - 1)].sum(dim=1), None, None
+
+
+class _TakePackedGrouped(torch.autograd.Function):
+    """The instance gather whose transpose is sort-based
+    (``_take_packed_grouped``, render.py:181-235 of the JAX package): one
+    sort of the ids groups the instance gradients by gaussian, whose rows
+    then lie at [excl-cumsum(counts)[i], + counts[i]); an [N, r0] gather and
+    a masked sum add them up, and for 'twotier' a [K, R - r0] gather adds
+    the tail gaussians' further rows. No atomics (the tail ids are unique)."""
+
+    @staticmethod
+    def forward(ctx, soa9, ids, counts, tail_ids, r0, r_max):
+        ctx.save_for_backward(ids, counts, tail_ids)
+        ctx.r0, ctx.r_max = r0, r_max
+        return _gather_rows(soa9, ids)
+
+    @staticmethod
+    def backward(ctx, g):
+        ids, counts, tail_ids = ctx.saved_tensors
+        r0, r_max = ctx.r0, ctx.r_max
+        m, n, dev = ids.shape[0], counts.shape[0], ids.device
+        g_by_id = g[:9].T[torch.argsort(ids, stable=True)]           # [m, 9]
+        counts = counts.long()
+        starts = torch.cumsum(counts, 0) - counts
+
+        def summed(first, cnt, lo, hi):
+            r = torch.arange(lo, hi, device=dev)[None, :]
+            rows = g_by_id[torch.clamp_max(first[:, None] + r, m - 1)]   # [*, hi - lo, 9]
+            return torch.where((r < cnt[:, None])[..., None], rows, 0.0).sum(dim=1)
+
+        gsum = summed(starts, torch.clamp_max(counts, r0), 0, r0)
+        if tail_ids.numel() and r_max > r0:
+            tail = tail_ids.long()
+            gsum = gsum.index_add(0, tail, summed(starts[tail], counts[tail], r0, r_max))
+        return gsum, None, None, None, None, None
 
 
 class _TakeDense(torch.autograd.Function):
@@ -172,15 +254,6 @@ def render(
     if config.kernel not in ("instances", "tiles"):
         raise NotImplementedError(
             f"kernel {config.kernel!r} is not ported; use 'instances' or 'tiles'")
-    # the JAX package honours t_cutoff only in its instance kernel, where any
-    # value <= 1e-4 (T_EPS) gives the exact blend's bits (blend_instances.py:
-    # 158-161): the 'tiles' route ignores it, 'instances' takes those values
-    if config.kernel == "instances" and config.t_cutoff > T_EPS:
-        raise NotImplementedError(
-            f"t_cutoff {config.t_cutoff} > {T_EPS} (the chunk-granular early exit "
-            "of the instance kernel) is not ported yet (ROADMAP Queue 2 (a)); "
-            "values <= 1e-4 give the exact blend")
-
     grid = binning.tile_grid(camera.width, camera.height)
     prep = preprocess(
         camera, gaussians.xyz, gaussians.get_scaling, gaussians.get_rotation,
@@ -218,25 +291,50 @@ def render(
                                          lists.counts, bg_color, grid, config.chunk)
         overflow, tile_counts = lists.overflow, lists.counts
     else:
+        # the JAX package's mode mapping (render.py:300-305)
+        sort_mode = (config.binning if config.binning in binning.SORT_MODES else "stable")
+        use_groups = config.bwd_grouped and sort_mode in ("onesort", "twotier")
         ilists = binning.build_instance_lists(
             mx.detach(), my.detach(), prep.depth.detach(), prep.radius, grid,
             max_tiles_per_gaussian=config.max_tiles_per_gaussian,
             instance_budget=config.instance_budget,
-            sort_mode=config.binning,
+            sort_mode=sort_mode,
             layout=config.layout,
             tail_r0=config.tail_r0,
             tail_k=config.tail_k,
+            chunk=CHUNK,
+            relayout=config.relayout,
+            return_slots=(config.bwd_slots and config.layout == "aligned"
+                          and sort_mode in ("stable", "onesort")),
+            return_groups=use_groups,
         )
         n = mx.shape[0]
         ids = torch.where(ilists.instances >= 0, ilists.instances, n)
-        # pad as the JAX package does, so M matches it (its kernel's last
-        # CHUNK-aligned window must stay in bounds)
-        m_real = ids.shape[0]
-        m_pad = ((m_real + CHUNK) // CHUNK + 1) * CHUNK
-        ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)]).long()
-        inst_data = _TakePackedSlim.apply(torch.stack(channels, dim=1), ids)  # [16, M]
-        img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts,
-                                             bg_color, grid)
+        if config.layout == "compact":
+            # pad as the JAX package does, so M matches it (its kernel's last
+            # CHUNK-aligned window must stay in bounds); 'count' and 'gather'
+            # lists, aligned already, are padded too
+            m_real = ids.shape[0]
+            m_pad = ((m_real + CHUNK) // CHUNK + 1) * CHUNK
+            ids = torch.cat([ids, ids.new_full((m_pad - m_real,), n)])
+        ids = ids.long()
+        soa9 = torch.stack(channels, dim=1)
+        if ilists.slots is not None:
+            inst_data = _TakePackedSlots.apply(soa9, ids, ilists.slots)       # [16, M]
+        elif use_groups:
+            tail = (ilists.group_tail if ilists.group_tail is not None
+                    else ids.new_zeros((0,)))
+            r0 = (config.tail_r0 if sort_mode == "twotier"
+                  else config.max_tiles_per_gaussian)
+            inst_data = _TakePackedGrouped.apply(soa9, ids, ilists.group_counts, tail, r0,
+                                                 config.max_tiles_per_gaussian)
+        else:
+            inst_data = _TakePackedSlim.apply(soa9, ids)
+        # a cutoff <= 1e-4 is the exact blend (the kernels' bits, launched
+        # without the cut pass); the blend is called without it then
+        cut = {"cutoff": config.t_cutoff} if config.t_cutoff > T_EPS else {}
+        img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts, bg_color,
+                                             grid, **cut)
         overflow = ilists.overflow
         tile_counts = ilists.tile_starts[1:] - ilists.tile_starts[:-1]
     image = tiles_to_image(img_tiles, grid, camera.width, camera.height)

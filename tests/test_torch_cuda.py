@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
-blend's and the dense-list blend's forward and backward) against its plain
-PyTorch version on the card; the CUDA graphs (the Trainer's scan epoch and
+blend's and the dense-list blend's forward and backward, the instance
+blend's early exit too) against its plain PyTorch version on the card; the
+CUDA graphs (the Trainer's scan epoch and
 the served frame) against eager steps and frames; each baseline
 family's step through the kernels against the plain blends; LPIPS on the
 card against the CPU and the intrinsics-shift camera inside a graph. They skip on a host
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_blend_cases import BLEND_CASES, blend_case
+from torch_blend_cases import BLEND_CASES, aligned_layout, blend_case
 from torch_determinism import deterministic_sums
 from torch_tile_cases import TILE_CASES, tile_case
 
@@ -123,6 +124,74 @@ def test_blend_bwd_kernel_writes_every_element():
     torch.cuda.synchronize()
     assert bool(torch.isfinite(dirty).all())
     assert torch.equal(dirty, clean)
+
+
+def _cutoff_inputs(layout):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    inst, starts, bg, grid = blend_case("cutoff")
+    if layout == "aligned":
+        inst, starts = aligned_layout(inst, starts)
+    return (torch.from_numpy(inst).cuda(), torch.from_numpy(starts).cuda(),
+            torch.from_numpy(bg).cuda(), grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["compact", "aligned"])
+@pytest.mark.parametrize("cutoff", [1e-3, 1e-2])
+def test_cutoff_kernels_match_plain_version(cutoff, layout):
+    """The early exit (t_cutoff > 1e-4) on the ``cutoff`` case: the cut pass
+    on the card takes the plain version's cut on every tile (the case keeps
+    every decision far from the cutoff), the forward and the backward (one
+    launch each, with the forward's cut) agree with the plain versions at
+    the exact blend's tolerances, some tile is cut, and the columns past
+    each cut get no gradient."""
+    inst, starts, bg, grid = _cutoff_inputs(layout)
+    cut = tblend.blend_cut(inst, starts, grid, cutoff)
+    cut_p = tblend.window_cut(inst, inst[9], starts[:-1].long(), starts[1:].long(), grid,
+                              cutoff)
+    assert torch.equal(cut.long(), cut_p)
+    assert bool((cut.long() < starts[1:].long()).any())
+    g_img, g_tfin = _cotangents(grid)
+
+    def run(blend):
+        x = inst.clone().requires_grad_()
+        img, tfin = blend(x, starts, bg, grid, cutoff=cutoff)
+        g, = torch.autograd.grad((img * g_img).sum() + (tfin * g_tfin).sum(), x)
+        return img, tfin, g
+
+    f0, b0 = tblend.blend_instances.launches, tblend.blend_instances_bwd.launches
+    img_k, tfin_k, gk = run(tblend.blend_instances)
+    torch.cuda.synchronize()
+    assert (tblend.blend_instances.launches, tblend.blend_instances_bwd.launches) == (
+        f0 + 1, b0 + 1)
+    img_p, tfin_p, gp = run(tblend.blend_instances_plain)
+    assert (img_k - img_p).abs().max().item() <= 2e-4
+    assert (tfin_k - tfin_p).abs().max().item() <= 2e-4
+    assert _close_rows(gk, gp, BWD_RTOL)
+    col = torch.arange(inst.shape[1], device="cuda")
+    for t in range(grid[0] * grid[1]):
+        assert bool((gk[:, (col >= cut[t]) & (col < starts[t + 1])] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cutoff_backward_writes_every_element():
+    """Under the early exit, a NaN-filled output buffer comes back bit-equal
+    to a clean call, with every column past each tile's cut 0: the backward
+    zeroes the columns the forward skipped."""
+    inst, starts, bg, grid = _cutoff_inputs("compact")
+    img, tfin, cut = tblend.blend_instances_fwd(inst, starts, bg, grid, cutoff=1e-2)
+    args = (inst, starts, bg, img, tfin, *_cotangents(grid), grid)
+    clean = tblend.blend_instances_bwd(*args, cut=cut)
+    dirty = tblend.blend_instances_bwd(*args, out=torch.full_like(clean, float("nan")),
+                                       cut=cut)
+    torch.cuda.synchronize()
+    assert torch.equal(dirty, clean)
+    col = torch.arange(inst.shape[1], device="cuda")
+    past = torch.zeros_like(col, dtype=torch.bool)
+    for t in range(grid[0] * grid[1]):
+        past |= (col >= cut[t]) & (col < starts[t + 1])
+    assert int(past.sum()) > 0 and bool((dirty[:, past] == 0).all())
 
 
 def _cuda_tile_inputs(name):

@@ -105,11 +105,20 @@ def test_autosize_matches_jax():
 
 
 def test_unported_binning_raises():
+    """The refusals the JAX package keeps (binning.py:393-394, 584-587,
+    607-608): slots with 'twotier' or the compact layout, groups outside
+    'onesort' / 'twotier'; and an unknown sort_mode raises ValueError (the
+    JAX package fails there with a NameError)."""
     args = (t([1.0]), t([1.0]), t([1.0]), t([2], torch.int32), (1, 1))
-    with pytest.raises(NotImplementedError):
-        tbinning.build_instance_lists(*args, sort_mode="stable")
-    with pytest.raises(NotImplementedError):
-        tbinning.build_instance_lists(*args, layout="aligned")
+    for kw in (dict(sort_mode="twotier", layout="aligned", return_slots=True),
+               dict(sort_mode="stable", layout="compact", return_slots=True),
+               dict(sort_mode="onesort", layout="compact", return_slots=True),
+               dict(sort_mode="stable", return_groups=True),
+               dict(sort_mode="twokey", return_groups=True)):
+        with pytest.raises(NotImplementedError):
+            tbinning.build_instance_lists(*args, **kw)
+    with pytest.raises(ValueError):
+        tbinning.build_instance_lists(*args, sort_mode="radix")
 
 
 @pytest.mark.parametrize("name", ["empty", "long", "saturated"])
@@ -249,26 +258,30 @@ def test_render_matches_goldens(name, binning):
 
 
 def test_render_refuses_unported_options():
-    """The aligned layout, and a t_cutoff above 1e-4 on the instances route
-    (the chunk-granular early exit; values <= 1e-4 give the exact blend and
-    are taken, see test_torch_data.py)."""
+    """render() refuses only what the JAX package's render() refuses: an
+    unknown ``kernel``. The aligned layout and a t_cutoff above 1e-4 render
+    (tests/test_torch_render_options.py holds them against JAX)."""
     cam, g, bg, n = _port_scene("sh0_basic")
-    for cfg in (RenderConfig(layout="aligned"), RenderConfig(t_cutoff=2e-4)):
-        with pytest.raises(NotImplementedError):
-            render(cam, g, bg, config=cfg)
+    with pytest.raises(NotImplementedError):
+        render(cam, g, bg, config=RenderConfig(kernel="dense"))
+    for cfg in (RenderConfig(layout="aligned"), RenderConfig(t_cutoff=2e-4),
+                RenderConfig(binning="scan")):
+        assert torch.isfinite(render(cam, g, bg, config=cfg)["render"]).all()
 
 
 GRAD_FIELDS = ("xyz", "scaling", "rotation", "opacity", "features_dc", "features_rest")
 
 
-def assert_gradients_match_jax(name, configs_of):
+def assert_gradients_match_jax(name, configs_of, outputs_atol=None):
     """Gradients of render() (image and transmittance against seeded
     cotangents) w.r.t. every Gaussian attribute and the screen-space probe,
     on golden scene ``name`` of N splats: the port under ``cfg`` against
     JAX's render() under ``jcfg``, ``(cfg, jcfg) = configs_of(N)``.
     Tolerance 1e-4 of each field's largest element: the blend backward
     matches to ~1e-6 relative, and the gather's scatter-add and
-    preprocess's backward sum in another order."""
+    preprocess's backward sum in another order. With ``outputs_atol`` the
+    image and transmittance are held against JAX's too, from the same
+    compile."""
     cam, g, bg = SCENES[name]()
     n = g.xyz.shape[0]
     cfg, jcfg = configs_of(n)
@@ -280,16 +293,21 @@ def assert_gradients_match_jax(name, configs_of):
         gs = g.replace(xyz=xyz, scaling=scaling, rotation=rotation, opacity=opacity,
                        features_dc=features_dc, features_rest=features_rest)
         out = jrender(cam, gs, bg, config=jcfg, means2d_probe=probe)
-        return jnp.sum(out["render"] * g_img) + jnp.sum(out["t_final"] * g_t)
+        return (jnp.sum(out["render"] * g_img) + jnp.sum(out["t_final"] * g_t),
+                (out["render"], out["t_final"]))
 
     jargs = [getattr(g, f) for f in GRAD_FIELDS] + [jnp.zeros((2, n), jnp.float32)]
-    jgrads = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(*jargs)
+    jgrads, jouts = jax.jit(jax.grad(jloss, argnums=tuple(range(7)), has_aux=True))(*jargs)
 
     tcam, tg, tbg, _ = _port_scene(name)
     leaves = {f: getattr(tg, f).clone().requires_grad_() for f in GRAD_FIELDS}
     probe = torch.zeros((2, n), requires_grad=True)
     gs = dataclasses.replace(tg, **leaves)
     out = render(tcam, gs, tbg, config=cfg, means2d_probe=probe)
+    if outputs_atol is not None:
+        for k, ref in zip(("render", "t_final"), jouts):
+            np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref),
+                                       atol=outputs_atol, err_msg=k)
     loss = (out["render"] * t(g_img)).sum() + (out["t_final"] * t(g_t)).sum()
     tgrads = torch.autograd.grad(loss, [*leaves.values(), probe], allow_unused=True)
     for f, got, ref in zip(GRAD_FIELDS + ("probe",), tgrads, jgrads):
