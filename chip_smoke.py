@@ -118,7 +118,19 @@ weights), each through both routes of ``RenderConfig.kernel``:
   3`` (per-step, then scan epochs, then every sequence x serial rendered
   through one graph per serial to a video), a hold-out frame and one step
   against the plain blends, K and the transform moving the frame, and the
-  scan epoch's graph against eager steps on these frames.
+  scan epoch's graph against eager steps on these frames;
+* multi-device training (``[parallel]``), in ranks spawned on the one
+  card (``torch.multiprocessing``, a ``FileStore``; the kernels built
+  above, so the ranks load them): ``make_dp_train_step`` at world 1 over
+  NCCL and at world 2 over gloo against the one-process step on the same
+  frames (loss, all-reduced gradients, the replicas' digests after a step
+  and after densify + prune), ``cli/train_mono_avatar --dp 2`` with
+  tracking and FlashAvatar's Trainer at ``data_parallel=2`` on the
+  ``[cli]`` workspace, the splat-sharded render at world 2 and 4 against
+  ``render(kernel="tiles")`` (image, gradients, nothing dropped, its caps
+  probed from the frame), and the 2x2 (data, gauss) mesh step against the
+  one-device loss and gradients; ms per step of each (host clock) and the
+  kernels' launches on each path, summed over its ranks.
 
 Serving runs through ``Reenactor.reenact``'s CUDA graph: a wrapper counts the launches of the graph's warm-up calls and its capture,
 and the graph reports its replays and launches per replay.
@@ -4848,6 +4860,602 @@ def nersemble_phase(ws, cli, rows, card):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# [parallel]: data parallel, the splat-sharded render and the 2-D mesh, in
+# ranks spawned on the one card (NCCL at world 1, gloo when ranks share it)
+# ---------------------------------------------------------------------------
+
+PAR_DP_RTOL = 1e-6        # the DP loss against the one-process batched loss
+PAR_GRAD_RL2 = 1e-2       # gradients, relative L2 by field (the atomics' order)
+PAR_NOISE = 1e-3          # a field whose reference moves more than this between two
+                          # runs of itself is at the atomics' noise floor: not gated
+PAR_IMG_ATOL = 2e-4       # the sharded image against render(kernel="tiles")
+PAR_BWD_RTOL = 1e-3       # its gradients, of each field's largest
+PAR_MESH_RTOL = 2e-4      # the 2-D mesh loss (tests/test_splat_parallel.py's bound)
+PAR_TIMED = 3             # timed steps / frames of each path
+PAR_MAINT = {"densify_interval": 2, "prune_interval": 2, "increase_num": 1000}
+PAR_FIELDS = ("xyz", "scaling", "rotation", "opacity", "features_dc")
+PAR_TIMEOUT_S = 300       # a collective that waits longer fails the rank
+
+
+def _par_rank(rank, world, backend, store, tasks, out):
+    """One spawned rank: the process group over ``store``, then each task,
+    its results saved for the parent."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=PAR_TIMEOUT_S))
+    try:
+        res = {name: globals()[name](rank, world, **kw) for name, kw in tasks}
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def par_spawn(tasks, world, backend, ws):
+    """Run ``tasks`` ([(function name, kwargs)]) in ``world`` ranks on the
+    card; returns (each rank's results, wall seconds). A rank that fails
+    fails the call (the others are stopped)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = tempfile.mkdtemp(prefix=f"ranks{world}_", dir=ws)
+    t0 = time.perf_counter()
+    mp.start_processes(_par_rank, args=(world, backend, os.path.join(out, "store"), tasks,
+                                        out), nprocs=world, start_method="spawn")
+    wall = time.perf_counter() - t0
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(world)], wall
+
+
+def _par_inputs(path):
+    import torch
+
+    return torch.load(path, weights_only=False, map_location="cuda:0")
+
+
+def _par_launches():
+    """The wrappers' launches since the last zero_counts()."""
+    from fateavatar_tpu_torch.render.render import KERNEL_COUNTERS
+
+    return {k: c.launches for k, c in KERNEL_COUNTERS.items() if c.launches}
+
+
+def _par_timed(fn, n=PAR_TIMED):
+    """Host milliseconds per call of ``fn`` over ``n`` synchronized calls."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def _summed_launches(res) -> dict:
+    """Every rank's launches of a path, summed."""
+    out = {}
+    for r in res:
+        for k, v in r["launches"].items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _cpu_fields(obj) -> dict:
+    return {f.name: getattr(obj, f.name).detach().cpu() for f in dataclasses.fields(obj)}
+
+
+def _field_gate(got: dict, want: dict, again: dict):
+    """Each gradient field of ``got`` against the reference ``want``,
+    relative L2, over the fields whose reference is not 0 and moves at most
+    PAR_NOISE between two runs of itself (``again``): (errors by field,
+    the reference's run-to-run noise by field, the fields skipped as
+    noise). The gate fails if a per-splat field is skipped."""
+    errs, noise, skipped = {}, {}, []
+    for k, v in want.items():
+        if float(v.double().norm()) == 0:
+            continue
+        noise[k] = rel_l2(again[k], v)
+        if noise[k] > PAR_NOISE:
+            skipped.append(k)
+        else:
+            errs[k] = rel_l2(got[k], v)
+    return errs, noise, skipped
+
+
+def _field_gate_ok(errs: dict, skipped: list) -> bool:
+    from fateavatar_tpu_torch.models.maintenance import SPLAT_FIELDS
+
+    return (all(e <= PAR_GRAD_RL2 for e in errs.values())
+            and not set(skipped) & set(SPLAT_FIELDS))
+
+
+def _fmt(d: dict) -> str:
+    return json.dumps({k: f"{v:.1e}" for k, v in d.items()})
+
+
+def par_dp_step(rank, world, inputs, frames):
+    """make_dp_train_step with the kernels, every rank one of ``frames``:
+    its loss and all-reduced gradients, the replicas' digests after the
+    step, after a step that densifies and prunes, and after a densify from
+    generators seeded apart on the ranks (the replicas take rank 0's
+    draws), launches, ms/step."""
+    import torch
+
+    from fateavatar_tpu_torch.parallel.data_parallel import (
+        make_device_mesh, make_dp_train_step, state_digest)
+    from fateavatar_tpu_torch.train.step import MaintenanceConfig, init_train_state
+
+    d = _par_inputs(inputs)
+    mesh = make_device_mesh(world, device="cuda")
+    frame = d["frames"][frames[rank]]
+    ts = init_train_state(d["params"], d["state"], d["optimizer"], 0)
+    none = MaintenanceConfig(densify_interval=10**9, prune_interval=10**9,
+                             opacity_reset_interval=10**9)
+    step = make_dp_train_step(d["model"], d["loss_fn"], d["optimizer"], mesh, none,
+                              d["render_cfg"], return_grads=True)
+    zero_counts()
+    ts1, aux = step(ts, frame)
+    torch.cuda.synchronize()
+    launches = _par_launches()
+    digests = [state_digest(ts1, mesh)]
+    dstep = make_dp_train_step(d["model"], d["loss_fn"], d["optimizer"], mesh,
+                               dataclasses.replace(none, **PAR_MAINT), d["render_cfg"])
+    alive = int(ts1.state.alive.sum())
+    ts2, _ = dstep(ts1, frame)
+    digests.append(state_digest(ts2, mesh))
+    ts2.generator.manual_seed(1000 + rank)
+    apart = make_dp_train_step(d["model"], d["loss_fn"], d["optimizer"], mesh,
+                               dataclasses.replace(none, densify_interval=1,
+                                                   increase_num=PAR_MAINT["increase_num"]),
+                               d["render_cfg"])
+    ts3, _ = apart(ts2, frame)
+    digests.append(state_digest(ts3, mesh))
+    box = [ts3]
+
+    def again():
+        box[0] = step(box[0], frame)[0]
+
+    ms = _par_timed(again)
+    return {"loss": float(aux["loss"]), "overflow": int(aux["overflow"]),
+            "grads": _cpu_fields(aux["grads"]) if rank == 0 else None,
+            "digests": digests,
+            "alive": [alive, int(ts2.state.alive.sum()), int(ts3.state.alive.sum())],
+            "launches": launches, "ms": ms, "backend": mesh.backend}
+
+
+def par_shard_render(rank, world, inputs, caps):
+    """render_splat_sharded with the kernels: this rank's shard of the
+    frame's splats, the image, dropped, the gradients of
+    sum(image * weights) / world w.r.t. the shard, launches, ms of a
+    forward and backward."""
+    import torch
+
+    from fateavatar_tpu_torch.parallel.splat_parallel import render_splat_sharded
+
+    d = _par_inputs(inputs)
+    g0 = d["gaussians"]
+    n = g0.xyz.shape[0] // world
+    sl = slice(rank * n, (rank + 1) * n)
+
+    def shard():
+        leaves = {k: getattr(g0, k)[sl].clone().requires_grad_() for k in PAR_FIELDS}
+        g = dataclasses.replace(g0, **leaves, features_rest=g0.features_rest[sl],
+                                alive=g0.alive[sl])
+        return g, leaves
+
+    def run():
+        g, leaves = shard()
+        img, dropped = render_splat_sharded(d["camera"], g, d["bg"], **caps)
+        (torch.sum(img * d["weights"]) / world).backward()
+        return img, dropped, leaves
+
+    zero_counts()
+    img, dropped, leaves = run()
+    torch.cuda.synchronize()
+    launches = _par_launches()
+    ms = _par_timed(run)
+    return {"image": img.detach().cpu() if rank == 0 else None, "dropped": int(dropped),
+            "grads": {k: v.grad.cpu() for k, v in leaves.items()}, "launches": launches,
+            "ms": ms}
+
+
+def par_mesh2d(rank, world, inputs, caps, loss_kw):
+    """The 2x2 mesh step with the kernels and return_grads: loss, this
+    rank's gradients, launches, ms/step."""
+    import torch
+
+    from fateavatar_tpu_torch.parallel.data_parallel import stack_frames
+    from fateavatar_tpu_torch.parallel.mesh2d import (
+        Mesh2D, make_mesh2d_train_step, place_mesh2d)
+    from fateavatar_tpu_torch.train.step import init_train_state
+
+    d = _par_inputs(inputs)
+    mesh = Mesh2D(2, world // 2, "cuda:0")
+    ts = place_mesh2d(init_train_state(d["params"], d["state"], d["optimizer"], 0), mesh)
+    batch = stack_frames(d["frames"][:2])
+    step = make_mesh2d_train_step(d["model"], d["optimizer"], mesh, return_grads=True,
+                                  vgg_params=d["vgg"], **caps, **loss_kw)
+    zero_counts()
+    ts1, aux = step(ts, batch)
+    torch.cuda.synchronize()
+    launches = _par_launches()
+    box = [ts1]
+
+    def again():
+        box[0] = step(box[0], batch)[0]
+
+    ms = _par_timed(again)
+    return {"loss": float(aux["loss"]), "overflow": int(aux["overflow"]),
+            "grads": _cpu_fields(aux["grads"]), "coords": (mesh.d, mesh.g),
+            "launches": launches, "ms": ms}
+
+
+def par_cli(rank, world, argv):
+    """cli/train_mono_avatar --dp world in this rank: the tracking counts,
+    steps, the replicas' digest, launches, the epoch's ms/step."""
+    import torch
+
+    from fateavatar_tpu_torch.cli import train_mono_avatar
+    from fateavatar_tpu_torch.parallel.data_parallel import make_device_mesh, state_digest
+    from fateavatar_tpu_torch.train.trainer import Trainer
+
+    zero_counts()
+    record = []
+    with counted(Trainer, ("train_epoch",), record):
+        tr = train_mono_avatar.main(argv)
+    torch.cuda.synchronize()
+    mesh = make_device_mesh(world, device="cuda")
+    ep = record[0]
+    stats = tr.last_epoch_stats
+    return {"counts": tr.train_track_state.count.cpu().tolist(),
+            "global_step": tr.global_step, "step": tr.ts.step, "mode": stats["mode"],
+            "losses": tr.epoch_losses, "overflow": stats["overflow"],
+            "digest": state_digest((tr.ts, tr.train_tables, tr.train_track_state), mesh),
+            "epoch_launches": {"blend_instances_fwd": ep[1], "blend_instances_bwd": ep[2]},
+            "launches": _par_launches(), "epoch_s": ep[3]}
+
+
+def par_flash(rank, world, argv):
+    """FlashAvatar through cli/train_baseline's Trainer at data_parallel =
+    world (caps probed as [baselines] probes them): one epoch; its losses,
+    steps, the replicas' digest, launches."""
+    import torch
+
+    from fateavatar_tpu_torch.cli import train_baseline
+    from fateavatar_tpu_torch.parallel.data_parallel import make_device_mesh, state_digest
+
+    probe = train_baseline.build_trainer(train_baseline.parse_args(argv))
+    caps = render_caps(probe)
+    del probe
+    torch.cuda.empty_cache()
+    tr = train_baseline.build_trainer(train_baseline.parse_args([*argv, *caps]),
+                                      data_parallel=world)
+    zero_counts()
+    t0 = time.perf_counter()
+    tr.train(1)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    return {"losses": tr.epoch_losses, "global_step": tr.global_step,
+            "overflow": tr.last_epoch_stats["overflow"], "caps": caps,
+            "digest": state_digest(tr.ts, make_device_mesh(world, device="cuda")),
+            "launches": _par_launches(), "epoch_s": epoch_s}
+
+
+def _par_frames(s, idxs):
+    """Frames of the [train] setup's training set (float ground truth) on
+    the card."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.ops.camera import make_camera
+    from fateavatar_tpu_torch.train.step import Frame
+
+    out = []
+    for i in idxs:
+        smp = s.train_ds.sample(i)
+        pose = np.asarray(smp["cam_pose"], np.float32)
+        out.append(Frame(
+            expression=torch.as_tensor(smp["expression"], dtype=torch.float32, device="cuda"),
+            flame_pose=torch.as_tensor(smp["flame_pose"], dtype=torch.float32, device="cuda"),
+            camera=make_camera(pose[:3, :3].T, pose[:3, 3], smp["fovx"], smp["fovy"], s.w, s.h,
+                               device="cuda"),
+            rgb=torch.as_tensor(np.asarray(smp["ground_truth"]["rgb"], np.float32),
+                                device="cuda"),
+            bg_color=torch.ones(3, device="cuda")))
+    return out
+
+
+def _par_shard_caps(camera, g, worlds):
+    """The sharded render's caps for this frame, probed so nothing drops:
+    R the most tiles a splat spans, K the longest tile's list (from a
+    ``kernel="tiles"`` render at a K above it), each destination's send
+    buffer the most instances one shard sends one owner, over ``worlds``."""
+    import torch
+
+    from fateavatar_tpu_torch.render import binning
+    from fateavatar_tpu_torch.render.preprocess import preprocess
+
+    grid = binning.tile_grid(camera.width, camera.height)
+    with torch.no_grad():
+        prep = preprocess(camera, g.xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                          g.get_features, g.sh_degree, alive=g.alive)
+        mx, my = prep.soa[:2]
+        x0, y0, x1, y1 = binning.gaussian_rect(mx, my, prep.radius, grid)
+        touched = torch.where(prep.visible, (x1 - x0) * (y1 - y0), 0)
+        R = int(touched.max())
+        # every (gaussian, tile) candidate's tile row
+        r = torch.arange(R, device=mx.device)[None, :]
+        w = torch.clamp_min(x1 - x0, 1)[:, None]
+        rows = y0[:, None] + torch.div(r, w, rounding_mode="floor")
+        ok = r < touched[:, None]
+        counts = torch.zeros(grid[0] * grid[1], dtype=torch.int64, device=mx.device)
+        cols = x0[:, None] + r % w
+        counts.index_add_(0, (rows * grid[1] + cols)[ok].long(),
+                          torch.ones_like(rows[ok], dtype=torch.int64))
+        K = int(counts.max())
+        n = g.xyz.shape[0]
+        pair = {}
+        for D in worlds:
+            shard = (torch.arange(n, device=mx.device) // (n // D))[:, None].expand_as(rows)
+            owner = rows // (grid[0] // D)
+            per = torch.bincount((shard * D + owner)[ok].long(), minlength=D * D)
+            pair[D] = int(per.max())
+    return R, K, pair
+
+
+def parallel_phase(s, trainer, cli, ws, rows, card):
+    """[parallel]: the DP step at world 1 (NCCL) and world 2 (gloo, ranks
+    sharing the card) against the one-process batched step; the replicas'
+    digests; cli/train_mono_avatar --dp 2 with tracking and FlashAvatar's
+    Trainer at data_parallel = 2 on the [cli] workspace; the sharded render
+    at world 2 and 4 against render(kernel="tiles"); the 2x2 mesh step
+    against the one-device loss and gradients. Launches per path go into
+    the kernels' rows."""
+    import numpy as np
+    import torch
+
+    from fateavatar_tpu_torch.models.fateavatar import build_gaussians, fateavatar_forward
+    from fateavatar_tpu_torch.render.render import RenderConfig, render
+    from fateavatar_tpu_torch.train.losses import vgg_perceptual_loss
+    from fateavatar_tpu_torch.train.step import init_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    pws = tempfile.mkdtemp(prefix="parallel_", dir=ws)
+    rcfg = trainer.render_cfg
+    frames = _par_frames(s, range(2))
+    model, state = s.model, s.state
+    # the init's scales made anisotropic (seeded; each axis shrunk by its
+    # own draw, so no splat covers more tiles), so that the rotations'
+    # gradients are not 0 in the DP step and the 2-D mesh
+    with torch.no_grad():
+        shrink = torch.randn(s.params.scaling.shape, device="cuda",
+                             generator=torch.Generator(device="cuda").manual_seed(7)).abs()
+        params = dataclasses.replace(s.params, scaling=s.params.scaling - 0.3 * shrink)
+
+    # ---- the one-process references, with the kernels, each twice (the
+    # second run measures the atomics' noise floor of each field)
+    ts = init_train_state(params, state, s.optimizer, 0)
+    single = make_train_step(model, s.loss_fn, s.optimizer, s.maint, rcfg)
+    ref_grads, ref_again, ref_loss = [], [], []
+    for f in frames:
+        for into in (ref_grads, ref_again):
+            g, _, _, losses = single.grads(ts, f)
+            into.append(_cpu_fields(g))
+        ref_loss.append(float(losses["loss"].detach()))
+    del ts, single
+    # the sharded render: frame 0's splats, their scales made anisotropic
+    # (seeded) so that the rotations' gradients are not 0; caps probed for
+    # world 2 and 4
+    f0 = frames[0]
+    with torch.no_grad():
+        g0 = build_gaussians(model, params, state, f0.expression, f0.flame_pose)[0]
+        noise = torch.randn(g0.scaling.shape, generator=torch.Generator(device="cuda")
+                            .manual_seed(6), device="cuda")
+        g0 = dataclasses.replace(g0, scaling=g0.scaling + 0.3 * noise)
+    R, K, pair = _par_shard_caps(f0.camera, g0, (2, 4))
+    K = -(-K // 64) * 64
+    tiles_cfg = RenderConfig(kernel="tiles", max_per_tile=K, max_tiles_per_gaussian=R)
+    weights = torch.rand((s.h, s.w, 3), generator=torch.Generator(device="cuda").manual_seed(5),
+                         device="cuda")
+    leaves = {k: getattr(g0, k).clone().requires_grad_() for k in PAR_FIELDS}
+    out = render(f0.camera, dataclasses.replace(g0, **leaves), f0.bg_color, config=tiles_cfg)
+    torch.sum(out["render"] * weights).backward()
+    ref_img = out["render"].detach()
+    ref_shard_grads = {k: v.grad.detach() for k, v in leaves.items()}
+    check(int(out["overflow"]) == 0, "[parallel] the reference render drops nothing")
+    # the 2-D mesh: the yaml's L1, VGG and scale terms over frames 0 and 1
+    mesh_loss = {"rgb_weight": s.loss_cfg.rgb_weight, "vgg_weight": s.loss_cfg.vgg_weight,
+                 "scale_weight": s.loss_cfg.scale_weight,
+                 "scale_threshold": s.loss_cfg.scale_threshold}
+    R2, K2 = R, K
+    with torch.no_grad():
+        g1 = build_gaussians(model, params, state, frames[1].expression,
+                             frames[1].flame_pose)[0]
+    r1, k1, pair1 = _par_shard_caps(frames[1].camera, g1, (2,))
+    R2, K2 = max(R2, r1), max(K2, -(-k1 // 64) * 64)
+    mesh_caps = {"max_tiles_per_gaussian": R2, "max_per_tile": K2,
+                 "pair_budget": max(pair[2], pair1[2]), "chunk": 64}
+    mcfg = RenderConfig(kernel="tiles", max_per_tile=K2, max_tiles_per_gaussian=R2)
+
+    def mesh_reference():
+        mleaves = {f.name: getattr(params, f.name).clone().requires_grad_()
+                   for f in dataclasses.fields(params)}
+        mparams = dataclasses.replace(params, **mleaves)
+        total = 0.0
+        for f in frames:
+            img = fateavatar_forward(model, mparams, state, f.expression, f.flame_pose,
+                                     f.camera, bg_color=f.bg_color,
+                                     render_cfg=mcfg)["rgb_image"]
+            sc = torch.exp(mparams.scaling)
+            ratio = sc.amax(-1) / sc.amin(-1).clamp_min(1e-12)
+            reg = torch.sum(torch.where(state.alive, (ratio - mesh_loss["scale_threshold"])
+                                        .clamp_min(0.0), 0.0)) / state.alive.shape[0]
+            total = total + (mesh_loss["rgb_weight"] * torch.mean(torch.abs(img - f.rgb))
+                             + mesh_loss["vgg_weight"] * vgg_perceptual_loss(s.vgg, img, f.rgb)
+                             + mesh_loss["scale_weight"] * reg) / len(frames)
+        grads = torch.autograd.grad(total, list(mleaves.values()))
+        return dict(zip(mleaves, (x.detach().cpu() for x in grads))), float(total)
+
+    mesh_ref_grads, mesh_ref_loss = mesh_reference()
+    mesh_ref_again = mesh_reference()[0]
+
+    inputs = os.path.join(pws, "inputs.pt")
+    torch.save({"model": model, "params": params, "state": state, "optimizer": s.optimizer,
+                "loss_fn": s.loss_fn, "render_cfg": rcfg, "frames": frames, "vgg": s.vgg,
+                "gaussians": dataclasses.replace(g0, **{k: getattr(g0, k).detach()
+                                                        for k in PAR_FIELDS}),
+                "camera": f0.camera, "bg": f0.bg_color, "weights": weights}, inputs)
+    torch.cuda.empty_cache()
+    log(f"[parallel] references in one process (the kernels): frame losses "
+        f"{[round(x, 6) for x in ref_loss]}; sharded-render caps R {R}, K {K}, send "
+        f"buffers {pair}; 2-D mesh caps {mesh_caps}, loss {mesh_ref_loss:.7f} "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    cli_args = [*cli.config, "--device", "cuda", f"dataset.root_path={cli.root}",
+                f"workspace={os.path.join(pws, 'cli_dp')}", *cli.assets,
+                f"training.epochs.finetune={CLI_FINETUNE}", "training.snapshot_interval=6",
+                *(f"training.{k}={v}" for k, v in MAINT_OVERRIDES.items())]
+    flash_args = ["--model", "flashavatar", "--config",
+                  os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                               "flashavatar.yaml"), "--device", "cuda",
+                  f"dataset.root_path={cli.root}", *cli.assets[:2],
+                  f"workspace={os.path.join(pws, 'flash_dp')}",
+                  *BASELINE_OVERRIDES["flashavatar"]]
+    shard = lambda D: dict(max_tiles_per_gaussian=R, max_per_tile=K,  # noqa: E731
+                           pair_budget=pair[D], chunk=64)
+    runs = {}
+    runs[1], w1 = par_spawn([("par_dp_step", dict(inputs=inputs, frames=[0]))], 1, "nccl", pws)
+    runs[2], w2 = par_spawn([
+        ("par_dp_step", dict(inputs=inputs, frames=[0, 1])),
+        ("par_shard_render", dict(inputs=inputs, caps=shard(2))),
+        ("par_cli", dict(argv=["--epochs", "1", "--dp", "2", *cli_args])),
+        ("par_flash", dict(argv=["--epochs", "1", *flash_args])),
+    ], 2, "gloo", pws)
+    runs[4], w4 = par_spawn([
+        ("par_shard_render", dict(inputs=inputs, caps=shard(4))),
+        ("par_mesh2d", dict(inputs=inputs, caps=mesh_caps, loss_kw=mesh_loss)),
+    ], 4, "gloo", pws)
+    log(f"[parallel] spawns: world 1 (nccl) {w1:.1f} s, world 2 (gloo) {w2:.1f} s, "
+        f"world 4 (gloo) {w4:.1f} s, ranks' start included [{card}]")
+    summary = {"spawn_s": {1: round(w1, 1), 2: round(w2, 1), 4: round(w4, 1)}}
+    per_path = {}
+
+    # ---- (a) the DP step
+    for world in (1, 2):
+        res = [r["par_dp_step"] for r in runs[world]]
+        want_loss = float(np.mean(ref_loss[:world]))
+        want = {k: sum(g[k] for g in ref_grads[:world]) / world for k in ref_grads[0]}
+        again = {k: sum(g[k] for g in ref_again[:world]) / world for k in ref_again[0]}
+        errs, noise, skipped = _field_gate(res[0]["grads"], want, again)
+        norms = {k: float(v.double().norm()) for k, v in want.items()}
+        loss_rel = max(abs(r["loss"] - want_loss) / abs(want_loss) for r in res)
+        same = all(len(set(dg)) == 1 for dg in res[0]["digests"])
+        log(f"[parallel] DP step, world {world} ({res[0]['backend']}): loss "
+            f"{res[0]['loss']:.7f} vs one process {want_loss:.7f} (rel {loss_rel:.1e}, "
+            f"bound {PAR_DP_RTOL}); gradients rel L2 by field {_fmt(errs)} (bound "
+            f"{PAR_GRAD_RL2}; the reference's run-to-run noise {_fmt(noise)}, skipped above "
+            f"{PAR_NOISE}: {skipped}; norms {_fmt(norms)}); "
+            f"overflow {res[0]['overflow']}; replicas' digests after the step, after "
+            f"densify + prune and after a densify from generators seeded apart "
+            f"{res[0]['digests']} (alive {res[0]['alive']}); launches per "
+            f"step {res[0]['launches']}; {res[0]['ms']:.2f} ms/step (host clock, "
+            f"synchronized, {PAR_TIMED} steps) [{card}]")
+        check(loss_rel <= PAR_DP_RTOL and _field_gate_ok(errs, skipped)
+              and res[0]["overflow"] == 0, f"[parallel] DP step world {world} vs one process")
+        check(same, f"[parallel] DP world {world}: replicas bit-identical after a step, a "
+                    f"densify and a densify from generators seeded apart "
+                    f"(digests {res[0]['digests']})")
+        check(res[0]["alive"][1] != res[0]["alive"][0]
+              and res[0]["alive"][2] == res[0]["alive"][1] + PAR_MAINT["increase_num"],
+              f"[parallel] DP world {world}: both densify steps added splats "
+              f"(alive {res[0]['alive']})")
+        per_path[f"dp_step_w{world}"] = _summed_launches(res)
+        summary[f"dp_ms_w{world}"] = res[0]["ms"]
+    cl = [r["par_cli"] for r in runs[2]]
+    n_train = len(cl[0]["counts"])
+    log(f"[parallel] train_mono_avatar --dp 2 on the [cli] workspace: {n_train} frames, "
+        f"global_step {cl[0]['global_step']}, steps {cl[0]['step']}, mode {cl[0]['mode']}, "
+        f"losses {[round(x, 5) for x in cl[0]['losses']]}, tracking counts "
+        f"{cl[0]['counts']}, overflow {cl[0]['overflow']}; digests {cl[0]['digest']}; epoch "
+        f"{cl[0]['epoch_s']:.2f} s ({cl[0]['epoch_s'] * 1e3 / cl[0]['step']:.1f} ms per "
+        f"step of B = 2 with tracking), launches in the epoch {cl[0]['epoch_launches']}, "
+        f"in the run {cl[0]['launches']} [{card}]")
+    check(all(c == 1 for c in cl[0]["counts"]) and cl[0]["global_step"] == n_train
+          and len(set(cl[0]["digest"])) == 1 and cl[0]["overflow"] == 0
+          and all(np.isfinite(cl[0]["losses"])),
+          "[parallel] --dp 2: every row one update, replicas equal, finite losses")
+    per_path["cli_dp2"] = _summed_launches(cl)
+    summary["cli_dp2_ms_per_step"] = cl[0]["epoch_s"] * 1e3 / cl[0]["step"]
+    fl = [r["par_flash"] for r in runs[2]]
+    log(f"[parallel] FlashAvatar at data_parallel 2: losses "
+        f"{[round(x, 5) for x in fl[0]['losses']]}, global_step {fl[0]['global_step']}, "
+        f"overflow {fl[0]['overflow']}, caps {fl[0]['caps']}, digests {fl[0]['digest']}, "
+        f"launches {fl[0]['launches']}, epoch {fl[0]['epoch_s']:.2f} s [{card}]")
+    check(len(set(fl[0]["digest"])) == 1 and fl[0]["overflow"] == 0
+          and all(np.isfinite(fl[0]["losses"])),
+          "[parallel] FlashAvatar DP epoch: finite losses, replicas equal")
+    per_path["flash_dp2"] = _summed_launches(fl)
+
+    # ---- (b) the sharded render
+    for world in (2, 4):
+        res = [r["par_shard_render"] for r in runs[world]]
+        err = float((res[0]["image"].cuda() - ref_img).abs().max())
+        gerr = {}
+        for k, want in ref_shard_grads.items():
+            got = torch.cat([r["grads"][k] for r in res]).cuda()
+            gerr[k] = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+        dropped = [r["dropped"] for r in res]
+        log(f"[parallel] sharded render, world {world} (gloo): image max err {err:.2e} "
+            f"(bound {PAR_IMG_ATOL}), gradients max err / largest "
+            f"{json.dumps({k: f'{v:.1e}' for k, v in gerr.items()})} (bound {PAR_BWD_RTOL}), "
+            f"dropped {dropped}; launches a rank per forward + backward "
+            f"{res[0]['launches']}; {res[0]['ms']:.2f} ms a frame forward + backward "
+            f"(host clock, synchronized) [{card}]")
+        check(err <= PAR_IMG_ATOL and max(gerr.values()) <= PAR_BWD_RTOL
+              and not any(dropped), f"[parallel] sharded render world {world}")
+        per_path[f"shard_w{world}"] = _summed_launches(res)
+        summary[f"shard_ms_w{world}"] = res[0]["ms"]
+
+    # ---- (c) the 2-D mesh
+    res = [r["par_mesh2d"] for r in runs[4]]
+    loss_rel = max(abs(r["loss"] - mesh_ref_loss) / abs(mesh_ref_loss) for r in res)
+    by = {r["coords"]: r for r in res}
+    gots = {k: (by[(0, 0)]["grads"][k] if k.startswith("delta")
+                else torch.cat([by[(0, g)]["grads"][k] for g in range(2)]))
+            for k in mesh_ref_grads}
+    errs, noise, skipped = _field_gate(gots, mesh_ref_grads, mesh_ref_again)
+    log(f"[parallel] 2x2 mesh step (4 ranks, gloo): loss {res[0]['loss']:.7f} vs one "
+        f"device {mesh_ref_loss:.7f} (rel {loss_rel:.1e}, bound {PAR_MESH_RTOL}); "
+        f"gradients rel L2 by field {_fmt(errs)} (bound {PAR_GRAD_RL2}; the reference's "
+        f"run-to-run noise {_fmt(noise)}, skipped above {PAR_NOISE}: {skipped}); overflow "
+        f"{res[0]['overflow']}; launches a rank per step {res[0]['launches']}; "
+        f"{res[0]['ms']:.2f} ms/step (host clock) [{card}]")
+    check(loss_rel <= PAR_MESH_RTOL and _field_gate_ok(errs, skipped)
+          and res[0]["overflow"] == 0, "[parallel] 2x2 mesh vs one device")
+    per_path["mesh2d_2x2"] = _summed_launches(res)
+    summary["mesh2d_ms"] = res[0]["ms"]
+
+    for name in rows:
+        by_path = {p: n.get(name, 0) for p, n in per_path.items() if n.get(name, 0)}
+        if by_path:
+            rows[name]["launches"] += sum(by_path.values())
+            rows[name]["launches_parallel"] = by_path
+    log(f"[parallel] phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
+    log("[parallel] summary " + json.dumps(summary | {"launches": per_path}))
+    for n in ("blend_instances_fwd", "blend_instances_bwd", "blend_tiles_fwd",
+              "blend_tiles_bwd"):
+        check(any(n in p for p in per_path.values()),
+              f"[parallel] {n} launched on the parallel paths")
+    return summary
+
+
 def main():
     import torch
 
@@ -5130,6 +5738,8 @@ def main():
         lap("lpips")
         nersemble_phase(ws, cli, rows, card)
         lap("nersemble")
+        parallel_phase(setup, trainer, cli, ws, rows, card)
+        lap("parallel")
 
     log(f"[setup] seconds by phase {json.dumps(laps)}")
     log(f"[setup] total {time.perf_counter() - t_start:.1f} s")

@@ -33,9 +33,11 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def build_trainer(args):
+def build_trainer(args, data_parallel: int = 0):
     """The family's model, loss, optimizer and adapter from the config, and
-    the Trainer over the config's datasets (nothing trained yet)."""
+    the Trainer over the config's datasets (nothing trained yet);
+    ``data_parallel`` > 1: this process is one of that many ranks (the
+    Trainer's data-parallel epochs)."""
     from fateavatar_tpu_torch.cli import common
     from fateavatar_tpu_torch.train import registry
     from fateavatar_tpu_torch.train.adapters import make_family_adapter
@@ -79,6 +81,7 @@ def build_trainer(args):
         tracking_lr=cfg.training.tracking_lr,
         seed=cfg.seed,
         adapter=adapter,
+        data_parallel=data_parallel,
     )
 
 

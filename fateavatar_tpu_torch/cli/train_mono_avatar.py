@@ -6,6 +6,12 @@ Port of ``fateavatar_tpu/cli/train_mono_avatar.py``. Runs on the card unless
 Usage:
   python -m fateavatar_tpu_torch.cli.train_mono_avatar --config configs/fateavatar.yaml \\
       dataset.root_path=/data/insta/obama workspace=./ws/obama
+
+Data parallel over N ranks (``--dp N``, N > 1): one process per rank, e.g.
+  torchrun --nproc-per-node N -m fateavatar_tpu_torch.cli.train_mono_avatar \\
+      --dp N --config ... (on one card, or on the CPU with --device cpu: gloo)
+A process group of another size raises; ``--dp`` 0 or 1 trains on one
+device.
 """
 
 from __future__ import annotations
@@ -19,15 +25,12 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--dp", type=int, default=0,
-                        help="data-parallel over N devices (not ported yet)")
+                        help="data parallel over N ranks, one process each (launch with "
+                             "torchrun --nproc-per-node N); 0 or 1: one device")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to train on (default cuda)")
     parser.add_argument("overrides", nargs="*", help="key.path=value")
     args = parser.parse_args(argv)
-    if args.dp > 0:
-        raise NotImplementedError(
-            f"--dp {args.dp}: the data-parallel epoch is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
 
     from fateavatar_tpu_torch.cli import common
     from fateavatar_tpu_torch.train.optim import fateavatar_optimizers
@@ -37,9 +40,18 @@ def main(argv=None):
 
     cfg = load_config(args.config, args.overrides)
     dev = args.device
+    mesh = None
+    if args.dp > 1:
+        from fateavatar_tpu_torch.parallel import make_device_mesh
+
+        # raises, with how to launch, unless this is one of --dp ranks
+        mesh = make_device_mesh(args.dp, device=dev)
+        dev = str(mesh.device)
+    main_rank = mesh is None or mesh.is_main
 
     seed_everything(cfg.seed)
-    file_backup(cfg.workspace)  # reproducibility source snapshot
+    if main_rank:
+        file_backup(cfg.workspace)  # reproducibility source snapshot
 
     train_ds, test_ds = common.construct_datasets(cfg)
     flame = common.construct_flame(cfg, train_ds, device=dev)
@@ -47,7 +59,8 @@ def main(argv=None):
     loss_fn = common.construct_loss(cfg, faces=model.faces, device=dev)
     optimizer = fateavatar_optimizers(config_to_dict(cfg.training))
 
-    common.save_identity_info(cfg.workspace, train_ds, cfg)
+    if main_rank:
+        common.save_identity_info(cfg.workspace, train_ds, cfg)
 
     trainer = Trainer(
         name=cfg.name,
@@ -74,6 +87,9 @@ def main(argv=None):
         trainer.evaluate("test", optim_epoch=cfg.training.epochs.get("finetune", 50))
     else:
         trainer.evaluate("test")
+    if mesh is not None:
+        mesh.barrier()
+        mesh.close()
     return trainer
 
 

@@ -374,17 +374,21 @@ def upsample_draws(generator: torch.Generator, alive: torch.Tensor, target: int)
 @torch.no_grad()
 def prune_and_upsample(params: MonoParams, state: MonoState, target: int,
                        noise_scale: float, draws=None,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None, share=None):
     """Prune the points that were never visible, then clone random survivors
     with uniform noise into the dead slots until ``target`` are alive
     (PointCloud.prune / upsample_points). ``draws`` = (src [target], u
     [target, 3] in [0, 1)), else drawn from ``generator``
-    (:func:`upsample_draws`). The dead slots fill in index order (a stable
-    argsort, as jnp.argsort is). Returns (params, state, touched)."""
+    (:func:`upsample_draws`). ``share(src, u)`` -> (src, u), when given,
+    replaces the draws (replicas take one rank's). The dead slots fill in
+    index order (a stable argsort, as jnp.argsort is). Returns (params,
+    state, touched)."""
     n = state.alive.shape[0]
     alive = state.alive & state.visible
     need = torch.clamp_min(target - torch.sum(alive), 0)
     src, u = upsample_draws(generator, alive, target) if draws is None else draws
+    if share is not None:
+        src, u = share(src, u)
     new_pts = params.points[src] + (u - 0.5) * noise_scale
     slots = torch.argsort(alive.to(torch.int8), stable=True)[:target]     # dead first
     write = torch.arange(target, device=alive.device) < need

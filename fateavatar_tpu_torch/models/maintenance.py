@@ -134,10 +134,14 @@ def apply_densify(params: FateAvatarParams, state: FateAvatarState,
 
 
 def uv_densify(generator: torch.Generator, params: FateAvatarParams,
-               state: FateAvatarState, increase_num: int = 1000):
+               state: FateAvatarState, increase_num: int = 1000, share=None):
     """Sampling-based UV densification: :func:`densify_draws` then
-    :func:`apply_densify`. Returns (params, state, touched)."""
+    :func:`apply_densify`. ``share(src, bary)`` -> (src, bary), when given,
+    replaces the draws before the apply (replicas take one rank's draws).
+    Returns (params, state, touched)."""
     src, bary = densify_draws(generator, state, increase_num)
+    if share is not None:
+        src, bary = share(src, bary)
     return apply_densify(params, state, src, bary)
 
 

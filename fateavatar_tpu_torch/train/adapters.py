@@ -90,7 +90,9 @@ def make_family_adapter(name: str, bundle, loss_fn, optimizer, render_cfg,
     epoch_hook = None
     if name == "monogaussianavatar":
         def epoch_hook(trainer, epoch):
-            trainer.ts = BS.mono_epoch_maintenance(trainer.ts, model, epoch)
+            mesh = trainer.dp_mesh
+            trainer.ts = BS.mono_epoch_maintenance(
+                trainer.ts, model, epoch, share=None if mesh is None else mesh.broadcast)
 
     return FamilyAdapter(name=name, step=step, init_ts=init_ts, forward=forward,
                          epoch_hook=epoch_hook)

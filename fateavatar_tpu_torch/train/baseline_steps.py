@@ -11,8 +11,17 @@ plain ``if``s here; the loss and every other aux value stay on the device.
 
 Each step function also exposes ``grads(ts, frame)``: its gradient phase
 alone, (parameter gradients, the probe's gradient or None, forward output,
-loss dict). The batched (data-parallel) frame of the JAX package is not
-ported (ROADMAP Queue 1 item 11) and raises.
+loss dict).
+
+A batched frame ``[B, ...]`` (``parallel.data_parallel.stack_frames``)
+trains on the mean loss over its B frames (the JAX package's ``vmap``
+branch, baseline_steps.py:111-155). A step called with ``mesh=`` (a
+``parallel.DeviceMesh``) is one rank of the data-parallel step: its frame's
+gradients are summed over the ranks and divided by their number before the
+update, so every rank applies the gradient of the mean loss over the whole
+batch, and its statistics and aux values are reduced alike. GaussianAvatars'
+densify statistic rescales each frame's probe gradient by ``(2 / W) * B``,
+B the whole (global) batch, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from fateavatar_tpu_torch.models.baselines import flashavatar as FA
 from fateavatar_tpu_torch.models.baselines import gaussianavatars as GA
@@ -40,6 +50,12 @@ from fateavatar_tpu_torch.train.optim import (
     zero_moment_rows,
 )
 from fateavatar_tpu_torch.train.step import Frame
+from fateavatar_tpu_torch.parallel.data_parallel import (
+    all_reduce_tensors,
+    all_reduce_tree,
+    scale_tree,
+    unstack_frames,
+)
 
 
 @dataclass
@@ -71,11 +87,17 @@ def _init_ts(params, state, optimizer: MultiAdam, seed: int = 0) -> BaselineTrai
         generator=torch.Generator(device=params_device(params)).manual_seed(seed))
 
 
-def _single(frame: Frame):
-    if frame.rgb.dim() == 4:
-        raise NotImplementedError(
-            "a batched frame (the data-parallel step) is not ported yet "
-            "(ROADMAP Queue 1 item 11)")
+def _frames(frame: Frame) -> list:
+    """The single frames of ``frame``: B of a batched ``[B, ...]`` one."""
+    return unstack_frames(frame) if frame.rgb.dim() == 4 else [frame]
+
+
+def _mean_losses(losses: list) -> dict:
+    """The per-frame loss dicts' mean (the JAX package's ``tree.map(mean)``
+    of the vmapped losses)."""
+    if len(losses) == 1:
+        return losses[0]
+    return {k: torch.mean(torch.stack([l[k] for l in losses])) for k in losses[0]}
 
 
 def _psnr(img, rgb):
@@ -111,6 +133,38 @@ def _aux(losses: dict, out: dict, frame: Frame) -> dict:
     aux["psnr"] = _psnr(out["rgb_image"], frame.rgb)
     aux["overflow"] = out["overflow"]
     return aux
+
+
+def _batch_aux(losses: dict, outs: list, frames: list, mesh=None,
+               whole_batch_psnr: bool = False) -> dict:
+    """The aux of one frame (:func:`_aux`), or of a batch: the mean losses,
+    the overflow summed, and the PSNR of the whole batch's error
+    (GaussianAvatars) or the mean of the frames' PSNRs (the others), as
+    the JAX package's batched steps give them. With ``mesh``, each value is
+    that of the batch over every rank."""
+    if len(outs) == 1 and mesh is None:
+        return _aux(losses, outs[0], frames[0])
+    with torch.no_grad():
+        mses = torch.stack([torch.mean((o["rgb_image"] - as_float_rgb(f.rgb)) ** 2)
+                            for o, f in zip(outs, frames)])
+        q = torch.mean(mses) if whole_batch_psnr else torch.mean(-10.0 * torch.log10(mses))
+        ovf = torch.sum(torch.stack([o["overflow"] for o in outs])).to(torch.float32)
+        vals = [v.detach() for v in losses.values()]
+        if mesh is not None:
+            *vals, q, ovf = all_reduce_tensors([*vals, q, ovf], mesh)
+            vals, q = [v / mesh.size for v in vals], q / mesh.size
+    aux = dict(zip(losses, vals))
+    aux["psnr"] = -10.0 * torch.log10(q) if whole_batch_psnr else q
+    aux["overflow"] = torch.round(ovf).to(torch.int32)
+    return aux
+
+
+def _reduce_grads(g, mesh):
+    """The gradient of the mean loss over every rank's frames: each rank's
+    own, summed over the ranks and divided by their number."""
+    if mesh is None:
+        return g
+    return all_reduce_tree(scale_tree(g, 1.0 / mesh.size), mesh)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -149,33 +203,53 @@ def make_gaussianavatars_step(
     ``xyz_lr_schedule(step)`` (host steps) rescales the xyz update."""
 
     def grads(ts: BaselineTrainState, frame: Frame):
-        _single(frame)
+        frames = _frames(frame)
         n = ts.params.xyz.shape[0]
-        probe = torch.zeros((2, n), device=ts.params.xyz.device, requires_grad=True)
+        probe = torch.zeros((len(frames), 2, n), device=ts.params.xyz.device,
+                            requires_grad=True)
 
         def loss_of(p):
-            out = GA.ga_forward(model, p, ts.state, frame.expression, frame.flame_pose,
-                                frame.camera, active_sh_degree=active_sh_degree,
-                                bg_color=frame.bg_color, render_cfg=render_cfg,
-                                means2d_probe=probe)
-            losses = loss_fn(out, {"rgb": frame.rgb})
-            return losses["loss"], (out, losses)
+            outs, losses = [], []
+            for f, pr in zip(frames, probe):
+                out = GA.ga_forward(model, p, ts.state, f.expression, f.flame_pose, f.camera,
+                                    active_sh_degree=active_sh_degree, bg_color=f.bg_color,
+                                    render_cfg=render_cfg, means2d_probe=pr)
+                outs.append(out)
+                losses.append(loss_fn(out, {"rgb": f.rgb}))
+            losses = _mean_losses(losses)
+            return losses["loss"], (outs, losses)
 
-        g, (g_probe,), (out, losses) = param_grads(ts.params, loss_of, [probe])
-        return g, g_probe, out, losses
+        g, (g_probe,), (outs, losses) = param_grads(ts.params, loss_of, [probe])
+        if frame.rgb.dim() == 4:
+            return g, g_probe, outs, losses
+        return g, g_probe[0], outs[0], losses
 
-    def step_fn(ts: BaselineTrainState, frame: Frame):
+    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None):
         g, g_probe, out, losses = grads(ts, frame)
+        frames, outs = _frames(frame), (out if isinstance(out, list) else [out])
+        g_probe = g_probe.reshape(len(outs), 2, -1)
+        world = 1 if mesh is None else mesh.size
+        B = len(outs) * world
+        # each frame's probe gradient of the mean loss over the B frames is
+        # 1/B of its own: rescaled by B, so the statistic stays that of one
+        # frame (the threshold was tuned for it)
         state = ts.state
-        gnorm = torch.linalg.norm(g_probe, dim=0) * (2.0 / frame.camera.width)
-        vis = out["visibility_filter"] & state.alive
+        w = frame.camera.width
+        vis = [o["visibility_filter"] & state.alive for o in outs]
+        accum = sum(torch.where(v, torch.linalg.norm(gp / world, dim=0) * (2.0 / w) * B, 0.0)
+                    for v, gp in zip(vis, g_probe))
+        denom = sum(torch.where(v, 1.0, 0.0) for v in vis)
+        radii = torch.amax(torch.stack([torch.where(v, o["radii"].to(torch.float32), 0.0)
+                                        for v, o in zip(vis, outs)]), dim=0)
+        if mesh is not None:
+            g, (accum, denom) = all_reduce_tree(scale_tree(g, 1.0 / world), mesh,
+                                                extra=[accum, denom])
+            radii = mesh.all_reduce(radii, op=dist.ReduceOp.MAX)
         state = dataclasses.replace(
             state,
-            xyz_gradient_accum=state.xyz_gradient_accum + torch.where(vis, gnorm, 0.0),
-            denom=state.denom + torch.where(vis, 1.0, 0.0),
-            max_radii2d=torch.where(vis, torch.maximum(state.max_radii2d,
-                                                       out["radii"].to(torch.float32)),
-                                    state.max_radii2d))
+            xyz_gradient_accum=state.xyz_gradient_accum + accum,
+            denom=state.denom + denom,
+            max_radii2d=torch.maximum(state.max_radii2d, radii))
         updates, opt_state = optimizer.update(g, ts.opt_state, ts.params)
         if xyz_lr_schedule is not None:
             scale = xyz_lr_schedule(ts.step) / max(optimizer.lr_tree["xyz"], 1e-12)
@@ -192,7 +266,7 @@ def make_gaussianavatars_step(
         if opacity_reset_interval > 0 and step % opacity_reset_interval == 0:
             params = GA.reset_opacity(params)
             opt_state = zero_moment_field(opt_state, "opacity")
-        aux = _aux(losses, out, frame)
+        aux = _batch_aux(losses, outs, frames, mesh, whole_batch_psnr=True)
         aux["num_alive"] = torch.sum(state.alive)
         return BaselineTrainState(params=params, state=state, opt_state=opt_state,
                                   step=step, generator=ts.generator), aux
@@ -218,16 +292,20 @@ def flashavatar_optimizer(training_cfg: dict) -> MultiAdam:
 
 def _plain_step(grads_fn, optimizer: MultiAdam, after=None):
     """forward, loss, backward and Adam; ``after(params, state, opt_state,
-    step, out)`` -> (params, state, opt_state) runs the family's upkeep."""
+    step, outs, mesh)`` -> (params, state, opt_state) runs the family's
+    upkeep (``outs``: the frames' forward outputs)."""
 
-    def step_fn(ts: BaselineTrainState, frame: Frame):
+    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None):
         g, _, out, losses = grads_fn(ts, frame)
+        outs = out if isinstance(out, list) else [out]
+        g = _reduce_grads(g, mesh)
         updates, opt_state = optimizer.update(g, ts.opt_state, ts.params)
         params, state, step = apply_updates(ts.params, updates), ts.state, ts.step + 1
         if after is not None:
-            params, state, opt_state = after(params, state, opt_state, step, out)
+            params, state, opt_state = after(params, state, opt_state, step, outs, mesh)
         return BaselineTrainState(params=params, state=state, opt_state=opt_state,
-                                  step=step, generator=ts.generator), _aux(losses, out, frame)
+                                  step=step, generator=ts.generator), \
+            _batch_aux(losses, outs, _frames(frame), mesh)
 
     step_fn.grads = grads_fn
     return step_fn
@@ -237,15 +315,15 @@ def _grads(forward, loss_fn):
     """The gradient phase of a step without a probe: ``forward(params,
     state, frame)`` -> the model's output."""
     def grads(ts: BaselineTrainState, frame: Frame):
-        _single(frame)
+        frames = _frames(frame)
 
         def loss_of(p):
-            out = forward(p, ts.state, frame)
-            losses = loss_fn(out, {"rgb": frame.rgb})
-            return losses["loss"], (out, losses)
+            outs = [forward(p, ts.state, f) for f in frames]
+            losses = _mean_losses([loss_fn(o, {"rgb": f.rgb}) for o, f in zip(outs, frames)])
+            return losses["loss"], (outs, losses)
 
-        g, _, (out, losses) = param_grads(ts.params, loss_of)
-        return g, None, out, losses
+        g, _, (outs, losses) = param_grads(ts.params, loss_of)
+        return g, None, (outs if frame.rgb.dim() == 4 else outs[0]), losses
 
     return grads
 
@@ -297,7 +375,7 @@ def make_splattingavatar_step(model, loss_fn, optimizer: MultiAdam,
         return SA.splat_forward(model, p, state, f.expression, f.flame_pose, f.camera,
                                 bg_color=f.bg_color, render_cfg=render_cfg)
 
-    def walk(params, state, opt_state, step, out):
+    def walk(params, state, opt_state, step, outs, mesh):
         if step % triangle_walk_interval == 0:
             params, state = SA.walking_on_triangles(model, params, state)
             opt_state = _zero_uv_moments(opt_state)
@@ -320,34 +398,38 @@ def monogaussianavatar_optimizer(training_cfg: dict) -> MultiAdam:
 def make_monogaussianavatar_step(model, nets, loss_fn, optimizer: MultiAdam,
                                  render_cfg: RenderConfig = RenderConfig()):
     """The step; the points seen at or above the prune threshold this step
-    are added to ``state.visible``."""
+    (by any frame of the batch) are added to ``state.visible``."""
 
     def forward(p, state, f: Frame):
         return MA.mono_forward(model, p, state, nets, f.expression, f.flame_pose, f.camera,
                                bg_color=f.bg_color, render_cfg=render_cfg)
 
-    def seen(params, state, opt_state, step, out):
-        return params, dataclasses.replace(state, visible=state.visible | out["visible_now"]), \
-            opt_state
+    def seen(params, state, opt_state, step, outs, mesh):
+        now = torch.stack([o["visible_now"] for o in outs]).any(dim=0)
+        if mesh is not None:
+            now = mesh.all_reduce(now.to(torch.float32), op=dist.ReduceOp.MAX) > 0
+        return params, dataclasses.replace(state, visible=state.visible | now), opt_state
 
     return _plain_step(_grads(forward, loss_fn), optimizer, seen)
 
 
 def mono_epoch_maintenance(ts: BaselineTrainState, model, epoch: int,
-                           upsample_freq: int = 5, draws=None) -> BaselineTrainState:
+                           upsample_freq: int = 5, draws=None,
+                           share=None) -> BaselineTrainState:
     """The epoch-level prune and upsample (train/trainer.py:204-227 and
     monogaussianavatar.py:430-467 of the reference), every ``upsample_freq``
     epochs: the epoch's target point count, noise of the current radius (of
     0.004 past epoch 100), zeroed moments on the written rows, the radius
     decayed. ``draws``: the upsample's draws (``MA.upsample_draws``), else
-    drawn from the state's generator."""
+    drawn from the state's generator; ``share`` as in
+    ``MA.prune_and_upsample``."""
     if epoch % upsample_freq != 0:
         return ts
     target = MA.target_points_for_epoch(epoch, model.cfg.max_points)
     radius = float(ts.state.radius)
     params, state, touched = MA.prune_and_upsample(
         ts.params, ts.state, target, radius if epoch <= 100 else 0.004, draws=draws,
-        generator=ts.generator)
+        generator=ts.generator, share=share)
     state = dataclasses.replace(state, radius=torch.tensor(
         MA.radius_decay(epoch, radius), dtype=torch.float32, device=state.alive.device))
     return dataclasses.replace(ts, params=params, state=state, opt_state=zero_moment_rows(

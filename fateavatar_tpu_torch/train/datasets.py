@@ -5,8 +5,8 @@ the reference). Metadata is parsed once into dense numpy arrays, images
 decode lazily with an optional in-RAM cache, and ``sample(idx)`` returns one
 frame as numpy (the ``__getitem__`` contract of dataset.py:283-319); a
 prefetching thread overlaps decoding with the card's work. Images decode
-through the port's PNG codec (``utils/png.py``), the counterpart of the JAX
-package's native loader.
+through the port's PNG and JPEG codecs (``utils/png.py``, ``utils/jpeg.py``),
+the counterparts of the JAX package's native loader.
 
 Camera-convention notes are preserved from the reference loaders:
 IMAvatar world_mat sign flips (dataset.py:264-272), INSTA
@@ -62,7 +62,8 @@ def matrix_to_axis_angle(m: np.ndarray) -> np.ndarray:
 def load_rgb(path: str, img_res, bg_color: str = "black",
              return_alpha: bool = False):
     """Decode + resize + alpha-composite (train/dataset.py:14-54). Returns
-    HWC float32 in [0,1]. PNG only: another format raises ``ValueError``."""
+    HWC float32 in [0,1]. PNG or JPEG, by the file's magic bytes; another
+    format raises ``ValueError``."""
     rgba, src_c = png.decode_image(path, img_res[0], img_res[1])
     arr = rgba if src_c == 4 else rgba[:, :, :3]
     alpha = None
@@ -86,9 +87,10 @@ def load_mask(path: str, img_res) -> np.ndarray:
     gives it: grey by PIL's "L" luma (R 19595, G 38470, B 7471 of 65536,
     rounded; alpha ignored, grey kept exact), resized to ``img_res`` (read as
     (width, height), as PIL takes it) by PIL's default bicubic filter.
-    Exact at the native size and resized. PNG only; a 16-bit PNG keeps its
-    high byte here, where PIL clips the 16-bit value."""
-    rgb = png.read_png(path)[..., :3].astype(np.uint32)
+    Exact at the native size and resized. PNG or JPEG (decoded as libjpeg
+    decodes it for PIL); a 16-bit PNG keeps its high byte here, where PIL
+    clips the 16-bit value."""
+    rgb = png.read_image(path)[..., :3].astype(np.uint32)
     grey = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000)
             >> 16).astype(np.uint8)
     grey = png.resize_bicubic_u8(grey, img_res[0], img_res[1])

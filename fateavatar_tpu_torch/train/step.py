@@ -19,6 +19,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from fateavatar_tpu_torch.models import maintenance
 from fateavatar_tpu_torch.models.fateavatar import (
@@ -90,13 +91,27 @@ def make_train_step(
     optimizer: MultiAdam,
     maint: MaintenanceConfig = MaintenanceConfig(),
     render_cfg: RenderConfig = RenderConfig(),
+    mesh=None,
+    return_grads: bool = False,
 ):
     """Build the step: (TrainState, Frame, maintain=True) -> (TrainState,
     aux dict of device scalars). Mirrors iteration_step_fateavatar
     (train/iteration.py:21-89); ``maintain=False`` skips the maintenance
     that would fall due (the in-place step runs it apart). The returned
     function also exposes ``grads(ts, frame)`` -> (param grads, probe grad,
-    forward output, loss dict), the step's gradient phase alone."""
+    forward output, loss dict), the step's gradient phase alone, on this
+    process's frame.
+
+    With ``mesh`` (a ``parallel.data_parallel.DeviceMesh``) it is the
+    data-parallel step of the JAX package's ``make_dp_train_step``, run by
+    every rank on its own frame of a batch of B = ``mesh.size``: the
+    gradients and statistics are reduced over the ranks
+    (:func:`_reduce_over_ranks`) before the update, every rank applies the
+    same update and maintenance (densify from rank 0's draws), and the
+    opacity reset does not run
+    (data_parallel.py:120-142 of the JAX package); aux then holds "loss",
+    "psnr", "overflow" and "num_alive" only. ``return_grads`` adds "grads",
+    the gradients the update took."""
 
     def grads(ts: TrainState, frame: Frame):
         leaves = {k: v.detach().requires_grad_() for k, v in _fields(ts.params).items()}
@@ -118,13 +133,23 @@ def make_train_step(
 
     def step_fn(ts: TrainState, frame: Frame, maintain: bool = True):
         param_grads, probe_grad, out, losses = grads(ts, frame)
+        with torch.no_grad():
+            psnr = -10.0 * torch.log10(torch.mean(
+                (out["rgb_image"] - as_float_rgb(frame.rgb)) ** 2))
 
-        # densification statistics from d(loss)/d(mean2d): the
-        # viewspace_points.grad hook (train/iteration.py:54-57)
-        state = maintenance.add_densification_stats(
-            ts.state, probe_grad, out["visibility_filter"])
-        state = maintenance.update_max_radii(state, out["radii"],
-                                             out["visibility_filter"])
+        if mesh is None:
+            # densification statistics from d(loss)/d(mean2d): the
+            # viewspace_points.grad hook (train/iteration.py:54-57)
+            state = maintenance.add_densification_stats(
+                ts.state, probe_grad, out["visibility_filter"])
+            state = maintenance.update_max_radii(state, out["radii"],
+                                                 out["visibility_filter"])
+            aux = {k: v.detach() for k, v in losses.items()}
+            aux["overflow"] = out["overflow"]
+            aux["psnr"] = psnr
+        else:
+            param_grads, state, aux = _reduce_over_ranks(
+                mesh, ts.state, param_grads, probe_grad, out, losses["loss"].detach(), psnr)
 
         updates, opt_state = optimizer.update(param_grads, ts.opt_state, ts.params)
         params = apply_updates(ts.params, updates)
@@ -132,7 +157,8 @@ def make_train_step(
 
         if maintain and step % maint.densify_interval == 0:   # train/iteration.py:63-72
             p2, s2, touched = maintenance.uv_densify(
-                ts.generator, params, state, increase_num=maint.increase_num)
+                ts.generator, params, state, increase_num=maint.increase_num,
+                share=None if mesh is None else mesh.broadcast)
             o2 = zero_moment_rows(opt_state, touched, SPLAT_FIELDS)
             # the capacity check stays on the device: no host round trip
             ok = torch.sum(state.alive) + maint.increase_num <= maint.max_points_num
@@ -141,22 +167,48 @@ def make_train_step(
                 ((p2, params), (s2, state), (o2, opt_state)))
         if maintain and step % maint.prune_interval == 0:     # train/iteration.py:74-79
             state = maintenance.prune_low_opacity(params, state, maint.min_opacity)
-        if maintain and step % maint.opacity_reset_interval == 0:   # :81-85
+        if (maintain and mesh is None
+                and step % maint.opacity_reset_interval == 0):   # :81-85
             params = maintenance.reset_opacity(params)
             opt_state = zero_moment_field(opt_state, "opacity")
 
-        aux = {k: v.detach() for k, v in losses.items()}
         aux["num_alive"] = torch.sum(state.alive)
-        aux["overflow"] = out["overflow"]
-        with torch.no_grad():
-            aux["psnr"] = -10.0 * torch.log10(torch.mean(
-                (out["rgb_image"] - as_float_rgb(frame.rgb)) ** 2))
+        if return_grads:
+            aux["grads"] = param_grads
         new_ts = TrainState(params=params, state=state, opt_state=opt_state,
                             step=step, generator=ts.generator)
         return new_ts, aux
 
     step_fn.grads = grads
     return step_fn
+
+
+def _reduce_over_ranks(mesh, state: FateAvatarState, param_grads, probe_grad, out: dict,
+                       loss, psnr):
+    """The data-parallel step's reduction over the B = ``mesh.size`` ranks:
+    the gradients of the mean loss over their frames (each rank's 1/B of
+    its own; the probe's too, not rescaled by B: data_parallel.py:102-115
+    of the JAX package), the densification statistics and the aux values
+    in one all-reduce; ``max_radii2d`` takes the largest over the ranks.
+    Returns (gradients, state, aux: "loss" and "psnr" the means over B,
+    "overflow" summed)."""
+    # imported here: parallel.data_parallel imports this module
+    from fateavatar_tpu_torch.parallel.data_parallel import all_reduce_tree, scale_tree
+
+    B = mesh.size
+    vis = out["visibility_filter"] & state.alive
+    gnorm = torch.linalg.norm(probe_grad / B, dim=0)
+    grads, (accum, denom, loss, psnr, ovf) = all_reduce_tree(
+        scale_tree(param_grads, 1.0 / B), mesh,
+        extra=[torch.where(vis, gnorm, 0.0), vis.to(torch.float32), loss / B, psnr / B,
+               out["overflow"].to(torch.float32)])
+    radii = mesh.all_reduce(torch.where(vis, out["radii"].to(torch.float32), 0.0),
+                            op=dist.ReduceOp.MAX)
+    state = dataclasses.replace(
+        state, xyz_gradient_accum=state.xyz_gradient_accum + accum,
+        denom=state.denom + denom, max_radii2d=torch.maximum(state.max_radii2d, radii))
+    return grads, state, {"loss": loss, "psnr": psnr,
+                          "overflow": torch.round(ovf).to(torch.int32)}
 
 
 def _select(cond: torch.Tensor, a, b):

@@ -14,7 +14,7 @@ parameters and state are read, never written, and gather no gradient.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -174,14 +174,20 @@ def row_gradients(loss_of_frame: Callable, expression, flame_pose, cam_t,
     return TrackingTables(expression=ge, flame_pose=gp, cam_t=gt)
 
 
-def make_batched_tracking_step(loss_of_frame: Callable, optimizer: RowAdam):
+def make_batched_tracking_step(loss_of_frame: Callable, optimizer: RowAdam,
+                               gather: Optional[Callable] = None):
     """Tracking refinement of B frames' rows in one update (the companion of
-    :func:`make_tracking_step` for ``Trainer.optimize_tracking``).
+    :func:`make_tracking_step` for ``Trainer.optimize_tracking`` and the
+    data-parallel epoch).
 
     ``loss_of_frame(expression, flame_pose, cam_t, frame_const, shared)``:
     ``frame_consts`` is a sequence of B per-frame constants, ``shared`` holds
     the model params/state. The B gradients are taken one frame after the
-    other, then one :meth:`RowAdam.update_rows` applies them."""
+    other, then one :meth:`RowAdam.update_rows` applies them. With
+    ``gather`` (a data-parallel rank): ``idxs``, ``mask`` and the constants
+    are this rank's frames', ``gather(x)`` concatenates a tensor over the
+    ranks in rank order, and every rank applies the same update to all the
+    ranks' rows."""
 
     def step(tables: TrackingTables, opt_state: RowAdamState,
              idxs: torch.Tensor, mask: torch.Tensor, frame_consts, shared):
@@ -189,6 +195,8 @@ def make_batched_tracking_step(loss_of_frame: Callable, optimizer: RowAdam):
                                tables.cam_t[i], const, shared)
                  for i, const in zip(idxs, frame_consts)]
         row_grads = _map(lambda *g: torch.stack(g), *grads)
+        if gather is not None:
+            idxs, mask, row_grads = gather(idxs), gather(mask), _map(gather, row_grads)
         return optimizer.update_rows(tables, opt_state, row_grads, idxs, mask)
 
     return step

@@ -26,12 +26,23 @@ Its epochs run per step (the JAX package runs them as a ``lax.scan`` where
 the step has ``.raw``; capturing adapter steps as CUDA graphs is later
 work), and the binning capacities are not autosized, as in the JAX package.
 
-Not ported yet: data parallel.
+Data parallel (``data_parallel=N`` > 1, train/trainer.py:202-236 and
+:715-790 of the JAX package): every rank of an N-process group builds its
+own Trainer on its own device (``parallel/data_parallel.py``). Each step
+takes B = N frames, one a rank, from the same frame order (wrapped to fill
+the last batch), so ``global_step`` grows by B a step; the step is
+``make_dp_train_step`` (or, with an adapter, its step with ``mesh=``), and
+with tracking every rank refines the B frames' rows in one update, the
+padded tail's repeats masked. DP epochs run per step and eagerly, as in the
+JAX package. Only rank 0 writes logs, snapshots, checkpoints, videos and
+metrics; a checkpoint written under DP resumes in a single-process Trainer
+and the other way round. ``data_parallel`` 0 or 1 trains on one device.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -132,10 +143,6 @@ class Trainer:
         lpips_weights_path=None,
         scan_unroll: int = 1,
     ):
-        if data_parallel and data_parallel > 0:
-            raise NotImplementedError(
-                f"data_parallel={data_parallel}: the data-parallel epoch is not "
-                "ported yet (ROADMAP Queue 1 item 11)")
         if device_frame_cache not in ("on", "off", "auto"):
             raise ValueError(f"device_frame_cache {device_frame_cache!r}: on, off or auto")
         self.name = name
@@ -146,6 +153,19 @@ class Trainer:
         self.test_dataset = test_dataset
         self.workspace = workspace
         self.device = params_device(params)
+        # data parallel over N ranks (train/trainer.py:202-236); 0 or 1 is
+        # the single-device path, as in the JAX package
+        self.dp_mesh = None
+        if data_parallel and data_parallel > 1:
+            from fateavatar_tpu_torch.parallel.data_parallel import make_device_mesh
+
+            self.dp_mesh = make_device_mesh(data_parallel, device=self.device.type)
+            if self.dp_mesh.device != self.device:
+                raise ValueError(f"rank {self.dp_mesh.rank} trains on {self.dp_mesh.device}, "
+                                 f"its params are on {self.device}")
+        main = self.dp_mesh is None or self.dp_mesh.is_main
+        # only rank 0 writes files
+        self._files = workspace is not None and main
         # the LPIPS network's weights, loaded once for every evaluation (an
         # unavailable meter, without weights, is dropped from them)
         self._lpips = metrics_mod.LPIPSMeter(weights_path=lpips_weights_path,
@@ -157,14 +177,15 @@ class Trainer:
         self.scan_unroll = max(1, int(scan_unroll))
         self.epoch = 0
         self.global_step = 0
-        self.logger = Logger(name, workspace)
+        self.logger = Logger(name, workspace if main else None, quiet=not main)
 
         # media dirs (train/trainer.py:107-134)
         self.media_dirs = {}
         if workspace is not None:
             for sub in ("snapshots", "eval_images", "eval_videos", "metrics"):
                 d = os.path.join(workspace, "media", sub)
-                os.makedirs(d, exist_ok=True)
+                if main:
+                    os.makedirs(d, exist_ok=True)
                 self.media_dirs[sub] = d
             self.ckpt = CheckpointManager(os.path.join(workspace, "checkpoints"),
                                           max_keep=max_keep_ckpt)
@@ -223,6 +244,9 @@ class Trainer:
             self._tracking_step = self._build_tracking_step()
             self._batched_tracking_step = self._build_tracking_step(batched=True)
 
+        if self.dp_mesh is not None:
+            self._setup_dp(model, loss_fn, optimizer, maint_cfg, render_cfg)
+
         # the scan-epoch mode (train/trainer.py:359-419, 466-541, 551-577)
         self.last_epoch_aux: Optional[dict] = None
         self._scan_frames: Optional[dict] = None
@@ -234,6 +258,27 @@ class Trainer:
 
     def log(self, msg: str):
         self.logger.log(msg)
+
+    def _setup_dp(self, model, loss_fn, optimizer, maint_cfg, render_cfg):
+        """The data-parallel step and the replicas' start (rank 0's state
+        and tables copied to every rank)."""
+        from fateavatar_tpu_torch.parallel.data_parallel import make_dp_train_step, replicate
+
+        mesh = self.dp_mesh
+        if self.adapter is None:
+            self.dp_step = make_dp_train_step(model, loss_fn, optimizer, mesh, maint_cfg,
+                                              render_cfg)
+        else:
+            # the families' steps take the mesh themselves (baseline_steps)
+            self.dp_step = functools.partial(self.adapter.step, mesh=mesh)
+        replicate(self.ts, mesh)
+        if self.tracking_enabled:
+            replicate((self.train_tables, self.train_track_state), mesh)
+            self._dp_tracking_step = self._build_tracking_step(batched=True,
+                                                               gather=mesh.all_gather)
+        self.log(f"[dp] training over {mesh.size} ranks ({mesh.backend}, {self.device})"
+                 + (" with tracking refinement" if self.tracking_enabled else "")
+                 + (f" [{self.adapter.name}]" if self.adapter is not None else ""))
 
     def _forward(self, params, state, expr, pose, camera, world_transform=None) -> dict:
         """The model's forward on the Trainer's background and render
@@ -317,7 +362,7 @@ class Trainer:
         out = self._forward(params, mstate, expr, pose, camera, wt)
         return self.loss_fn(out, {"rgb": rgb})["loss"]
 
-    def _build_tracking_step(self, batched: bool = False):
+    def _build_tracking_step(self, batched: bool = False, gather=None):
         if batched:
             def loss_of_frame_b(expr, pose, cam_t, frame_const, shared):
                 # frame_const = (R, fovx, fovy, gt rgb[, K, world transform])
@@ -325,7 +370,7 @@ class Trainer:
                 return self._tracking_loss(
                     expr, pose, cam_t, (*frame_const[:4], mstate, params, *frame_const[4:]))
 
-            return make_batched_tracking_step(loss_of_frame_b, self.track_opt)
+            return make_batched_tracking_step(loss_of_frame_b, self.track_opt, gather)
         return make_tracking_step(self._tracking_loss, self.track_opt)
 
     def set_render_cfg(self, render_cfg: RenderConfig):
@@ -337,9 +382,9 @@ class Trainer:
         ``self.render_cfg`` at each call, where the JAX package's jitted
         steps close over the old value. A family adapter's step closes over
         its render settings: this raises for one, as the JAX package does."""
-        if self.adapter is not None:
+        if self.adapter is not None or self.dp_mesh is not None:
             raise NotImplementedError(
-                "set_render_cfg supports the built-in FateAvatar path only")
+                "set_render_cfg supports the built-in single-device FateAvatar path only")
         self.render_cfg = render_cfg
         self.train_step = make_train_step(self.model, self.loss_fn, self.optimizer,
                                           self.maint_cfg, render_cfg)
@@ -396,6 +441,8 @@ class Trainer:
         package decides."""
         # only the scan epoch fills this: no stale values after a switch
         self.last_epoch_aux = None
+        if self.dp_mesh is not None:
+            return self._train_epoch_dp()
         scan = None if self._scan_disabled else self._maybe_scan_epoch()
         if scan is not None:
             self._train_epoch_scan(scan)
@@ -454,7 +501,7 @@ class Trainer:
                     self.train_tables, self.train_track_state, sample["idx"], const)
             if len(pending) >= FLUSH_EVERY:
                 flush()
-            if self.workspace is not None and self.global_step % self.snapshot_interval == 0:
+            if self._files and self.global_step % self.snapshot_interval == 0:
                 self.save_snapshot(sample)
         flush()
         dt = time.perf_counter() - t0
@@ -471,6 +518,80 @@ class Trainer:
                  f"({n / max(dt, 1e-9):.2f} it/s) | loss={meters['loss'].measure():.5f} "
                  f"PSNR={meters['psnr'].measure():.2f} alive={alive}")
 
+    def _train_epoch_dp(self):
+        """One data-parallel epoch (train/trainer.py:715-790): every rank
+        walks the same frame order, wrapped to fill the last batch of B, and
+        steps on its own frame of each batch; ``global_step`` grows by B a
+        step. With tracking, each rank takes its frame's row gradients under
+        the updated model and every rank applies the same update of the B
+        rows, the wrapped tail's repeats masked (each row is updated once
+        an epoch)."""
+        mesh = self.dp_mesh
+        ds = self.train_dataset
+        B, rank = mesh.size, mesh.rank
+        order = np.arange(len(ds))
+        pad = (-len(order)) % B
+        if pad:
+            order = np.concatenate([order, order[:pad]])
+        # a frame seen earlier in the epoch (the wrapped tail) takes no
+        # second tracking update
+        first = np.zeros(len(order), bool)
+        first[np.unique(order, return_index=True)[1]] = True
+        meters = {"loss": metrics_mod.LossMeter(), "psnr": metrics_mod.Meter("PSNR")}
+        pending: list = []
+        ovf_total = 0
+        self.epoch_losses = []
+
+        def flush():
+            nonlocal ovf_total
+            if not pending:
+                return
+            rows = torch.stack([torch.stack([a["loss"], a["psnr"],
+                                             a["overflow"].to(torch.float32)])
+                                for a in pending]).cpu().numpy()
+            for loss, p, ovf in rows:
+                meters["loss"].update(loss)
+                meters["psnr"].update(p)
+                self.epoch_losses.append(float(loss))
+                ovf_total += int(ovf)
+            pending.clear()
+
+        t0 = time.perf_counter()
+        mine = order[rank::B]
+        for i, sample in enumerate(Prefetcher(ds, mine)):
+            frame = self._make_frame(sample, self.train_tables)
+            self.ts, aux = self.dp_step(self.ts, frame)
+            self.global_step += B
+            pending.append(aux)
+            if self.tracking_enabled:
+                cam_pose = np.asarray(sample["cam_pose"], np.float32)
+                const = (cam_pose[:3, :3].T, sample["fovx"], sample["fovy"], frame.rgb,
+                         sample.get("intrinsics_K"), frame.world_transform)
+                idx = torch.as_tensor([sample["idx"]], dtype=torch.int64, device=self.device)
+                live = torch.as_tensor([bool(first[i * B + rank])], device=self.device)
+                self.train_tables, self.train_track_state = self._dp_tracking_step(
+                    self.train_tables, self.train_track_state, idx, live, [const],
+                    (self.ts.params, self.ts.state))
+            if len(pending) >= FLUSH_EVERY:
+                flush()
+            if self._files and self.global_step % self.snapshot_interval < B:
+                self.save_snapshot(sample)
+        flush()
+        if ovf_total > 0:
+            self.log(f"[WARN] {ovf_total} tile instances dropped by the binning caps in "
+                     "the epoch")
+        dt = time.perf_counter() - t0
+        n = len(order)
+        alive = self._alive()
+        self.last_epoch_stats = {
+            "epoch": self.epoch, "mode": f"dp={B}", "its": n / max(dt, 1e-9),
+            "loss": meters["loss"].measure(), "psnr": meters["psnr"].measure(),
+            "overflow": ovf_total, "alive": alive,
+        }
+        self.log(f"[epoch {self.epoch}] {n} frames in {dt:.1f}s "
+                 f"({n / max(dt, 1e-9):.2f} it/s, dp={B}) | "
+                 f"loss={meters['loss'].measure():.5f} alive={alive}")
+
     # ------------------------------------------------------------------
     # the scan epoch (train/trainer.py:359-419, 466-541, 665-713)
     # ------------------------------------------------------------------
@@ -484,7 +605,7 @@ class Trainer:
         ported). The frames are stacked on the device once and the cache
         cleared, so one copy of the dataset is held. Returns None while not
         eligible."""
-        if self.adapter is not None:
+        if self.adapter is not None or self.dp_mesh is not None:
             return None
         scan = self._scan_epoch
         if scan is not None and scan.tracking == self.tracking_enabled:
@@ -652,7 +773,7 @@ class Trainer:
                "overflow": ovf.astype(np.int32)}
         # a snapshot after the epoch that crosses a multiple of the interval
         # (per-step mode takes it mid-epoch)
-        if (self.workspace is not None and step_before // self.snapshot_interval
+        if (self._files and step_before // self.snapshot_interval
                 != self.global_step // self.snapshot_interval):
             self.save_snapshot(ds.sample(n - 1))
         dt = time.perf_counter() - t0
@@ -760,7 +881,7 @@ class Trainer:
         summary = {k: m.measure() for k, m in meters.items()}
         self.log(f"[eval {mode}] " + " ".join(f"{k}={v:.4f}" for k, v in summary.items()))
 
-        if self.workspace is not None:
+        if self._files:
             mpath = os.path.join(self.media_dirs["metrics"], f"{mode}_epoch{self.epoch}.json")
             with open(mpath, "w") as f:
                 json.dump({"summary": summary, "per_frame": per_frame}, f, indent=2)
@@ -889,7 +1010,7 @@ class Trainer:
         return tree
 
     def save_checkpoint(self):
-        if self.ckpt is None:
+        if self.ckpt is None or not self._files:
             return
         self.ckpt.save(self.global_step, self.checkpoint_tree())
         self.log(f"[ckpt] saved step {self.global_step}")

@@ -6,13 +6,16 @@ machines that have neither PIL nor the libpng headers. Decoding applies the
 transforms ``loader.cc`` asks libpng for: 16-bit samples keep their high
 byte, palettes expand to RGB, a tRNS chunk becomes an alpha channel, and
 grey expands to RGB. So a decoded image has 3 or 4 channels of uint8.
+PNGs of every colour type and bit depth are read, Adam7-interlaced ones
+too (each of the 7 passes unfiltered on its own and scattered into the
+image, as libpng's ``png_read_image`` does). :func:`read_image` picks the
+codec by the file's magic bytes: PNG here, JPEG in ``utils/jpeg.py``;
+anything else raises ``ValueError`` naming the file.
 :func:`resize_to_rgba` is ``resize_to_rgba`` of ``loader.cc`` with the same
 float32 operations in the same order; :func:`resize_bicubic_u8` is PIL's
 default ``Image.resize`` of a grey image (bicubic, fixed point), for the
-masks. Non-interlaced PNGs of every colour
-type and bit depth are read; anything else raises ``ValueError`` naming the
-file. :func:`write_png` / :func:`encode_png` write 8-bit grey, RGB or RGBA with
-filter 0.
+masks. :func:`write_png` / :func:`encode_png` write 8-bit grey, RGB or RGBA
+with filter 0.
 """
 
 from __future__ import annotations
@@ -26,6 +29,9 @@ import numpy as np
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+# Adam7's passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+         (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 def _chunks(data: bytes, path: str):
@@ -71,7 +77,7 @@ def _unfilter_wavefront(filt: np.ndarray, kinds: np.ndarray, bpp: int) -> np.nda
     return out.reshape(h + 1, row, bpp)[1:, 1:].reshape(h, stride).astype(np.uint8)
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int, path: str) -> np.ndarray:
+def _unfilter(raw, height: int, stride: int, bpp: int, path: str) -> np.ndarray:
     """Undo the per-row filters: [height, stride] uint8. Images with only
     None, Sub and Up rows go row by row, each row vectorized; Avg and Paeth
     depend on the reconstructed left neighbour, and an image with such rows
@@ -120,8 +126,7 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     if not data.startswith(SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (only PNG is decoded; JPEG "
-                         "and other formats are not supported)")
+        raise ValueError(f"{path}: not a PNG file")
     header, palette, trns, idat = None, None, None, []
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
@@ -135,16 +140,28 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG has no IHDR chunk")
     width, height, depth, color, _, _, interlace = header
-    if interlace != 0:
-        raise ValueError(f"{path}: interlaced PNGs are not supported")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown PNG interlace method {interlace}")
     if color not in _SAMPLES or depth not in (1, 2, 4, 8, 16) or (
             depth < 8 and color not in (0, 3)) or (depth == 16 and color == 3):
         raise ValueError(f"{path}: invalid PNG colour type {color} at depth {depth}")
     channels = _SAMPLES[color]
-    stride = (width * channels * depth + 7) // 8
     bpp = max(1, channels * depth // 8)
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, stride, bpp, path)
-    s = _samples(rows, width, channels, depth)
+    raw = zlib.decompress(b"".join(idat))
+    if interlace == 0:
+        stride = (width * channels * depth + 7) // 8
+        s = _samples(_unfilter(raw, height, stride, bpp, path), width, channels, depth)
+    else:
+        s = np.zeros((height, width, channels), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(width - x0) // dx), -(-(height - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue                 # an empty pass has no bytes at all
+            stride = (pw * channels * depth + 7) // 8
+            rows = _unfilter(memoryview(raw)[pos:], ph, stride, bpp, path)
+            s[y0::dy, x0::dx] = _samples(rows, pw, channels, depth)
+            pos += ph * (stride + 1)
 
     alpha = None
     if color == 3:
@@ -260,10 +277,25 @@ def resize_bicubic_u8(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
+def read_image(path: str) -> np.ndarray:
+    """Decode a PNG (:func:`read_png`) or a JPEG (``utils/jpeg.read_jpeg``,
+    RGB), chosen by the file's magic bytes as ``loader.cc`` chooses;
+    another format raises ``ValueError`` naming the file."""
+    with open(path, "rb") as f:
+        magic = f.read(4)
+    if magic[:2] == b"\x89P":
+        return read_png(path)
+    if magic[:2] == b"\xff\xd8":
+        from fateavatar_tpu_torch.utils import jpeg
+
+        return jpeg.read_jpeg(path)
+    raise ValueError(f"{path}: neither PNG nor JPEG")
+
+
 def decode_image(path: str, width: int, height: int):
     """Decode and resize one image: (rgba float32 [height, width, 4], source
     channel count 3 or 4), as ``native.decode_image`` returns it."""
-    img = read_png(path)
+    img = read_image(path)
     return resize_to_rgba(img, width, height), img.shape[2]
 
 

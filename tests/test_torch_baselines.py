@@ -50,6 +50,7 @@ from fateavatar_tpu_torch.models.baselines import gaussianavatars as tga
 from fateavatar_tpu_torch.models.baselines import monogaussianavatar as tma
 from fateavatar_tpu_torch.models.baselines import splattingavatar as tsa
 from fateavatar_tpu_torch.ops.camera import make_camera
+from fateavatar_tpu_torch.parallel.data_parallel import stack_frames
 from fateavatar_tpu_torch.render.render import RenderConfig, render
 from fateavatar_tpu_torch.render.splats import Gaussians
 from fateavatar_tpu_torch.train import baseline_steps as tbs
@@ -267,8 +268,14 @@ def _make_pair(family, flames):
     ts0, _ = jax_step(init, jframe(0))
     ts1, (g, gprobe, out, losses) = jax_step(ts0, f1)
 
+    # JAX's own (jitted) step on the batched [2, ...] frame, from ts0
+    batched = jax.tree.map(lambda *x: jnp.stack(x), jframe(0), f1)
+    jfull = entry.build_step(jb, jloss, jopt, JRC, NO_MAINT)
+    tsb, auxb = jfull(jax.tree.map(jnp.copy, ts0), batched)
+
     p = Pair()
     p.family, p.built, p.jb = family, built, jb
+    p.tsb, p.auxb = to_np(tsb), jax.tree.map(np.asarray, auxb)
     p.ts0, p.ts1 = to_np(ts0), to_np(ts1)
     p.out, p.losses = jax.tree.map(np.asarray, out), jax.tree.map(np.asarray, losses)
     p.grads, p.gprobe = to_np(g), np.asarray(gprobe)
@@ -285,6 +292,7 @@ def _make_pair(family, flames):
     p.tframe = tframe(f1)
     p.tgrads, p.tprobe, p.tout, p.tlosses = p.tstep.grads(p.tts0, p.tframe)
     p.tts1, p.taux = p.tstep(p.tts0, p.tframe)
+    p.ttsb, p.tauxb = p.tstep(p.tts0, stack_frames([tframe(jframe(0)), p.tframe]))
     return p
 
 
@@ -421,6 +429,41 @@ def test_step_matches_jax(pair):
         assert (d <= 2 * lr + 1e-6).all(), k
         assert (d > 1e-2 * lr + 1e-6).mean() < 0.01, k
     assert pair.tts1.step == int(pair.ts1["step"]) == 2
+
+
+def test_batched_step_matches_jax(pair):
+    """The step on a batched [2, ...] frame (frames 0 and 1) in one process
+    against JAX's jitted step on the same batch, from the same state: the
+    mean losses and the PSNR (GA: of the whole batch's error; the others:
+    the mean of the frames') within 2e-6 relative; GA's accumulators, whose
+    probe gradients are rescaled by (2 / W) * B, within 8e-5 of their
+    largest, max radii exact; Mono's visibility (any frame) exact; the
+    parameters within Adam's bound everywhere and 1e-2 lr on all but 1% of
+    the elements (as in test_step_matches_jax)."""
+    for k, v in pair.auxb.items():
+        if k in pair.tauxb and np.ndim(v) == 0 and k not in ("num_alive", "overflow"):
+            np.testing.assert_allclose(float(pair.tauxb[k]), float(v), rtol=2e-6, atol=1e-9,
+                                       err_msg=k)
+    assert "psnr" in pair.auxb and int(pair.tauxb["overflow"]) == 0
+    st, ref_st = pair.ttsb.state, pair.tsb["state"]
+    if pair.family == "gaussianavatars":
+        for k in ("xyz_gradient_accum", "denom"):
+            want = ref_st[k] - pair.ts0["state"][k]
+            assert np.abs(want).max() > 0
+            np.testing.assert_allclose(getattr(st, k).numpy() - pair.ts0["state"][k], want,
+                                       atol=8e-5 * np.abs(want).max(), err_msg=k)
+        np.testing.assert_array_equal(st.max_radii2d.numpy(), ref_st["max_radii2d"])
+    if pair.family == "monogaussianavatar":
+        np.testing.assert_array_equal(st.visible.numpy(), ref_st["visible"])
+    lrs = pair.topt.lr_tree
+    tp = flat(pair.ttsb.params)
+    for k, want in flax_names(flat(pair.tsb["params"])).items():
+        lr = lrs[k.split(".")[0]]
+        np.testing.assert_array_equal(np.isnan(tp[k]), np.isnan(want), err_msg=k)
+        d = np.abs(tp[k] - want)[~np.isnan(want)]
+        assert (d <= 2 * lr + 1e-6).all(), k
+        assert (d > 1e-2 * lr + 1e-6).mean() < 0.01, k
+    assert pair.ttsb.step == int(pair.tsb["step"]) == 2
 
 
 def test_init_matches_jax(pair, flames):
@@ -732,9 +775,9 @@ def test_registry_builds_all_five(flames):
     with pytest.raises(ValueError):
         make_family_adapter("fateavatar", bundle, loss_fn, opt, TRC, {})
     ad = make_family_adapter(name, bundle, loss_fn, opt, TRC, NO_MAINT)
-    batched = dataclasses.replace(frame, rgb=frame.rgb[None])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ad.step(ad.init_ts(0), batched)
+    # a batched [2, ...] frame trains (the mean loss over its frames)
+    ts, aux = ad.step(ad.init_ts(0), stack_frames([frame, tframe(jframe(1))]))
+    assert ts.step == 1 and np.isfinite(float(aux["loss"])) and int(aux["overflow"]) == 0
 
 
 MAINT_FIRES = dict(densify_interval=2, densify_from_iter=0, densify_grad_threshold=0.0,

@@ -1,5 +1,6 @@
 """The port's data path against the JAX package, on the CPU: the PNG codec
-and ``load_rgb`` against the JAX package's native loader, the IMAvatar and
+(Adam7-interlaced PNGs included) and ``load_rgb`` against the JAX package's
+native loader (JPEGs: tests/test_torch_jpeg.py), the IMAvatar and
 INSTA readers on generated layouts, the image writers and the video GIF
 fallback (with PIL hidden), ``construct_dataset``'s type inference, the host
 utilities, and ``render()``'s ``t_cutoff`` on both routes."""
@@ -75,6 +76,79 @@ def _avg_filtered_png(path, arr):
                  + chunk(b"IDAT", zlib.compress(out)) + chunk(b"IEND", b""))
 
 
+def _pack_rows(samples, depth):
+    """[h, w, c] integer samples as PNG scanline bytes [h, stride]."""
+    h, w, c = samples.shape
+    if depth == 16:
+        return samples.astype(">u2").reshape(h, w * c).view(np.uint8)
+    if depth == 8:
+        return samples.astype(np.uint8).reshape(h, w * c)
+    bits = ((samples[..., 0][..., None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+    return np.packbits(bits.reshape(h, w * depth), axis=1)
+
+
+def _filter_rows(rows, bpp):
+    """Each row filtered with type (row % 5): all five filters."""
+    out, prev = b"", np.zeros(rows.shape[1], np.int64)
+    for y, row in enumerate(rows.astype(np.int64)):
+        kind = y % 5
+        left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+        upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+        if kind == 0:
+            f = row
+        elif kind == 1:
+            f = row - left
+        elif kind == 2:
+            f = row - prev
+        elif kind == 3:
+            f = row - (left + prev) // 2
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            f = row - np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        out += bytes([kind]) + (f % 256).astype(np.uint8).tobytes()
+        prev = row
+    return out
+
+
+def _adam7_png(path, samples, color, depth, plte=None, trns=None):
+    """An Adam7-interlaced PNG of the samples [h, w, c] (PIL writes none):
+    each non-empty pass filtered on its own rows, through all five filter
+    types."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    data = b""
+    for x0, y0, dx, dy in png.ADAM7:
+        sub = samples[y0::dy, x0::dx]
+        if sub.size:
+            data += _filter_rows(_pack_rows(sub, depth), bpp)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    out = png.SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 1))
+    if plte is not None:
+        out += chunk(b"PLTE", plte.astype(np.uint8).tobytes())
+    if trns is not None:
+        out += chunk(b"tRNS", trns)
+    with open(path, "wb") as fh:
+        fh.write(out + chunk(b"IDAT", zlib.compress(data)) + chunk(b"IEND", b""))
+
+
+def _write_adam7(path, kind, rng):
+    h, w = (RES, RES + 5) if kind != "adam7_tiny" else (3, 2)
+    if kind in ("adam7_rgb", "adam7_tiny"):
+        _adam7_png(path, rng.integers(0, 256, (h, w, 3)), 2, 8)
+    elif kind == "adam7_rgba16":
+        _adam7_png(path, rng.integers(0, 65536, (h, w, 4)), 6, 16)
+    elif kind == "adam7_grey2":
+        _adam7_png(path, rng.integers(0, 4, (h, w, 1)), 0, 2)
+    elif kind == "adam7_palette_trns":
+        _adam7_png(path, rng.integers(0, 12, (h, w, 1)), 3, 4,
+                   plte=rng.integers(0, 256, (12, 3)), trns=bytes(range(0, 240, 40)))
+
+
 def _write_kind(path, kind, rng):
     """One PNG of each kind the readers meet, written by PIL (adaptive
     filters: Sub, Up and Paeth rows) or, for 'filters', by hand."""
@@ -101,10 +175,13 @@ def _write_kind(path, kind, rng):
             path, transparency=3)
     elif kind == "filters":
         _avg_filtered_png(path, rgb)
+    elif kind.startswith("adam7"):
+        _write_adam7(path, kind, rng)
 
 
 PNG_KINDS = ("rgb", "rgba", "grey", "grey16", "grey_alpha", "grey1", "palette",
-             "palette4", "palette_trns", "filters")
+             "palette4", "palette_trns", "filters", "adam7_rgb", "adam7_rgba16",
+             "adam7_grey2", "adam7_palette_trns", "adam7_tiny")
 
 
 @pytest.mark.parametrize("kind", PNG_KINDS)
@@ -117,11 +194,15 @@ def test_load_rgb_matches_jax(kind, tmp_path):
     _write_kind(path, kind, np.random.default_rng(PNG_KINDS.index(kind)))
     if kind == "grey16":     # libpng's strip_16 keeps the high byte
         ref = np.repeat((np.asarray(Image.open(path)) >> 8)[..., None], 3, -1)
+    elif kind == "adam7_rgba16":
+        ref = None           # PIL reads 16-bit RGBA as 8-bit its own way
     else:
         ref = np.asarray(Image.open(path).convert(
             "RGBA" if png.read_png(path).shape[2] == 4 else "RGB"))
-    np.testing.assert_array_equal(png.read_png(path), ref)
-    for res, atol in (((RES + 5, RES), 0.0), ((16, 40), 1e-6)):
+    if ref is not None:
+        np.testing.assert_array_equal(png.read_png(path), ref)
+    w, h = Image.open(path).size
+    for res, atol in (((w, h), 0.0), ((16, 40), 1e-6)):
         for bg in ("black", "white"):
             j_rgb, j_a = jdatasets.load_rgb(path, res, bg, return_alpha=True)
             t_rgb, t_a = tdatasets.load_rgb(path, res, bg, return_alpha=True)
@@ -131,17 +212,32 @@ def test_load_rgb_matches_jax(kind, tmp_path):
 
 
 def test_codec_refuses_other_formats(tmp_path):
-    """JPEG and interlaced PNGs raise ValueError naming the file."""
-    jpg = str(tmp_path / "frame.jpg")
-    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(jpg)
-    with pytest.raises(ValueError, match="frame.jpg"):
-        tdatasets.load_rgb(jpg, (8, 8))
+    """What the JAX package's libjpeg / libpng loader does not decode either
+    raises ValueError naming the file: arithmetic-coded, 12-bit and CMYK
+    JPEGs, a PNG with an unknown interlace method, a file that is neither
+    PNG nor JPEG."""
+    base = tmp_path / "frame.jpg"
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(base)
+    data = base.read_bytes()
+    sof = data.index(b"\xff\xc0")
+    for name, patched, match in (
+            ("arith.jpg", data[:sof + 1] + b"\xc9" + data[sof + 2:], "arithmetic"),
+            ("deep.jpg", data[:sof + 4] + b"\x0c" + data[sof + 5:], "12-bit")):
+        (tmp_path / name).write_bytes(patched)
+        with pytest.raises(ValueError, match=f"{name}.*{match}"):
+            tdatasets.load_rgb(str(tmp_path / name), (8, 8))
+    Image.new("CMYK", (8, 8), (10, 20, 30, 40)).save(tmp_path / "cmyk.jpg")
+    with pytest.raises(ValueError, match="cmyk.jpg.*CMYK"):
+        tdatasets.load_rgb(str(tmp_path / "cmyk.jpg"), (8, 8))
     bad = tmp_path / "laced.png"
-    hdr = struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 1)
+    hdr = struct.pack(">IIBBBBB", 8, 8, 8, 2, 0, 0, 2)
     bad.write_bytes(png.SIGNATURE + struct.pack(">I", 13) + b"IHDR" + hdr
                     + struct.pack(">I", zlib.crc32(b"IHDR" + hdr) & 0xFFFFFFFF))
     with pytest.raises(ValueError, match="laced.png"):
         png.read_png(str(bad))
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(tmp_path / "frame.bmp")
+    with pytest.raises(ValueError, match="frame.bmp"):
+        tdatasets.load_rgb(str(tmp_path / "frame.bmp"), (8, 8))
 
 
 def test_image_writers_match_jax(tmp_path):

@@ -366,9 +366,10 @@ def test_cli_train_resume_reenact(tmp_path):
     """train_mono_avatar on a generated 32x32 IMAvatar layout with
     --device cpu: 2 epochs with tracking, the test rows fitted
     (training.epochs.finetune=2) and evaluated, media written; --resume to
-    epoch 3 restores step and tables; avatar_reenact renders the test
-    sequence into a GIF (an mp4 where ffmpeg is installed); Loader restores
-    the train rows."""
+    epoch 3 (with --dp 1: one device) restores step and tables;
+    avatar_reenact renders the test sequence into a GIF (an mp4 where
+    ffmpeg is installed); Loader restores the train rows; --dp 2 in one
+    process raises, naming torchrun."""
     ws = str(tmp_path)
     root = _cli_assets(ws)
     run = os.path.join(ws, "run")
@@ -395,7 +396,9 @@ def test_cli_train_resume_reenact(tmp_path):
         importlib.util.find_spec("matplotlib") is not None)
     assert _video(os.path.join(media, "eval_videos", "test_epoch2"))
 
-    resumed = train_mono_avatar.main(["--epochs", "3", "--resume", *train_args])
+    # --dp 1 trains on one device, as the JAX package does
+    resumed = train_mono_avatar.main(["--epochs", "3", "--resume", "--dp", "1", *train_args])
+    assert resumed.dp_mesh is None
     assert resumed.global_step == 12 and resumed.epoch == 3
     assert resumed.train_track_state.count.tolist() == [3] * 4
     assert os.path.exists(os.path.join(media, "metrics", "test_epoch3.json"))
@@ -410,5 +413,6 @@ def test_cli_train_resume_reenact(tmp_path):
     loader = Loader(m, p, s, run)
     for k in ttracking.FIELDS:
         assert torch.equal(getattr(loader.tables, k), getattr(resumed.train_tables, k)), k
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    # --dp 2 outside a launcher of 2 ranks raises, saying how to launch
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         train_mono_avatar.main(["--epochs", "1", "--dp", "2", *train_args])
