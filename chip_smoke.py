@@ -67,9 +67,15 @@ weights), each through both routes of ``RenderConfig.kernel``:
   ``load_ply``, then ``cli/avatar_gui.build_viewer`` on the ``[cli]``
   workspace with the ``[bake]`` phase's ``baked.npz`` and with the latest
   checkpoint and its tracking tables, each served in the background on
-  port 0: a dozen HTTP POSTs covering every UI mode, each PNG equal to the
-  eager frame of the same state quantized, the viewer's graph frame equal
-  to the eager frame bit for bit, ms per round trip and per replay;
+  port 0: a dozen HTTP POSTs covering every UI mode, each answered with the
+  quality-90 JPEG the JAX package's viewer sends (``encode_jpeg`` of the
+  eager frame of the same state quantized: the colour conversion, DCT and
+  quantization on the card, the entropy coding on the host), its
+  coefficients on the card equal to those computed on the CPU and, where
+  PIL is installed, its bytes equal to Pillow's quality-90 JPEG of the
+  frame (the port's decode's PSNR a reading), the viewer's graph frame equal
+  to the eager frame bit for bit, ms per round trip, per replay and per
+  JPEG encode (its card and host halves);
 * full-head completion (``[pseudo]``): a landmark embedding in a face
   layout on the template's front, a seeded random ``G_ema`` at the default
   ``EG3DConfig`` written as an upstream network pickle (its generator
@@ -105,7 +111,12 @@ weights), each through both routes of ``RenderConfig.kernel``:
   seeded in-plane displacement at full width; ms per eager step with and
   without tracking, peak memory, a profile of three steps, one step's
   gradients against the plain blends at the timed size, and both against
-  the same step with the blends in float64;
+  the same step with the blends in float64; then, tracking off, each
+  family's scan epoch: its step (``maintain=False``) captured as a CUDA
+  graph with kernels 1 and 2 inside, one step and a whole epoch against
+  eager steps from one state (GaussianAvatars' densify and
+  SplattingAvatar's walk eager between the replays), ms per step replayed
+  and eager, launches per replay and the device's idle share each way;
 * LPIPS (``[lpips]``): LPIPS alex and vgg on two 512x512 frames on the
   card against the CPU, the LPIPS meter from a seeded state dict in
   ``Trainer.evaluate``, and the training step with the LPIPS (vgg) and
@@ -164,6 +175,7 @@ does a host without CUDA. It imports nothing of JAX.
 """
 
 import dataclasses
+import io
 import json
 import os
 import pickle
@@ -1457,14 +1469,43 @@ def zero_counts():
     return KERNEL_COUNTERS
 
 
-def graph_train(tag, tr, card, seen):
+def state_rel_l2(a, b):
+    """rel_l2 over the finite elements, NaN where the two hold NaN at other
+    elements (SplattingAvatar's dead rows may hold NaN in both)."""
+    import torch
+
+    if not torch.equal(torch.isnan(a), torch.isnan(b)):
+        return float("nan")
+    ok = ~torch.isnan(b)
+    return rel_l2(a[ok], b[ok]) if bool(ok.any()) else 0.0
+
+
+def no_maintenance(tr):
+    """Switch a family Trainer's maintenance off: its step always runs with
+    ``maintain=False`` and ``due`` is never true (the built-in path's
+    counterpart is a MaintenanceConfig of never-reached intervals); the
+    scan epoch's graph is dropped, so the next one captures the new step."""
+    step = tr.adapter.step
+
+    def step_fn(ts, frame, mesh=None, maintain=True):
+        return step(ts, frame, mesh=mesh, maintain=False)
+
+    step_fn.grads = step.grads
+    step_fn.due = lambda n: False
+    tr.adapter.step = tr.train_step = step_fn
+    tr._scan_epoch = None
+
+
+def graph_train(tag, tr, card, seen, eager_profile=False):
     """The scan epoch on the card for a Trainer whose device frame cache
-    holds every training frame: one step eagerly and as the graph's first
-    replay from one state; a whole epoch each way from that state (with the
-    Trainer's maintenance intervals: those steps run eagerly in both); then,
-    with no maintenance due, epochs in turns eager, graph (its capture),
-    graph, eager, timed; and graph replays under the profiler (their kernel
-    names into ``seen``). Returns the numbers for the summary."""
+    holds every training frame (the built-in path or a family adapter's):
+    one step eagerly and as the graph's first replay from one state; a
+    whole epoch each way from that state (with the Trainer's maintenance
+    intervals: those steps run eagerly in both); then, with no maintenance
+    due, epochs in turns eager, graph (its capture), graph, eager, timed;
+    and graph replays under the profiler (their kernel names into
+    ``seen``), and with ``eager_profile`` eager steps too. Returns the
+    numbers for the summary."""
     import numpy as np
     import torch
 
@@ -1477,9 +1518,10 @@ def graph_train(tag, tr, card, seen):
     route, tracking = tr.render_cfg.kernel, tr.tracking_enabled
     fwd, bwd = f"blend_{route}_fwd", f"blend_{route}_bwd"
     per = 2 if tracking else 1
+    due_fn = tr._due()
     check(tr._frame_cache is not None and len(tr._frame_cache) == n,
           f"[{tag}] every training frame in the device cache")
-    check(not tr.maint_cfg.due(tr.ts.step + 1), f"[{tag}] no maintenance at the compared step")
+    check(not due_fn(tr.ts.step + 1), f"[{tag}] no maintenance at the compared step")
     snap = graph_snapshot(tr)
     first_step = tr.ts.step
 
@@ -1505,15 +1547,17 @@ def graph_train(tag, tr, card, seen):
     wrapper = {k: c.launches for k, c in counters.items() if c.launches}
     loss_e, loss_g = float(aux1["loss"]), float(scan.aux["loss"][0])
     rel0 = abs(loss_g - loss_e) / abs(loss_e)
-    errs = {f.name: rel_l2(getattr(scan.ts.params, f.name), getattr(ts1.params, f.name))
-            for f in dataclasses.fields(ts1.params)}
+    ref = flat_grads(ts1.params)
+    errs = {k: state_rel_l2(v, ref[k]) for k, v in flat_grads(scan.ts.params).items()}
     if tracking:
         errs.update({f"tables.{f}": rel_l2(getattr(scan.tables, f), getattr(tables1, f))
                      for f in FIELDS})
     log(f"[{tag}] one step eager vs the graph's first replay (route {route}"
         f"{', with the tracking step' if tracking else ''}): loss {loss_e:.8f} vs "
         f"{loss_g:.8f} (rel {rel0:.1e}, bound {GRAPH_LOSS0_RTOL}); rel L2 after the step "
-        + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+        + (", ".join(f"{k} {v:.1e}" for k, v in errs.items()) if len(errs) <= 12 else
+           f"of {len(errs)} tensors, the largest " + ", ".join(
+               f"{k} {v:.1e}" for k, v in sorted(errs.items(), key=lambda kv: -kv[1])[:6]))
         + f" (bound {GRAPH_STEP_RTOL_L2})")
     log(f"[{tag}] capture: wrapper launches {wrapper} ({WARMUP} warm-up calls + the "
         f"capture), launches per replay {g.launches_per_replay}; warm-up, capture and "
@@ -1539,7 +1583,7 @@ def graph_train(tag, tr, card, seen):
     counters = zero_counts()
     tr.train_epoch()
     graph = tr.last_epoch_aux["loss"]
-    due = [first_step + j + 1 for j in range(n) if tr.maint_cfg.due(first_step + j + 1)]
+    due = [first_step + j + 1 for j in range(n) if due_fn(first_step + j + 1)]
     rel = np.abs(graph - eager) / np.abs(eager)
     log(f"[{tag}] epoch of {n} steps from one state, eager vs graph: per-step loss rel diff "
         f"max {rel.max():.1e} (bound {GRAPH_EPOCH_RTOL}), step 1 {rel[0]:.1e}; graph "
@@ -1553,10 +1597,13 @@ def graph_train(tag, tr, card, seen):
           and rel.max() <= GRAPH_EPOCH_RTOL, f"[{tag}] the epoch's losses graph vs eager")
 
     # ---- steady epochs without maintenance: eager, graph, graph, eager
-    never = 10**9
-    tr.maint_cfg = dataclasses.replace(tr.maint_cfg, densify_interval=never,
-                                       prune_interval=never, opacity_reset_interval=never)
-    tr.set_render_cfg(tr.render_cfg)    # rebuilds the step; drops the graph
+    if tr.adapter is None:
+        never = 10**9
+        tr.maint_cfg = dataclasses.replace(tr.maint_cfg, densify_interval=never,
+                                           prune_interval=never, opacity_reset_interval=never)
+        tr.set_render_cfg(tr.render_cfg)    # rebuilds the step; drops the graph
+    else:
+        no_maintenance(tr)
     t = {}
     for i, mode in enumerate(("eager", "graph", "graph", "eager")):
         tr._scan_disabled = mode == "eager"
@@ -1578,11 +1625,25 @@ def graph_train(tag, tr, card, seen):
     prof = profile_top(f"{k} replays of the {tag} graph", lambda i: scan.graph(), k,
                        "replay", card)
     seen.update(prof["names"])
+    eager_prof = None
+    if eager_profile:
+        frames = [tr._make_frame(tr.train_dataset.sample(i), None) for i in range(k)]
+
+        def eager_step(i):
+            tr.ts, _ = tr.train_step(tr.ts, frames[i])
+
+        eager_prof = profile_top(f"{k} eager steps of the {tag} Trainer", eager_step, k,
+                                 "step", card)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{tag}] peak device memory {peak:.3f} GiB (the Trainer's eager steps, two "
         f"captures; its graph's pool held); phase total {time.perf_counter() - t_phase:.1f} s")
-    return {"eager_ms": t[3], "graph_ms": t[2], "capture_epoch_ms": t[1], "profile": prof,
-            "per_replay": dict(scan.graph.launches_per_replay), "peak_gib": peak}
+    out = {"eager_ms": t[3], "graph_ms": t[2], "capture_epoch_ms": t[1], "profile": prof,
+           "per_replay": dict(scan.graph.launches_per_replay), "peak_gib": peak,
+           "first_loss_rel": rel0, "state_rel_l2": max(errs.values()),
+           "epoch_loss_rel": float(rel.max()), "eager_due": due}
+    if eager_prof is not None:
+        out["eager_profile"] = eager_prof
+    return out
 
 
 def graph_serve(tag, model, params, state, ws, rcfg, cam, exprs, poses, delta, card, seen):
@@ -2531,19 +2592,24 @@ VIEWER_TIMED = 10
 
 def viewer_host_split(srv, ui):
     """Median ms (host clock, VIEWER_TIMED calls each) of a round trip of
-    ``ui`` to the running viewer ``srv`` and of its host parts one by one:
-    the render callback (inputs copied in, the replay, its sync, the frame's
-    copy to the host), the device-to-host copy of the frame alone, and
-    quantize + PNG encode."""
+    ``ui`` to the running viewer ``srv`` and of its parts one by one: the
+    render callback (inputs copied in, the replay, its sync, a copy of the
+    frame on the card), quantize + JPEG encode (``encode_jpeg``) whole, and
+    its two halves: the coefficients on the card (``jpeg_coefficients``, to
+    their host copy) and the entropy coding on the host; and, for scale,
+    the frame's device-to-host copy alone and the PNG encode the viewer
+    sent before."""
     import numpy as np
     import torch
 
+    from fateavatar_tpu_torch.utils import jpeg
     from fateavatar_tpu_torch.utils.png import encode_png
     from fateavatar_tpu_torch.viewer.web import quantize
 
     fn = srv.render_fn
     img = fn(ui)[0]
     dev_img = torch.as_tensor(img, device="cuda")
+    coefs = jpeg.jpeg_coefficients(quantize(dev_img), 90).cpu().numpy()
 
     def median_ms(f):
         ts = []
@@ -2556,8 +2622,12 @@ def viewer_host_split(srv, ui):
 
     return {"round_trip": median_ms(lambda: post_json(srv.port, ui)),
             "callback": median_ms(lambda: fn(ui)),
+            "encode": median_ms(lambda: jpeg.encode_jpeg(quantize(dev_img), 90)),
+            "jpeg_device": median_ms(
+                lambda: jpeg.jpeg_coefficients(quantize(dev_img), 90).cpu()),
+            "jpeg_host": median_ms(lambda: jpeg._entropy_code(coefs)),
             "copy": median_ms(lambda: dev_img.cpu().numpy().copy()),
-            "encode": median_ms(lambda: encode_png(quantize(img)))}
+            "png": median_ms(lambda: encode_png(quantize(dev_img).cpu().numpy()))}
 
 
 def post_json(port, state):
@@ -2582,13 +2652,19 @@ def tools_phase(cli, rows, card):
     the latest training checkpoint with its tracking tables (``--variant
     latest``), each served in the background on port 0 and sent the
     VIEWER_UI states as HTTP POSTs: every served frame drops no instance
-    (overflow 0), every decoded PNG equals the eager forward of the same
-    state quantized to uint8, the graph's frame equals the eager frame bit
-    for bit, and VIEWER_PLAIN's states render within TOL of the plain
-    blend; launches (the graph's warm-up and capture, then one kernel-1
-    launch per replay), ms per round trip and per replay, and a round
-    trip's host parts timed one by one (the callback, the frame's copy to
-    the host, quantize + PNG encode)."""
+    (overflow 0), every response is ``image/jpeg`` and its body the port's
+    quality-90 JPEG (``encode_jpeg``) of the eager forward of the same state
+    quantized to uint8, its coefficients on the card (``jpeg_coefficients``)
+    equal to the same call's on a CPU copy of the frame element for element,
+    and, where PIL is installed, the body equal to Pillow's quality-90 JPEG
+    of the frame byte for byte (what the JAX package's viewer sends); the
+    PSNR of the port's ``decode_jpeg`` of the body (and of Pillow's decode
+    of its own JPEG) against the frame is a reading; the graph's frame equals the
+    eager frame bit for bit, and VIEWER_PLAIN's states render within TOL of
+    the plain blend; launches (the graph's warm-up and capture, then one
+    kernel-1 launch per replay), ms per round trip and per replay, and a
+    round trip's parts timed one by one (the callback, the JPEG encode and
+    its device and host halves)."""
     import numpy as np
     import torch
 
@@ -2597,9 +2673,13 @@ def tools_phase(cli, rows, card):
     from fateavatar_tpu_torch.render import blend_instances as bi
     from fateavatar_tpu_torch.render.ply import load_ply, save_ply
     from fateavatar_tpu_torch.utils.graphs import WARMUP
-    from fateavatar_tpu_torch.utils.png import read_png
+    from fateavatar_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg, jpeg_coefficients
     from fateavatar_tpu_torch.viewer.web import quantize
 
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
     t_phase = time.perf_counter()
     ws = os.path.dirname(os.path.dirname(cli.run))
     tr = cli.trainer
@@ -2667,25 +2747,44 @@ def tools_phase(cli, rows, card):
               "the viewer: the graph's warm-up and capture (again at each growth of the "
               "caps), then one kernel-1 launch a replay")
         # the served frames against eager forwards of the same states
-        png = os.path.join(ws, f"viewer_{variant}.png")
-        stds = []
+        stds, psnrs, pil_psnrs, pil_same = [], [], [], []
+
+        def psnr_of(a, b):
+            mse = float(np.mean((a.astype(np.float64) - b) ** 2))
+            return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
         for ui, ctype, _, body, _ in served:
-            with open(png, "wb") as fh:
-                fh.write(body)
-            decoded = read_png(png)
             eager = fn.eager(ui)
             frame = fn(ui)[0]
-            check(ctype == "image/png" and decoded.shape == eager.shape
-                  and np.array_equal(decoded, quantize(eager)),
-                  f"[tools] {variant} {ui}: the PNG is the eager frame quantized")
-            check(np.array_equal(frame, eager), f"[tools] {variant} {ui}: graph frame == eager")
+            want = quantize(eager)
+            decoded = decode_jpeg(body)
+            ref = want.cpu().numpy()
+            psnr = psnr_of(decoded, ref)
+            check(ctype == "image/jpeg" and decoded.shape == tuple(eager.shape)
+                  and body == encode_jpeg(want, 90),
+                  f"[tools] {variant} {ui}: the body is the eager frame's JPEG")
+            # the card's half against the same integer steps on the CPU
+            coef_card = jpeg_coefficients(want, 90).cpu()
+            coef_cpu = jpeg_coefficients(want.cpu(), 90)
+            ndiff = int((coef_card != coef_cpu).sum())
+            check(ndiff == 0, f"[tools] {variant} {ui}: the JPEG's coefficients on the card "
+                  f"equal the CPU's ({ndiff} of {coef_cpu.numel()} differ)")
+            if Image is not None:
+                buf = io.BytesIO()
+                Image.fromarray(ref).save(buf, format="JPEG", quality=90)
+                pil_same.append(buf.getvalue() == body)
+                pil_psnrs.append(psnr_of(np.asarray(Image.open(buf).convert("RGB")), ref))
+                check(pil_same[-1], f"[tools] {variant} {ui}: the body equals Pillow's "
+                      f"quality-90 JPEG of the frame ({len(body)} vs {len(buf.getvalue())} B)")
+            check(torch.equal(frame, eager), f"[tools] {variant} {ui}: graph frame == eager")
             stds.append(float(decoded.std()))
+            psnrs.append(psnr)
         distinct = len({body for _, _, _, body, _ in served})
         check(distinct == len(VIEWER_UI), f"[tools] {variant}: every UI state gives its own "
               f"frame ({distinct} distinct of {len(VIEWER_UI)})")
         if variant == "latest":
             raw = fn.eager({"playing": True, "frame": 5})
-            check(not np.array_equal(raw, fn.eager(VIEWER_UI[10])),
+            check(not torch.equal(raw, fn.eager(VIEWER_UI[10])),
                   "tracked playback reads the tracking tables")
         # kernel 1 against the plain blend on the heaviest states
         plain_err = []
@@ -2694,7 +2793,7 @@ def tools_phase(cli, rows, card):
             with swapped_blend(bi.blend_instances_plain):
                 img_p = fn.eager(ui)
             check(fn.overflow == 0, f"[tools] {variant} {ui}: the plain frame's overflow 0")
-            plain_err.append(float(np.abs(img_k - img_p).max()))
+            plain_err.append(float((img_k - img_p).abs().max()))
         check(max(plain_err) <= TOL, f"[tools] {variant}: kernel 1 vs the plain blend "
               f"{plain_err} > {TOL}")
         rows["blend_instances_fwd"]["max_abs_err"] = max(
@@ -2702,13 +2801,19 @@ def tools_phase(cli, rows, card):
         dev_ms = [d for _, _, d, _, _ in served]
         rts = [r for *_, r in served]
         log(f"[tools] viewer --variant {variant}: built (load, warm-up, capture) in "
-            f"{build_s:.2f} s; {len(served)} POSTs over HTTP, every PNG the eager frame "
-            f"quantized and every graph frame bit-equal to the eager one; ms per round trip "
-            f"(host clock, PNG encoded and decoded by urllib) median "
+            f"{build_s:.2f} s; {len(served)} POSTs over HTTP, every body the quality-90 JPEG "
+            f"of the eager frame quantized, its coefficients on the card equal to the CPU's, "
+            f"its bytes equal to Pillow's in "
+            + (f"{sum(pil_same)} of {len(pil_same)}" if pil_same else "none (no PIL)")
+            + f" (PSNR of the port's decode {min(psnrs):.2f}-{max(psnrs):.2f} dB, a reading"
+            + (f"; Pillow's decode of its own {min(pil_psnrs):.2f}-{max(pil_psnrs):.2f} dB"
+               if pil_psnrs else "")
+            + f") and every graph frame bit-equal to the eager one; ms per round trip "
+            f"(host clock, JPEG encoded, read by urllib) median "
             f"{float(np.median(rts)):.2f} min {min(rts):.2f} max {max(rts):.2f}; per replay "
             f"(X-Device-Ms, CUDA events) median {float(np.median(dev_ms)):.3f} min "
-            f"{min(dev_ms):.3f} max {max(dev_ms):.3f}; PNG {len(served[0][3]) / 1024:.0f} KiB, "
-            f"pixel std {min(stds):.1f}-{max(stds):.1f}; "
+            f"{min(dev_ms):.3f} max {max(dev_ms):.3f}; JPEG {len(served[0][3]) / 1024:.0f} "
+            f"KiB, pixel std {min(stds):.1f}-{max(stds):.1f}; "
             f"kernel 1 launches {fwd} by the wrapper ({WARMUP} warm-up calls + the capture, "
             f"x {1 + regrows}), then {replays} replays x {graph.launches_per_replay}; the caps "
             f"grew {regrows} times (overflow of the frames before growth {overflow_grown}) "
@@ -2720,17 +2825,22 @@ def tools_phase(cli, rows, card):
         log(f"[tools] viewer --variant {variant}, one round trip of {VIEWER_UI[0]} by parts "
             f"(host clock, median of {VIEWER_TIMED} each): round trip "
             f"{split['round_trip']:.2f} ms = render callback {split['callback']:.2f} (inputs "
-            f"in, the replay, its sync, the frame to the host; a {img_k.shape[1]}x"
-            f"{img_k.shape[0]}x3 float32 device-to-host copy alone {split['copy']:.2f}) + "
-            f"quantize and PNG encode {split['encode']:.2f} + the rest (the HTTP server and "
-            f"urllib, JSON, the threads) {rest:.2f}; shares "
+            f"in, the replay, its sync, a copy of the frame on the card) + quantize and JPEG "
+            f"encode {split['encode']:.2f} (the coefficients on the card to the host "
+            f"{split['jpeg_device']:.2f}, the entropy coding on the host "
+            f"{split['jpeg_host']:.2f}) + the rest (the HTTP server and urllib, JSON, the "
+            f"threads) {rest:.2f}; for scale, a {img_k.shape[1]}x{img_k.shape[0]}x3 float32 "
+            f"device-to-host copy {split['copy']:.2f} and the PNG encode the viewer sent "
+            f"before {split['png']:.2f}; shares "
             f"{split['callback'] / split['round_trip']:.1%} / "
             f"{split['encode'] / split['round_trip']:.1%} / {rest / split['round_trip']:.1%} "
             f"[{card}]")
         summary[variant] = {"launches": fwd, "replays": replays, "regrows": regrows,
                             "round_trip_ms": float(np.median(rts)),
                             "replay_ms": float(np.median(dev_ms)), "build_s": build_s,
-                            "plain_err": max(plain_err),
+                            "plain_err": max(plain_err), "jpeg_psnr_min": min(psnrs),
+                            "pil_jpeg_psnr_min": min(pil_psnrs) if pil_psnrs else None,
+                            "pil_bytes_equal": f"{sum(pil_same)}/{len(pil_same)}",
                             "split_ms": split | {"rest": rest}}
         del srv, fn, graph
     rows["blend_instances_fwd"]["viewer_launches"] = {
@@ -4115,9 +4225,13 @@ def deep_cutoff_reading(tag, inst, starts, bg, grid, card):
                    fwd_split=segment_split(f"{tag} kernel 1 at t_cutoff {c}", fwd, card),
                    bwd_split=segment_split(f"{tag} kernel 2 at t_cutoff {c}", bwd, card))
         for d in ("fwd", "bwd"):
+            # the profiler may drop records of these long launches (some of
+            # them, or all, as seen on one H100): no share then
             split = row[f"{d}_split"]
-            row[f"{d}_pass_a_share"] = sum(v for k, v in split.items()
-                                           if k.endswith(f"{d}_products")) / sum(split.values())
+            total = sum(split.values())
+            row[f"{d}_pass_a_share"] = (sum(v for k, v in split.items()
+                                            if k.endswith(f"{d}_products")) / total
+                                        if total else float("nan"))
         res[str(c)] = row
     a, b = res["0.0"], res["0.001"]
     log(f"{tag} the early exit on frame 0's lists ({a['columns']} instances, the deepest tile "
@@ -4283,6 +4397,8 @@ def baseline_family(fam, cli, bws, card):
     # ---- ms per eager step: an epoch with tracking, then one without (the
     # maintenance that falls due runs in it)
     t_ms = {}
+    # per-step epochs here: the graph epoch without tracking comes last
+    tr._scan_disabled = True
     for label, enabled in (("with tracking", True), ("without tracking", False)):
         tr.tracking_enabled = enabled
         torch.cuda.synchronize()
@@ -4388,6 +4504,35 @@ def baseline_family(fam, cli, bws, card):
     out["float64_rel_l2"] = {side: r[1] for side, r in far.items()}
     if fam == "monogaussianavatar":
         out["cutoff"] = deep_cutoff_reading(tag, *inputs[0], card)
+    # ---- the scan epoch, tracking off: the family's step (maintain=False)
+    # as a CUDA graph, replayed a frame, the due maintenance eager between
+    # replays (train/trainer.py); graph vs eager from one state, ms per step
+    # each way, launches per replay, the device's idle share each way
+    # a Trainer without tracking holds no tables: its frames read the
+    # dataset's rows, eager and in the graph alike. GA's densify inside the
+    # compared epoch draws its split noise (torch.randn) from the restored
+    # generator, the same draws both ways: only torch.multinomial's draws
+    # are not reproducible on the card (PERF.md, Findings)
+    tables = tr.train_tables
+    tr.tracking_enabled, tr.train_tables = False, None
+    tr._scan_disabled = False
+    g = graph_train(f"{fam}-graph", tr, card, set(), eager_profile=True)
+    tr.tracking_enabled, tr.train_tables = True, tables
+    rp, ep = g["profile"], g["eager_profile"]
+    log(f"{tag} scan epoch as a CUDA graph at {tr._alive() or 'all'} splats, tracking off: "
+        f"ms/step replay {g['graph_ms'][0]:.3f} / {g['graph_ms'][1]:.3f} vs eager "
+        f"{g['eager_ms'][0]:.3f} / {g['eager_ms'][1]:.3f} (host clock / CUDA events, epochs "
+        f"of {steps}), {g['eager_ms'][0] / g['graph_ms'][0]:.2f}x; launches per replay "
+        f"{rp['kernels']:.0f} device ops ({g['per_replay']} of the port's kernels) vs "
+        f"{ep['kernels']:.0f} per eager step; device idle {rp['idle']:.1%} of a replay's "
+        f"wall vs {ep['idle']:.1%} of an eager step's (the profiler's union of device "
+        f"intervals); graph vs eager first loss {g['first_loss_rel']:.1e}, state "
+        f"{g['state_rel_l2']:.1e}, epoch {g['epoch_loss_rel']:.1e} (maintenance eager at "
+        f"steps {g['eager_due']}) [{card}]")
+    out["graph"] = {k: v for k, v in g.items() if k not in ("profile", "eager_profile")} | {
+        "replay_kernels": rp["kernels"], "eager_kernels": ep["kernels"],
+        "replay_idle": rp["idle"], "eager_idle": ep["idle"],
+        "replay_busy_ms": rp["busy_ms"], "eager_busy_ms": ep["busy_ms"]}
     torch.cuda.empty_cache()
     out.update(ms_step_tracking=t_ms["with tracking"], ms_step=t_ms["without tracking"],
                peak_gib=peak, worst_rel_l2=max(w[1] for w in worst), launches=launches,
@@ -4412,6 +4557,9 @@ def baselines_phase(cli, rows, card):
         by_family = {f: s["launches"][name] for f, s in summary.items()}
         rows[name]["launches"] += sum(by_family.values())
         rows[name]["launches_baselines"] = by_family
+        per = rows[name].setdefault("graph_launches_per_replay", {})
+        for f, s in summary.items():
+            per[f"baseline-{f}"] = s["graph"]["per_replay"].get(name, 0)
     log(f"[baselines] phase total {time.perf_counter() - t_phase:.1f} s [{card}]")
     log("[baselines] summary " + json.dumps(summary))
     return summary

@@ -69,7 +69,8 @@ def compute_vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Te
     vn = torch.zeros_like(verts)
     for k in range(3):
         vn = vn.index_add(dim, faces[:, k], fn)
-    fallback = vn.new_tensor([0.0, 0.0, 1.0])
+    # built on the device: a copy from the host cannot be captured in a graph
+    fallback = (torch.arange(3, device=vn.device) == 2).to(vn.dtype)
     vn = torch.where(_dot(vn, vn) > 1e-20, vn, fallback)
     return safe_normalize(vn)
 

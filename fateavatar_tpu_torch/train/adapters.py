@@ -18,8 +18,16 @@ from typing import Any, Callable, Optional
 class FamilyAdapter:
     """What the Trainer needs from a model family.
 
-    step:       (train_state, Frame) -> (train_state, aux dict); aux holds
-                "loss", "psnr" and "overflow" as device scalars.
+    step:       (train_state, Frame, maintain=True) -> (train_state, aux
+                dict); aux holds "loss", "psnr" and "overflow" as device
+                scalars. With maintain=False it reads no host step count
+                and runs no host-gated branch: the form the Trainer captures
+                as a CUDA graph for its scan epoch.
+                ``step.due(n)`` says whether the step that brings the count
+                to ``n`` runs a host-gated branch (densify, opacity reset,
+                walk); the scan epoch runs those steps eagerly. ``due`` is
+                None where the step has no maintain=False form (GaussianAvatars
+                with an lr schedule), and its epochs then run per step.
     init_ts:    (seed) -> train state.
     forward:    (params, state, expr, pose, camera, bg) -> model output dict
                 with at least "rgb_image" (evaluation, fps, tracking,
@@ -28,7 +36,9 @@ class FamilyAdapter:
                 rgb_image / cano_image / grad_image / point_image / verts
                 (FateAvatar's multi-panel snapshot); None -> pred / gt / heat.
     epoch_hook: optional (trainer, epoch) -> None, run after each epoch
-                (MonoGaussianAvatar's prune / upsample schedule).
+                (MonoGaussianAvatar's prune / upsample schedule). It may
+                replace ``trainer.ts`` with tensors of the same shapes (the
+                next scan epoch copies them into its graph's buffers).
     """
 
     name: str

@@ -11,7 +11,17 @@ plain ``if``s here; the loss and every other aux value stay on the device.
 
 Each step function also exposes ``grads(ts, frame)``: its gradient phase
 alone, (parameter gradients, the probe's gradient or None, forward output,
-loss dict).
+loss dict), and ``due(step)``: whether the step that brings the count to
+``step`` runs a host-gated branch (GaussianAvatars' densify or opacity
+reset, SplattingAvatar's walk; never for FlashAvatar and
+MonoGaussianAvatar, whose ``seen`` mask is device-only). Called with
+``maintain=False``, a step branches on no host step count and runs none of
+those branches, so one CUDA graph of it replays as every step that is not
+due: the body of the JAX package's scan epoch (its ``.raw`` step), which
+the Trainer runs the due steps of eagerly (``train/trainer.py``).
+GaussianAvatars' ``xyz_lr_schedule(step)`` is a host value that a capture
+would freeze: a step built with one has ``due`` None, and the Trainer then
+keeps per-step epochs.
 
 A batched frame ``[B, ...]`` (``parallel.data_parallel.stack_frames``)
 trains on the mean loss over its B frames (the JAX package's ``vmap``
@@ -224,7 +234,16 @@ def make_gaussianavatars_step(
             return g, g_probe, outs, losses
         return g, g_probe[0], outs[0], losses
 
-    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None):
+    def densify_due(step: int) -> bool:
+        return step % densify_interval == 0 and densify_from <= step < densify_until
+
+    def reset_due(step: int) -> bool:
+        return opacity_reset_interval > 0 and step % opacity_reset_interval == 0
+
+    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None, maintain: bool = True):
+        if not maintain and xyz_lr_schedule is not None:
+            raise ValueError("a GaussianAvatars step with an xyz lr schedule reads the host "
+                             "step count: it has no maintain=False form")
         g, g_probe, out, losses = grads(ts, frame)
         frames, outs = _frames(frame), (out if isinstance(out, list) else [out])
         g_probe = g_probe.reshape(len(outs), 2, -1)
@@ -256,14 +275,14 @@ def make_gaussianavatars_step(
             updates = dataclasses.replace(updates, xyz=updates.xyz * scale)
         params = apply_updates(ts.params, updates)
         step = ts.step + 1
-        if step % densify_interval == 0 and densify_from <= step < densify_until:
+        if maintain and densify_due(step):
             params, state, touched = GA.densify_and_prune(
                 params, state, densify_grad_threshold, min_opacity, extent,
                 max_screen_size=size_threshold if step > opacity_reset_interval else math.inf,
                 budget=densify_budget, percent_dense=model.cfg.percent_dense,
                 generator=ts.generator)
             opt_state = zero_moment_rows(opt_state, touched, GA.SPLAT_FIELDS)
-        if opacity_reset_interval > 0 and step % opacity_reset_interval == 0:
+        if maintain and reset_due(step):
             params = GA.reset_opacity(params)
             opt_state = zero_moment_field(opt_state, "opacity")
         aux = _batch_aux(losses, outs, frames, mesh, whole_batch_psnr=True)
@@ -272,6 +291,8 @@ def make_gaussianavatars_step(
                                   step=step, generator=ts.generator), aux
 
     step_fn.grads = grads
+    step_fn.due = (None if xyz_lr_schedule is not None
+                   else lambda step: densify_due(step) or reset_due(step))
     return step_fn
 
 
@@ -290,24 +311,31 @@ def flashavatar_optimizer(training_cfg: dict) -> MultiAdam:
     ))
 
 
-def _plain_step(grads_fn, optimizer: MultiAdam, after=None):
-    """forward, loss, backward and Adam; ``after(params, state, opt_state,
-    step, outs, mesh)`` -> (params, state, opt_state) runs the family's
-    upkeep (``outs``: the frames' forward outputs)."""
+def _never(step: int) -> bool:
+    return False
 
-    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None):
+
+def _plain_step(grads_fn, optimizer: MultiAdam, after=None, due=_never):
+    """forward, loss, backward and Adam; ``after(params, state, opt_state,
+    maintain, outs, mesh)`` -> (params, state, opt_state) runs the family's
+    upkeep (``outs``: the frames' forward outputs; ``maintain``: whether the
+    host-gated part runs, ``due(step)`` of the new count, or False)."""
+
+    def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None, maintain: bool = True):
         g, _, out, losses = grads_fn(ts, frame)
         outs = out if isinstance(out, list) else [out]
         g = _reduce_grads(g, mesh)
         updates, opt_state = optimizer.update(g, ts.opt_state, ts.params)
         params, state, step = apply_updates(ts.params, updates), ts.state, ts.step + 1
         if after is not None:
-            params, state, opt_state = after(params, state, opt_state, step, outs, mesh)
+            params, state, opt_state = after(params, state, opt_state,
+                                             maintain and due(step), outs, mesh)
         return BaselineTrainState(params=params, state=state, opt_state=opt_state,
                                   step=step, generator=ts.generator), \
             _batch_aux(losses, outs, _frames(frame), mesh)
 
     step_fn.grads = grads_fn
+    step_fn.due = due
     return step_fn
 
 
@@ -375,13 +403,14 @@ def make_splattingavatar_step(model, loss_fn, optimizer: MultiAdam,
         return SA.splat_forward(model, p, state, f.expression, f.flame_pose, f.camera,
                                 bg_color=f.bg_color, render_cfg=render_cfg)
 
-    def walk(params, state, opt_state, step, outs, mesh):
-        if step % triangle_walk_interval == 0:
+    def walk(params, state, opt_state, due, outs, mesh):
+        if due:
             params, state = SA.walking_on_triangles(model, params, state)
             opt_state = _zero_uv_moments(opt_state)
         return params, state, opt_state
 
-    return _plain_step(_grads(forward, loss_fn), optimizer, walk)
+    return _plain_step(_grads(forward, loss_fn), optimizer, walk,
+                       due=lambda step: step % triangle_walk_interval == 0)
 
 
 # ---------------------------------------------------------------------------
@@ -404,7 +433,7 @@ def make_monogaussianavatar_step(model, nets, loss_fn, optimizer: MultiAdam,
         return MA.mono_forward(model, p, state, nets, f.expression, f.flame_pose, f.camera,
                                bg_color=f.bg_color, render_cfg=render_cfg)
 
-    def seen(params, state, opt_state, step, outs, mesh):
+    def seen(params, state, opt_state, due, outs, mesh):
         now = torch.stack([o["visible_now"] for o in outs]).any(dim=0)
         if mesh is not None:
             now = mesh.all_reduce(now.to(torch.float32), op=dist.ReduceOp.MAX) > 0

@@ -35,6 +35,7 @@ from fateavatar_tpu_torch.train.optim import (
     MultiAdam,
     MultiAdamState,
     apply_updates,
+    map_leaves,
     zero_moment_field,
     zero_moment_rows,
 )
@@ -233,28 +234,42 @@ def init_train_state(params: FateAvatarParams, state: FateAvatarState,
                       step=0, generator=torch.Generator(device=dev).manual_seed(seed))
 
 
-def train_state_tensors(ts: TrainState) -> list:
-    """Every tensor of ``ts`` in a fixed order: the parameters, the model
+def _tensors(obj) -> list:
+    """The tensors of a dataclass of tensors and dicts of tensors (a
+    network's weights by name), in field order; none of None."""
+    if obj is None:
+        return []
+    out = []
+    for v in _fields(obj).values():
+        out.extend(v.values() if isinstance(v, dict) else [v])
+    return out
+
+
+def train_state_tensors(ts) -> list:
+    """Every tensor of ``ts`` (a :class:`TrainState` or a family's
+    ``BaselineTrainState``) in a fixed order: the parameters, the model
     state, the Adam moments and the Adam step count."""
     o = ts.opt_state
-    return [*_fields(ts.params).values(), *_fields(ts.state).values(),
-            *_fields(o.mu).values(), *_fields(o.nu).values(), o.count]
+    return [*_tensors(ts.params), *_tensors(ts.state), *_tensors(o.mu), *_tensors(o.nu),
+            o.count]
 
 
-def clone_train_state(ts: TrainState) -> TrainState:
-    """A TrainState owning copies of every tensor of ``ts`` (the static
-    buffers of the in-place step); it shares the generator."""
+def clone_train_state(ts):
+    """A train state like ``ts`` owning copies of every tensor of it (the
+    static buffers of the in-place step); it shares the generator."""
     def copy(obj):
-        return dataclasses.replace(obj, **{k: v.clone() for k, v in _fields(obj).items()})
+        if obj is None:
+            return None
+        return dataclasses.replace(obj, **{k: map_leaves(torch.clone, v)
+                                           for k, v in _fields(obj).items()})
 
     o = ts.opt_state
-    return TrainState(params=copy(ts.params), state=copy(ts.state),
-                      opt_state=MultiAdamState(mu=copy(o.mu), nu=copy(o.nu),
-                                               count=o.count.clone()),
-                      step=ts.step, generator=ts.generator)
+    return dataclasses.replace(ts, params=copy(ts.params), state=copy(ts.state),
+                               opt_state=MultiAdamState(mu=copy(o.mu), nu=copy(o.nu),
+                                                        count=o.count.clone()))
 
 
-def copy_train_state_(dst: TrainState, src: TrainState):
+def copy_train_state_(dst, src):
     """Copy every tensor of ``src`` into ``dst`` (a no-op where they are the
     same tensor)."""
     for d, s in zip(train_state_tensors(dst), train_state_tensors(src)):
@@ -266,15 +281,16 @@ def copy_train_state_(dst: TrainState, src: TrainState):
 EPOCH_AUX = {"loss": torch.float32, "psnr": torch.float32, "overflow": torch.int32}
 
 
-def make_inplace_step(step_fn: Callable, static: TrainState, frame_at: Callable,
+def make_inplace_step(step_fn: Callable, static, frame_at: Callable,
                       aux: dict, cursor: torch.Tensor):
     """The step on static buffers, for capture in a CUDA graph: the body of
     the JAX package's scan epoch (``make_train_step(..., return_raw=True)``).
 
     ``run(step=None)`` builds its frame with ``frame_at(cursor)`` from
     device-resident stacked frames at the device cursor ([1] int64), runs
-    ``step_fn`` on ``static``, copies the new TrainState's tensors into
-    ``static``, writes loss, psnr and overflow into ``aux`` ([n] tensors of
+    ``step_fn`` on ``static`` (a :class:`TrainState`, or a family's
+    ``BaselineTrainState`` and its step), copies the new train state's
+    tensors into ``static``, writes loss, psnr and overflow into ``aux`` ([n] tensors of
     :data:`EPOCH_AUX`) at the cursor, advances the cursor and returns the
     frame. Without ``step`` it reads no host value and runs no maintenance,
     so one capture replays as every such step (the Adam step count lives

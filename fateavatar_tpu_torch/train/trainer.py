@@ -22,9 +22,13 @@ Family adapters (``train/adapters.py``): with ``adapter=``, any registry
 family trains through this Trainer. Its step, forward, snapshot and epoch
 hook come from the adapter; evaluation, tracking, the fps test and
 snapshots run through its forward, and checkpoints hold its train state.
-Its epochs run per step (the JAX package runs them as a ``lax.scan`` where
-the step has ``.raw``; capturing adapter steps as CUDA graphs is later
-work), and the binning capacities are not autosized, as in the JAX package.
+Without tracking, its epochs become scan epochs as FateAvatar's do (the JAX
+package scans a step that has ``.raw``): the family's step with
+``maintain=False`` is captured, and the steps its ``step.due`` names
+(densify, opacity reset, walk) run eagerly between the replays. With
+tracking, or a step whose ``due`` is None, its epochs run per step, as in
+the JAX package. The
+binning capacities are not autosized for a family, as in the JAX package.
 
 Data parallel (``data_parallel=N`` > 1, train/trainer.py:202-236 and
 :715-790 of the JAX package): every rank of an N-process group builds its
@@ -227,8 +231,9 @@ class Trainer:
             self.train_step = adapter.step
             self.ts = adapter.init_ts(seed)
             self._visualize = adapter.visualize
-            self.log(f"[{adapter.name}] epochs run per step (no scan epoch for a family "
-                     "adapter)")
+            if getattr(adapter.step, "due", None) is None:
+                self.log(f"[{adapter.name}] epochs run per step: the step reads the host "
+                         "step count (no maintain=False form to capture)")
         self.last_epoch_stats: Optional[dict] = None
 
         # tracking refinement (train/base.py:113-151)
@@ -596,16 +601,27 @@ class Trainer:
     # the scan epoch (train/trainer.py:359-419, 466-541, 665-713)
     # ------------------------------------------------------------------
 
+    def _due(self) -> Optional[Callable[[int], bool]]:
+        """Whether the step that brings the count to n runs maintenance:
+        ``MaintenanceConfig.due`` on the built-in path, the adapter step's
+        own ``due`` (None: it has no maintain=False form) with an adapter."""
+        if self.adapter is None:
+            return self.maint_cfg.due
+        return getattr(self.adapter.step, "due", None)
+
     def _maybe_scan_epoch(self) -> Optional[_ScanEpoch]:
         """Build (once) the scan epoch: an epoch of one captured step (with
         tracking: and its row refinement) replayed over device-resident
         frames, the counterpart of the JAX package's one ``lax.scan`` program
         per epoch. Eligible once the device frame cache holds every training
-        frame, on the built-in FateAvatar path (data parallel is not
-        ported). The frames are stacked on the device once and the cache
-        cleared, so one copy of the dataset is held. Returns None while not
-        eligible."""
-        if self.adapter is not None or self.dp_mesh is not None:
+        frame, without data parallel, on the built-in FateAvatar path or
+        with a family adapter whose step has a ``due``, without tracking
+        (train/trainer.py:359-397 of the JAX package). The frames are
+        stacked on the device once and the cache cleared, so one copy of the
+        dataset is held. Returns None while not eligible."""
+        if self.dp_mesh is not None:
+            return None
+        if self.adapter is not None and (self._due() is None or self.tracking_enabled):
             return None
         scan = self._scan_epoch
         if scan is not None and scan.tracking == self.tracking_enabled:
@@ -625,6 +641,8 @@ class Trainer:
                      "device-resident frames")
         self._scan_epoch = (self._build_scan_epoch_tracking() if self.tracking_enabled
                             else self._build_scan_epoch_fn())
+        # the next scan epoch pays the capture: it is not measured
+        self._scan_checked = False
         return self._scan_epoch
 
     def _stack_frames(self, n: int) -> dict:
@@ -685,12 +703,14 @@ class Trainer:
                 torch.zeros((1,), dtype=torch.int64, device=self.device))
 
     def _build_scan_epoch_fn(self) -> _ScanEpoch:
-        """One graph of one plain step (train/trainer.py:399-419); the camera
-        is built inside it from the stacked frames."""
+        """One graph of one plain step (train/trainer.py:399-419): FateAvatar's,
+        or the adapter's; the camera is built inside it from the stacked
+        frames."""
         xs = self._scan_frames
         ts, aux, cursor = self._scan_buffers()
-        step = make_train_step(self.model, self.loss_fn, self.optimizer, self.maint_cfg,
-                               self.render_cfg)
+        step = (self.adapter.step if self.adapter is not None else
+                make_train_step(self.model, self.loss_fn, self.optimizer, self.maint_cfg,
+                                self.render_cfg))
         body = make_inplace_step(step, ts, lambda i: self._frame_at(xs, i), aux, cursor)
         graph = Graph(body, [*train_state_tensors(ts), *aux.values(), cursor],
                       "the scan epoch's step")
@@ -749,8 +769,9 @@ class Trainer:
 
     def _train_epoch_scan(self, scan: _ScanEpoch):
         """One epoch as replays of ``scan.graph``, one per frame; a step
-        whose count hits a maintenance interval runs ``scan.body`` eagerly
-        on the same buffers instead (train/trainer.py:665-713). The per-step
+        whose count hits a maintenance interval (``MaintenanceConfig.due``,
+        or the adapter step's ``due``) runs ``scan.body`` eagerly on the same
+        buffers instead (train/trainer.py:665-713). The per-step
         loss, PSNR and overflow come to the host in one fetch at the end, as
         ``last_epoch_aux``; snapshots are taken at epoch granularity."""
         ds = self.train_dataset
@@ -759,8 +780,9 @@ class Trainer:
         step_before = self.global_step
         self._load_scan_state(scan)
         first = self.ts.step
+        due = self._due()
         for j in range(n):
-            if self.maint_cfg.due(first + j + 1):
+            if due(first + j + 1):
                 scan.body(first + j)
             else:
                 scan.graph()
@@ -786,7 +808,7 @@ class Trainer:
                      "in the epoch")
         self.last_epoch_aux = aux
         self.epoch_losses = [float(x) for x in aux["loss"]]
-        alive = int(torch.sum(self.ts.state.alive))
+        alive = self._alive()
         mean_loss, mean_psnr = float(np.mean(loss)), float(np.mean(psnr))
         self.last_epoch_stats = {
             "epoch": self.epoch, "mode": "scan", "its": n / max(dt, 1e-9),

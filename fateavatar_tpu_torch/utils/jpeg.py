@@ -31,9 +31,11 @@ on one core of a Xeon host, where libjpeg takes 2-4 ms
 
 from __future__ import annotations
 
+import functools
 import struct
 
 import numpy as np
+import torch
 
 SOI = b"\xff\xd8"
 
@@ -555,3 +557,317 @@ def _output(comps, frame, jfif, adobe, transform) -> np.ndarray:
     if not ycc:
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*planes)
+
+
+# ---------------------------------------------------------------------------
+# the encoder: libjpeg's baseline compressor as Pillow drives it
+# ---------------------------------------------------------------------------
+
+# the standard quantization tables (jcparam.c std_luminance_quant_tbl /
+# std_chrominance_quant_tbl), natural order
+_STD_QUANT = (np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64),
+    np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+    24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+    *([99] * 32)], np.int64))
+
+# the standard Huffman tables (jstdhuff.c): (code counts by length 1-16,
+# symbols); DC then AC, luminance then chrominance
+_STD_DC = (
+    ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))))
+_STD_AC = (
+    ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], [
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+        0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08, 0x23, 0x42, 0xB1, 0xC1,
+        0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0A, 0x16, 0x17, 0x18,
+        0x19, 0x1A, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+        0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57,
+        0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
+        0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8A, 0x92,
+        0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7,
+        0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3,
+        0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8,
+        0xD9, 0xDA, 0xE1, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]),
+    ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], [
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+        0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xA1, 0xB1, 0xC1, 0x09,
+        0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1, 0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25,
+        0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26, 0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38,
+        0x39, 0x3A, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56,
+        0x57, 0x58, 0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
+        0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3, 0xA4, 0xA5,
+        0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA,
+        0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6,
+        0xD7, 0xD8, 0xD9, 0xDA, 0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2,
+        0xF3, 0xF4, 0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA]))
+
+
+def quant_tables(quality: int) -> np.ndarray:
+    """The two standard tables scaled to ``quality`` (jcparam.c
+    jpeg_set_quality with force_baseline): [2, 64], natural order."""
+    quality = min(max(int(quality), 1), 100)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return np.stack([np.clip((t * scale + 50) // 100, 1, 255) for t in _STD_QUANT])
+
+
+def _huffman_codes(counts, symbols) -> tuple:
+    """(code, length) of every symbol 0-255 of a table (jchuff.c
+    jpeg_make_c_derived_tbl: canonical codes by length)."""
+    code = np.zeros(256, np.int64)
+    size = np.zeros(256, np.int64)
+    c, k = 0, 0
+    for length, n in enumerate(counts, start=1):
+        for _ in range(n):
+            code[symbols[k]], size[symbols[k]] = c, length
+            c, k = c + 1, k + 1
+        c <<= 1
+    return code, size
+
+
+# [table (0 luminance, 1 chrominance), symbol] -> code, and its length
+_DC_CODE, _DC_LEN = (np.stack(x) for x in zip(*(_huffman_codes(*t) for t in _STD_DC)))
+_AC_CODE, _AC_LEN = (np.stack(x) for x in zip(*(_huffman_codes(*t) for t in _STD_AC)))
+_ZRL, _EOB = 0xF0, 0x00
+
+
+def _islow_forms(x: np.ndarray) -> np.ndarray:
+    """The 8 outputs of one 1-D pass of ``jpeg_fdct_islow`` (jfdctint.c,
+    13-bit constants) on integer inputs ``x[..., k]``, before the pass's
+    descale: integer linear forms of the inputs (outputs 0 and 4 without
+    their scale by 4 or descale by 2)."""
+    t0, t7 = x[..., 0] + x[..., 7], x[..., 0] - x[..., 7]
+    t1, t6 = x[..., 1] + x[..., 6], x[..., 1] - x[..., 6]
+    t2, t5 = x[..., 2] + x[..., 5], x[..., 2] - x[..., 5]
+    t3, t4 = x[..., 3] + x[..., 4], x[..., 3] - x[..., 4]
+    t10, t13, t11, t12 = t0 + t3, t0 - t3, t1 + t2, t1 - t2
+    z1 = (t12 + t13) * 4433
+    z5 = (t4 + t6 + t5 + t7) * 9633
+    z3 = (t4 + t6) * -16069 + z5
+    z4 = (t5 + t7) * -3196 + z5
+    za, zb = (t4 + t7) * -7373, (t5 + t6) * -20995
+    return np.stack([t10 + t11, t7 * 12299 + za + z4, z1 + t13 * 6270,
+                     t6 * 25172 + zb + z3, t10 - t11, t5 * 16819 + zb + z4,
+                     z1 - t12 * 15137, t4 * 2446 + za + z3], axis=-1)
+
+
+# one pass of the islow DCT as an integer matrix (output x input) and each
+# output's descale (round half up, then shift): pass 1 scales outputs 0 and
+# 4 by 4 (PASS1_BITS) and descales the rest by CONST_BITS - PASS1_BITS =
+# 11; pass 2 descales outputs 0 and 4 by 2 and the rest by 15. Every value
+# is an integer below 2^33, so float64 holds the products and sums exactly
+_DCT = _islow_forms(np.eye(8, dtype=np.int64)).T
+_DCT1 = _DCT * np.array([4, 1, 1, 1, 4, 1, 1, 1])[:, None]
+_SHIFT1 = np.array([0, 11, 11, 11, 0, 11, 11, 11])
+_SHIFT2 = np.array([2, 15, 15, 15, 2, 15, 15, 15])
+
+
+def _fix(v: float) -> int:
+    return int(v * 65536 + 0.5)
+
+
+# jccolor.c's fixed-point RGB -> YCbCr (16 fraction bits) and its rounding
+# offsets (CBCR_OFFSET + ONE_HALF - 1 for the chroma)
+_YCC = np.array([[_fix(0.299), _fix(0.587), _fix(0.114)],
+                 [-_fix(0.16874), -_fix(0.33126), _fix(0.5)],
+                 [_fix(0.5), -_fix(0.41869), -_fix(0.08131)]], np.float64)
+_YCC_OFF = np.array([1 << 15, (128 << 16) + (1 << 15) - 1, (128 << 16) + (1 << 15) - 1],
+                    np.float64)
+
+
+def _pad_edge(x, rows: int, cols: int):
+    """``x`` [h, w] grown to [rows, cols] by repeating its last row and
+    column (jcsample.c expand_right_edge, jcprepct.c expand_bottom_edge)."""
+    h, w = x.shape
+    if rows > h:
+        x = x.index_select(0, torch.clamp(torch.arange(rows, device=x.device), max=h - 1))
+    if cols > w:
+        x = x.index_select(1, torch.clamp(torch.arange(cols, device=x.device), max=w - 1))
+    return x
+
+
+def _h2v2(x, out_rows: int):
+    """jcsample.c h2v2_downsample of a component [h, w] (w a multiple of 16):
+    rows paired (the last repeated when h is odd), each 2x2 sum plus a bias
+    of 1, 2, 1, 2, ... along the row, shifted right by 2; the output's last
+    row repeated down to ``out_rows`` (jcprepct.c pads the downsampled rows)."""
+    h, w = x.shape
+    x = _pad_edge(x, h + h % 2, w)
+    s = x.reshape(x.shape[0] // 2, 2, w // 2, 2).sum(dim=(1, 3))
+    bias = 1 + (torch.arange(w // 2, device=x.device) & 1).to(s.dtype)
+    return _pad_edge(torch.floor((s + bias) / 4), out_rows, w // 2)
+
+
+def _blocks(plane):
+    """[8 * by, 8 * bx] -> [by * bx, 8, 8], block rows first."""
+    h, w = plane.shape
+    return plane.reshape(h // 8, 8, w // 8, 8).transpose(1, 2).reshape(-1, 8, 8)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_tables(device: torch.device, quality: int) -> dict:
+    """The transform's constants on ``device`` (float64), kept so a frame
+    uploads nothing: the colour matrix and offsets, the two DCT passes and
+    their descales, quantize's divisors (8 x each table entry) [2, 8, 8],
+    the zigzag order."""
+    def f64(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=device)
+
+    return {"ycc": f64(_YCC.T), "ycc_off": f64(_YCC_OFF),
+            "dct1": f64(_DCT1.T), "half1": f64(np.where(_SHIFT1 > 0, 2.0 ** (_SHIFT1 - 1), 0)),
+            "div1": f64(2.0 ** _SHIFT1), "dct2": f64(_DCT),
+            "half2": f64(2.0 ** (_SHIFT2 - 1))[:, None], "div2": f64(2.0 ** _SHIFT2)[:, None],
+            "quant": f64(quant_tables(quality).reshape(2, 8, 8) * 8),
+            "zigzag": torch.as_tensor(NATURAL_ORDER, device=device)}
+
+
+def jpeg_coefficients(rgb, quality: int = 90):
+    """The quantized DCT coefficients of a uint8 [H, W, 3] frame as libjpeg
+    compresses it with Pillow's settings: YCbCr (jccolor.c's fixed point),
+    4:2:0 (jcsample.c), the standard tables at ``quality``, the islow DCT,
+    each coefficient over 8 x its table entry rounded half away from zero
+    (jcdctmgr.c quantize; libjpeg-turbo's reciprocal multiply gives this
+    exactly for every 16-bit coefficient). Each integer step runs on the
+    frame's device as a float64 product or sum of exact integers (below
+    2^33) and a floor: a few dozen launches for every block of the three
+    components at once. Returns [MCUs * 6, 64] int16 in zigzag order, the
+    blocks in scan order (each 16x16 MCU's four Y blocks, then Cb, Cr), the
+    right and bottom edges' dummy Y blocks as jccoefct.c makes them (AC
+    zero, the DC of the block before)."""
+    H, W = rgb.shape[:2]
+    H16, W16 = -(-H // 16) * 16, -(-W // 16) * 16
+    c = _device_tables(rgb.device, int(quality))
+    ycc = torch.floor((rgb.to(torch.float64) @ c["ycc"] + c["ycc_off"]) / 65536.0)
+    y, cb, cr = ycc.unbind(-1)
+    y = _pad_edge(y, H16, W16)
+    cb, cr = (_h2v2(_pad_edge(p, H, W16), H16 // 2) for p in (cb, cr))
+    ny, nc = (H16 // 8) * (W16 // 8), (H16 // 16) * (W16 // 16)
+    x = torch.cat([_blocks(p) for p in (y, cb, cr)]) - 128.0          # [n, row, col]
+    x = torch.floor((x @ c["dct1"] + c["half1"]) / c["div1"])          # rows: [n, row, u]
+    coef = torch.floor((c["dct2"] @ x + c["half2"]) / c["div2"])       # columns: [n, v, u]
+    d = torch.cat([c["quant"][0].expand(ny, 8, 8), c["quant"][1].expand(2 * nc, 8, 8)])
+    q = (torch.sign(coef) * torch.floor((coef.abs() + torch.floor(d / 2)) / d)).reshape(-1, 64)
+    qy = q[:ny].reshape(H16 // 8, W16 // 8, 64)
+    hb, wb = -(-H // 8), -(-W // 8)
+    if wb < qy.shape[1]:             # a dummy column: the DC of its left block
+        dc = qy[:, wb - 1, 0].clone()
+        qy[:, wb:] = 0
+        qy[:, wb:, 0] = dc[:, None]
+    if hb < qy.shape[0]:             # a dummy row: the DC of its MCU's block above-right
+        dc = qy[hb - 1, 1::2, 0].repeat_interleave(2)
+        qy[hb:] = 0
+        qy[hb:, :, 0] = dc
+    mr, mc = H16 // 16, W16 // 16
+    yb = qy.reshape(mr, 2, mc, 2, 64).permute(0, 2, 1, 3, 4).reshape(mr * mc, 4, 64)
+    mcus = torch.cat([yb, q[ny:ny + nc].reshape(-1, 1, 64), q[ny + nc:].reshape(-1, 1, 64)],
+                     dim=1)
+    return mcus.reshape(-1, 64).index_select(1, c["zigzag"]).to(torch.int16)
+
+
+def _magnitude(v: np.ndarray) -> tuple:
+    """(bit count s, the s low bits JPEG sends) of signed values."""
+    s = np.frexp(np.abs(v).astype(np.float64))[1].astype(np.int64)   # 0 for 0
+    bits = np.where(v < 0, v - 1, v) & ((1 << s) - 1)
+    return s, bits
+
+
+def _entropy_code(coefs: np.ndarray) -> bytes:
+    """The baseline Huffman scan (jchuff.c encode_one_block with the
+    standard tables) of [MCUs * 6, 64] zigzag blocks, vectorised: each
+    block's DC difference; per nonzero AC coefficient one code word, the
+    ZRLs of a run over 15 in front of its run / size symbol and magnitude
+    bits (at most 3 x 11 + 16 + 10 bits); an EOB after a block's last
+    nonzero unless that is coefficient 63; every word packed MSB first, the
+    last byte filled with ones, 0xFF stuffed."""
+    nb = coefs.shape[0]
+    table = np.tile(np.array([0, 0, 0, 0, 1, 1]), nb // 6)
+    dc = coefs[:, 0].astype(np.int64).reshape(-1, 6)
+    diff = np.empty_like(dc)
+    diff[:, :4] = np.diff(dc[:, :4].ravel(), prepend=0).reshape(-1, 4)
+    diff[:, 4:] = np.diff(dc[:, 4:], axis=0, prepend=0)
+    s, bits = _magnitude(diff.ravel())
+    dc_val = (_DC_CODE[table, s] << s) | bits
+    dc_len = _DC_LEN[table, s] + s
+
+    blk, k = np.nonzero(coefs[:, 1:])
+    k = k + 1
+    first = np.r_[True, blk[1:] != blk[:-1]] if blk.size else np.zeros(0, bool)
+    run = k - np.where(first, 0, np.r_[0, k[:-1]]) - 1
+    t = table[blk]
+    s, bits = _magnitude(coefs[blk, k].astype(np.int64))
+    sym = ((run & 15) << 4) | s
+    zrl = run >> 4
+    zc, zl = _AC_CODE[t, _ZRL], _AC_LEN[t, _ZRL]
+    pre = np.zeros_like(zc)
+    for j in (1, 2, 3):
+        pre = np.where(zrl >= j, (pre << zl) | zc, pre)
+    ac_val = (((pre << _AC_LEN[t, sym]) | _AC_CODE[t, sym]) << s) | bits
+    ac_len = zrl * zl + _AC_LEN[t, sym] + s
+
+    last = np.zeros(nb, np.int64)
+    last[blk] = k                                   # the last write per block wins
+    eob = last < 63
+    # the words in scan order (a block's DC, its nonzeros, its EOB), placed
+    # by prefix sums of the EOBs and nonzeros before each block
+    E = np.r_[0, np.cumsum(eob)]
+    nz = np.r_[0, np.cumsum(np.bincount(blk, minlength=nb))]
+    dc_pos = np.arange(nb) + E[:-1] + nz[:-1]
+    total = nb + int(E[-1]) + blk.size
+    vals = np.empty(total, np.int64)
+    lens = np.empty(total, np.int64)
+    vals[dc_pos], lens[dc_pos] = dc_val, dc_len
+    ac_pos = blk + E[blk] + 1 + np.arange(blk.size)
+    vals[ac_pos], lens[ac_pos] = ac_val, ac_len
+    eb = np.flatnonzero(eob)          # an EOB ends its block: the next DC's place - 1
+    eob_pos = np.r_[dc_pos[1:], total][eb] - 1
+    vals[eob_pos], lens[eob_pos] = _AC_CODE[table[eb], _EOB], _AC_LEN[table[eb], _EOB]
+
+    ends = np.cumsum(lens)
+    nbits = int(ends[-1])
+    shift = np.repeat(ends, lens) - 1 - np.arange(nbits)
+    bitstream = ((np.repeat(vals, lens) >> shift) & 1).astype(np.uint8)
+    data = np.packbits(np.r_[bitstream, np.ones((-nbits) % 8, np.uint8)])
+    ff = np.flatnonzero(data == 0xFF)
+    return np.insert(data, ff + 1, 0).tobytes()
+
+
+def _segment(marker: int, payload: bytes) -> bytes:
+    return struct.pack(">BBH", 0xFF, marker, len(payload) + 2) + payload
+
+
+def encode_jpeg(rgb_u8, quality: int = 90) -> bytes:
+    """A uint8 [H, W, 3] frame (numpy, or a tensor on any device) as the
+    JPEG that Pillow's ``Image.save(format="JPEG", quality=quality)`` writes
+    through libjpeg-turbo: SOI, the JFIF APP0 (version 1.01, no density
+    unit, 1:1), the two quantization tables, a baseline SOF0 with 4:2:0
+    sampling, the four standard Huffman tables, one interleaved scan, EOI.
+    The colour conversion, downsampling, DCT and quantization run on the
+    frame's device (:func:`jpeg_coefficients`); the entropy coding on the
+    host, in numpy."""
+    if not torch.is_tensor(rgb_u8):
+        rgb_u8 = torch.from_numpy(np.ascontiguousarray(rgb_u8))
+    if rgb_u8.dtype != torch.uint8 or rgb_u8.dim() != 3 or rgb_u8.shape[-1] != 3:
+        raise ValueError(f"encode_jpeg takes uint8 [H, W, 3], not {rgb_u8.dtype} "
+                         f"{tuple(rgb_u8.shape)}")
+    H, W = rgb_u8.shape[:2]
+    coefs = jpeg_coefficients(rgb_u8, quality).cpu().numpy()
+    qt = quant_tables(quality)
+    out = [b"\xff\xd8",
+           _segment(0xE0, b"JFIF\x00" + struct.pack(">BBBHHBB", 1, 1, 0, 1, 1, 0, 0))]
+    for i in (0, 1):
+        out.append(_segment(0xDB, bytes([i]) + qt[i][NATURAL_ORDER].astype(np.uint8).tobytes()))
+    out.append(_segment(0xC0, struct.pack(">BHHB", 8, H, W, 3)
+                        + bytes([1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
+    for t in (0, 1):
+        for cls, (counts, symbols) in ((0x00, _STD_DC[t]), (0x10, _STD_AC[t])):
+            out.append(_segment(0xC4, bytes([cls | t, *counts, *symbols])))
+    out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
+    out.append(_entropy_code(coefs))
+    out.append(b"\xff\xd9")
+    return b"".join(out)

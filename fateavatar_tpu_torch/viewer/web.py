@@ -13,9 +13,11 @@ The frame is one CUDA graph (``utils/graphs.Graph``), replayed per request
 as ``Reenactor.reenact``'s served frame is: the UI state's expression,
 pose, camera translation, field of view and background go into static
 device tensors, and ``X-Device-Ms`` carries the replay's time (CUDA
-events). One departure from the JAX package: frames go out as PNG
-(``utils/png.encode_png``, ``Content-Type: image/png``), not JPEG, since the
-port writes images without PIL; the page decodes any image ``Blob``.
+events). Frames go out as the JAX package sends them: JPEG at quality 90
+(``Content-Type: image/jpeg``), the bytes Pillow writes, from the port's
+own encoder (``utils/jpeg.encode_jpeg``): the frame stays on the card for
+its colour conversion, DCT and quantization, and only the coefficients
+come to the host for the entropy coding.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from fateavatar_tpu_torch.utils.png import encode_png
+from fateavatar_tpu_torch.utils.jpeg import encode_jpeg
 
 _PAGE = """<!DOCTYPE html>
 <html><head><title>fateavatar_tpu_torch viewer</title><style>
@@ -140,17 +142,21 @@ tick();
 </script></body></html>"""
 
 
-def quantize(img) -> np.ndarray:
+def quantize(img):
     """A float [H, W, 3] frame as the uint8 the server sends: clipped to
-    [0, 1], times 255, truncated (the JAX package's quantization)."""
+    [0, 1], times 255, truncated (the JAX package's quantization). A tensor
+    stays on its device; anything else becomes a numpy array."""
+    if torch.is_tensor(img):
+        return (torch.clamp(img, 0, 1) * 255).to(torch.uint8)
     return (np.clip(np.asarray(img), 0, 1) * 255).astype("uint8")
 
 
 class ViewerServer:
     """Serve the viewer for a render callback.
 
-    ``render_fn(state: dict) -> np.ndarray [H, W, 3] float`` (or a pair with
-    the device ms) receives the UI state: yaw, pitch, zoom, exp (list), jaw,
+    ``render_fn(state: dict) -> [H, W, 3] float`` (a numpy array or a
+    tensor on any device; or a pair with the device ms) receives the UI
+    state: yaw, pitch, zoom, exp (list), jaw,
     neck, fov, bg, canonical, tracked, frame, playing. ``port=0`` takes a
     free port (``self.port`` after construction)."""
 
@@ -181,9 +187,9 @@ class ViewerServer:
                 device_ms = None
                 if isinstance(out, tuple):
                     out, device_ms = out
-                body = encode_png(quantize(out))
+                body = encode_jpeg(quantize(out), 90)
                 self.send_response(200)
-                self.send_header("Content-Type", "image/png")
+                self.send_header("Content-Type", "image/jpeg")
                 self.send_header("Content-Length", str(len(body)))
                 if device_ms is not None:
                     self.send_header("X-Device-Ms", f"{device_ms:.3f}")
@@ -224,9 +230,10 @@ def make_avatar_render_fn(model, params, state, dataset=None,
     The frame is captured here, as a CUDA graph, in the caller's
     thread (on the CPU the graph runs its function); each call copies the
     state into the graph's inputs, replays it under a lock (the server
-    answers requests in threads) and returns ``(image, device_ms)``: the
-    float [H, W, 3] frame on the host and the replay's time (CUDA events;
-    the host clock on the CPU).
+    answers requests in threads) and returns ``(image, device_ms)``: a
+    copy of the float [H, W, 3] frame on the avatar's device (the server
+    encodes it there) and the replay's time (CUDA events; the host clock on
+    the CPU).
 
     A frame that drops instances at the binning's static caps (its
     ``overflow``) grows them to that state's occupancy (autosize's probe;
@@ -365,7 +372,7 @@ def make_avatar_render_fn(model, params, state, dataset=None,
             if int(overflow_d) and grow_caps():
                 device_ms = replay()
             render_fn.overflow = int(overflow_d)
-            return frame_d.cpu().numpy().copy(), device_ms
+            return frame_d.clone(), device_ms
 
     def eager(ui):
         """The same frame computed eagerly, outside the graph."""
@@ -375,7 +382,7 @@ def make_avatar_render_fn(model, params, state, dataset=None,
             if int(overflow_d) and grow_caps():
                 frame()
             render_fn.overflow = int(overflow_d)
-            return frame_d.cpu().numpy().copy()
+            return frame_d.clone()
 
     graph = Graph(frame, [frame_d, overflow_d], "the viewer's frame")
     render_fn.graph = graph

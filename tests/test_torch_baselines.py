@@ -787,10 +787,12 @@ MAINT_FIRES = dict(densify_interval=2, densify_from_iter=0, densify_grad_thresho
 @pytest.mark.parametrize("family", FAMILIES)
 def test_family_through_trainer(tmp_path, flames, family):
     """Two epochs of two steps (GA's densify and Splat's walk firing at
-    step 2, Mono's epoch hook at epoch 2 with upsample_freq 2), evaluation
-    with its metrics file, a snapshot, the fps test, a checkpoint, and a
-    fresh Trainer that resumes it and trains a third epoch; set_render_cfg
-    raises for an adapter."""
+    steps 2 and 4, Mono's epoch hook at epoch 2 with upsample_freq 2; epoch 2
+    a scan epoch, its frames cached in epoch 1), evaluation with its metrics
+    file, a snapshot (the scan epoch's, after the epoch that crosses the
+    interval, as the JAX package's scan epoch takes it), the fps test, a
+    checkpoint, and a fresh Trainer that resumes it and trains a third
+    epoch; set_render_cfg raises for an adapter."""
     from fateavatar_tpu_torch.flame.loader import synthetic_flame as tsynth
     from fateavatar_tpu_torch.train.datasets import SyntheticDataset
 
@@ -819,6 +821,7 @@ def test_family_through_trainer(tmp_path, flames, family):
     alive0 = tr._alive()
     tr.train(2)
     assert tr.global_step == tr.ts.step == 4 and tr.last_epoch_stats["overflow"] == 0
+    assert tr.last_epoch_stats["mode"] == "scan"
     assert all(np.isfinite(tr.epoch_losses))
     if family == "gaussianavatars":
         assert tr._alive() != alive0
@@ -827,7 +830,7 @@ def test_family_through_trainer(tmp_path, flames, family):
     summary = tr.evaluate("test")
     assert np.isfinite(summary["psnr"])
     assert (tmp_path / "media" / "metrics" / "test_epoch2.json").exists()
-    assert (tmp_path / "media" / "snapshots" / "step00000003.png").exists()
+    assert (tmp_path / "media" / "snapshots" / "step00000004.png").exists()
     assert tr.fps_performance_test(2) > 0
     with pytest.raises(NotImplementedError):
         tr.set_render_cfg(TRC)

@@ -1,7 +1,7 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
 blend's and the dense-list blend's forward and backward, the instance
 blend's early exit too) against its plain PyTorch version on the card; the
-CUDA graphs (the Trainer's scan epoch and
+CUDA graphs (the Trainer's scan epoch, a family adapter's too, and
 the served frame) against eager steps and frames; each baseline
 family's step through the kernels against the plain blends; LPIPS on the
 card against the CPU and the intrinsics-shift camera inside a graph. They skip on a host
@@ -864,6 +864,70 @@ def test_intrinsics_camera_in_a_graph():
         ref = make_camera(R, T[i], fovx, fovy, 512, 512, intrinsics=K[i], device="cuda")
         assert torch.equal(out[i], ref.full_proj), i
     assert g.replays == n and float((out[1] - out[0]).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_adapter_graph_step_matches_eager():
+    """A family adapter's scan epoch on the card (FlashAvatar, which has no
+    maintenance): from one state, one eager step against the graph's first
+    replay (loss within 1e-6 relative, every parameter tensor, the deformer
+    network's included, within 1e-4 relative L2), one launch of kernels 1
+    and 2 per replay, and a whole epoch of replays against eager steps
+    (every step's loss within 1e-3 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.flame.loader import synthetic_flame
+    from fateavatar_tpu_torch.render.render import RenderConfig
+    from fateavatar_tpu_torch.train import registry
+    from fateavatar_tpu_torch.train.adapters import make_family_adapter
+    from fateavatar_tpu_torch.train.datasets import SyntheticDataset
+    from fateavatar_tpu_torch.train.step import train_state_tensors
+    from fateavatar_tpu_torch.train.trainer import Trainer
+    from fateavatar_tpu_torch.utils.obj_io import sphere_obj_mesh
+
+    res = 64
+    flame = synthetic_flame(n_verts=96, n_shape=6, n_exp=4, seed=0, device="cuda")
+    entry = registry.get("flashavatar")
+    bundle = entry.build_model(sphere_obj_mesh(96), flame,
+                               dict(img_height=res, img_width=res, tex_size=16))
+    loss_fn = entry.build_loss({}, bundle)
+    opt = entry.build_optimizer({})
+    rcfg = RenderConfig(max_tiles_per_gaussian=16)
+    adapter = make_family_adapter("flashavatar", bundle, loss_fn, opt, rcfg, {})
+    tr = Trainer("flash", bundle[0], bundle[1], None, loss_fn, opt,
+                 SyntheticDataset(num_frames=4, img_res=(res, res), n_exp=4), render_cfg=rcfg,
+                 adapter=adapter, device_frame_cache="on")
+    tr.epoch = 1
+    tr.train_epoch()                     # per step: fills the device frame cache
+    snap = _snapshot(tr)
+
+    ts1, aux1 = tr.train_step(tr.ts, tr._make_frame(tr.train_dataset.sample(0)))
+    _restore(tr, snap)
+    scan = tr._maybe_scan_epoch()
+    tr._load_scan_state(scan)
+    scan.graph()
+    torch.cuda.synchronize()
+    loss_e, loss_g = float(aux1["loss"]), float(scan.aux["loss"][0])
+    assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e), (loss_g, loss_e)
+    a, b = train_state_tensors(scan.ts), train_state_tensors(ts1)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        if float(y.double().norm()) > 0:
+            assert _rel_l2(x, y) <= 1e-4
+    assert scan.graph.launches_per_replay == {"blend_instances_fwd": 1,
+                                              "blend_instances_bwd": 1}
+
+    _restore(tr, snap)
+    tr._scan_disabled = True
+    tr.train_epoch()
+    eager = np.asarray(tr.epoch_losses)
+    _restore(tr, snap)
+    tr._scan_disabled = False
+    replays = scan.graph.replays
+    tr.train_epoch()
+    graph = tr.last_epoch_aux["loss"]
+    assert tr.last_epoch_stats["mode"] == "scan" and scan.graph.replays == replays + 4
+    assert (np.abs(graph - eager) <= 1e-3 * np.abs(eager)).all(), (graph, eager)
 
 
 @pytest.mark.cuda

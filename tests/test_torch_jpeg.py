@@ -5,7 +5,12 @@ restart intervals) and progressive ones, written by PIL at sizes that are
 not multiples of the MCU, equals the JAX package's ``load_rgb`` sample for
 sample at the native size and within 1e-6 after the resize; ``load_mask``
 on a JPEG equals the JAX package's (PIL's decode, "L" luma, bicubic
-resize)."""
+resize). The encoder, ``encode_jpeg``, against Pillow's
+``save(format="JPEG", quality=90)`` (libjpeg-turbo): the same bytes on
+noise, a smooth ramp, a frame of whole MCUs cut at 37x53, and a 512x512
+rendered-like frame."""
+
+import io
 
 import numpy as np
 import pytest
@@ -100,3 +105,55 @@ def test_sizes_and_exif(tmp_path):
     Image.fromarray(_image(9)).save(path, exif=exif, quality=90)
     np.testing.assert_array_equal(jpeg.read_jpeg(path),
                                   np.asarray(Image.open(path).convert("RGB")))
+
+
+def _rendered_like(h=512, w=512):
+    """A white frame with a shaded, lightly noisy disc: the viewer's frames."""
+    rng = np.random.default_rng(3)
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    img = np.ones((h, w, 3))
+    head = (xx - 0.5) ** 2 + (yy - 0.45) ** 2 < 0.09
+    shade = np.stack([0.8 * np.sin(xx * 9) ** 2, 0.6 + 0.2 * yy, 0.5 * xx], -1)
+    img[head] = shade[head] + rng.normal(0, 0.02, (int(head.sum()), 3))
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+ENCODE_FRAMES = {
+    "noise": lambda: (np.random.default_rng(0).random((48, 64, 3)) * 255).astype(np.uint8),
+    "ramp": lambda: np.stack([*np.meshgrid(np.linspace(0, 255, 96), np.linspace(0, 255, 80)),
+                              np.full((80, 96), 128.0)], -1).astype(np.uint8),
+    "cut_37x53": lambda: _image(7, 37, 53),
+    "rendered_512": _rendered_like,
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODE_FRAMES))
+def test_encode_jpeg_matches_pillow(name):
+    """encode_jpeg writes Pillow's quality-90 bytes (JFIF APP0, tables,
+    4:2:0 baseline scan; the cut frame's dummy blocks and edge padding
+    too), from numpy and from a tensor; the port's decoder reads them back
+    as PIL does."""
+    import torch
+
+    img = ENCODE_FRAMES[name]()
+    buf = io.BytesIO()
+    Image.fromarray(img).save(buf, format="JPEG", quality=90)
+    want = buf.getvalue()
+    assert jpeg.encode_jpeg(img) == want
+    assert jpeg.encode_jpeg(torch.from_numpy(img), quality=90) == want
+    np.testing.assert_array_equal(jpeg.decode_jpeg(want),
+                                  np.asarray(Image.open(io.BytesIO(want)).convert("RGB")))
+
+
+def test_encode_jpeg_other_qualities_and_types():
+    """Other qualities scale the tables as libjpeg does (Pillow's bytes);
+    a float or 4-channel frame raises."""
+    img = _image(2, 24, 40)
+    for q in (10, 50, 75, 100):
+        buf = io.BytesIO()
+        Image.fromarray(img).save(buf, format="JPEG", quality=q)
+        assert jpeg.encode_jpeg(img, quality=q) == buf.getvalue(), q
+    with pytest.raises(ValueError, match="uint8"):
+        jpeg.encode_jpeg(img.astype(np.float32))
+    with pytest.raises(ValueError, match="uint8"):
+        jpeg.encode_jpeg(np.zeros((8, 8, 4), np.uint8))

@@ -1,6 +1,9 @@
 """The tools against the JAX package, on the CPU: PLY export / import,
 ``save_obj``, the profiling helpers, the web viewer's render callback in
-every UI mode, one HTTP round trip, and ``cli/avatar_gui.build_viewer``.
+every UI mode, one HTTP round trip (a JPEG, Pillow's bytes), a POST to the
+JAX package's viewer and to the port's on one stub callback (equal
+headers and body), the GIF fallback of ``write_video`` against the JAX
+package's, and ``cli/avatar_gui.build_viewer``.
 
 The viewer's avatar is ``tests/test_viewer.py``'s (a 96-vertex synthetic
 FLAME on a sphere template, 32x32), perturbed, carried across by
@@ -11,9 +14,11 @@ the transmittance product in another order (``tests/test_torch_model.py``).
 """
 
 import dataclasses
+import io
 import json
 import os
 import pickle
+import shutil
 import urllib.request
 
 import jax.numpy as jnp
@@ -50,7 +55,8 @@ from fateavatar_tpu_torch.train.tracking import TrackingTables
 from fateavatar_tpu_torch.utils import obj_io as tobj
 from fateavatar_tpu_torch.utils import profiling
 from fateavatar_tpu_torch.utils.config import load_config
-from fateavatar_tpu_torch.utils.png import read_png, write_png
+from fateavatar_tpu_torch.utils.jpeg import encode_jpeg
+from fateavatar_tpu_torch.utils.png import write_png
 from fateavatar_tpu_torch.viewer.web import (
     ViewerServer, make_avatar_render_fn, quantize,
 )
@@ -254,26 +260,98 @@ def _post(port, state):
 
 
 def test_http_round_trip_png(viewers, tmp_path):
-    """One POST on port 0: a PNG (``image/png``) whose decoded pixels are the
-    callback's frame quantized as the server does, the device ms header,
-    and the page with the controls."""
+    """One POST on port 0: the frame as the JAX package's viewer sends it,
+    a JPEG at quality 90 (``image/jpeg``; it was a PNG before the port had
+    an encoder): Pillow's bytes of the callback's frame quantized as the
+    server does, the device ms header, and the page with the controls."""
+    from PIL import Image
+
     _, fn = viewers
     srv = ViewerServer(fn, RES, RES, N_EXP, port=0)
     srv.serve_background()
     try:
         ui = UI_STATES["sliders"]
         headers, body = _post(srv.port, ui)
-        assert headers["Content-Type"] == "image/png"
+        assert headers["Content-Type"] == "image/jpeg"
         assert float(headers["X-Device-Ms"]) > 0
-        path = str(tmp_path / "frame.png")
-        with open(path, "wb") as fh:
-            fh.write(body)
-        np.testing.assert_array_equal(read_png(path), quantize(fn.eager(ui)))
+        frame = quantize(fn.eager(ui)).numpy()
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="JPEG", quality=90)
+        assert body == buf.getvalue() == encode_jpeg(frame, 90)
         with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/", timeout=60) as r:
             page = r.read().decode()
         assert "play sequence" in page and "tracked params" in page and "X-Device-Ms" in page
     finally:
         srv.shutdown()
+
+
+def test_viewer_post_matches_jax():
+    """The JAX package's ViewerServer and the port's, each on one stub
+    callback returning ``(image, 1.25)``: equal ``Content-Type``,
+    ``X-Device-Ms`` and body (the port's own JPEG encoder against PIL)."""
+    from fateavatar_tpu.viewer.web import ViewerServer as JViewerServer
+
+    rng = np.random.default_rng(11)
+    image = rng.random((40, 56, 3)).astype(np.float32) * 1.1 - 0.05
+    stub = lambda state: (image, 1.25)   # noqa: E731
+    jsrv = JViewerServer(stub, 56, 40, N_EXP, port=0)
+    srv = ViewerServer(stub, 56, 40, N_EXP, port=0)
+    jsrv.serve_background()
+    srv.serve_background()
+    try:
+        jh, jbody = _post(jsrv.httpd.server_address[1], UI_STATES["sliders"])
+        h, body = _post(srv.port, UI_STATES["sliders"])
+    finally:
+        jsrv.shutdown()
+        jsrv.httpd.server_close()
+        srv.shutdown()
+    assert h["Content-Type"] == jh["Content-Type"] == "image/jpeg"
+    assert h["X-Device-Ms"] == jh["X-Device-Ms"] == "1.250"
+    assert body == jbody
+
+
+def _moving_head(n=6, h=72, w=96, seed=0):
+    """Frames like the eval videos': a white background and a shaded,
+    lightly noisy disc that moves and changes its shading."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w] / max(h, w)
+    out = []
+    for i in range(n):
+        img = np.ones((h, w, 3))
+        head = (xx - 0.45 - 0.03 * i) ** 2 + (yy - 0.4) ** 2 < 0.08
+        shade = np.stack([0.8 * np.sin(xx * 9 + 0.3 * i) ** 2, 0.6 + 0.2 * yy, 0.5 * xx], -1)
+        img[head] = shade[head] + rng.normal(0, 0.02, (int(head.sum()), 3))
+        out.append((np.clip(img, 0, 1) * 255).astype(np.uint8))
+    return out
+
+
+def test_gif_fallback_against_jax(tmp_path, monkeypatch):
+    """write_video with no ffmpeg in both packages on the same 6 frames: the
+    JAX package's GIF is PIL's (median cut, delta frames, LZW), the port's
+    its own. Decoded by PIL, each of the port's frames errs at most 1.1x
+    the JAX GIF's mean absolute error plus 0.5 levels, and the file is at
+    most 1.25x the JAX GIF's size."""
+    from PIL import Image
+
+    from fateavatar_tpu.utils import logging as jlogging
+    from fateavatar_tpu_torch.utils import logging as tlogging
+
+    frames = _moving_head()
+    # both writers look the binary up through shutil.which
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    assert jlogging.write_video(str(tmp_path / "j.mp4"), frames, fps=25)
+    assert tlogging.write_video(str(tmp_path / "t.mp4"), frames, fps=25)
+    mae = {}
+    for k in ("j", "t"):
+        gif = Image.open(tmp_path / f"{k}.gif")
+        assert gif.n_frames == len(frames) and gif.size == (96, 72)
+        mae[k] = []
+        for i, fr in enumerate(frames):
+            gif.seek(i)
+            mae[k].append(np.abs(np.asarray(gif.convert("RGB")).astype(int) - fr).mean())
+    assert all(t <= 1.1 * j + 0.5 for t, j in zip(mae["t"], mae["j"])), mae
+    sizes = {k: (tmp_path / f"{k}.gif").stat().st_size for k in ("j", "t")}
+    assert sizes["t"] <= 1.25 * sizes["j"], sizes
 
 
 # ---------------------------------------------------------------------------
