@@ -143,6 +143,11 @@ weights), each through both routes of ``RenderConfig.kernel``:
   one-device loss and gradients; ms per step of each (host clock) and the
   kernels' launches on each path, summed over its ranks.
 
+The tracing (``[tracing]``, right after the kernels are built): the
+``stage_mark`` kernel of ``utils/profiling.py`` captured in a ``Graph``
+with tracing on stamps increasing times in stage order over three replays
+(the profiler names it), and a graph captured with tracing off holds none.
+
 Serving runs through ``Reenactor.reenact``'s CUDA graph: a wrapper counts the launches of the graph's warm-up calls and its capture,
 and the graph reports its replays and launches per replay.
 
@@ -319,6 +324,50 @@ KERNELS = {
 
 def log(*args):
     print(*args, flush=True)
+
+
+def tracing_check():
+    """The stage mark inside a CUDA graph: captured with tracing on, three
+    replays stamp (forward, end) each with increasing device times, six
+    ``stage_mark`` kernels under the profiler; captured off, no mark."""
+    import torch
+
+    from fateavatar_tpu_torch.utils import profiling
+    from fateavatar_tpu_torch.utils.graphs import Graph
+
+    x = torch.zeros(4096, device="cuda")
+
+    def fn():
+        profiling.mark("forward", x.device)
+        x.add_(1.0)
+        profiling.mark("end", x.device)
+
+    profiling.reset()
+    with profiling.tracing():
+        g = Graph(fn, [x], "marked")
+        g()
+        profiling.reset()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                g()
+            torch.cuda.synchronize()
+    seq = profiling.marks()
+    stamps = [t for t, _ in seq]
+    check([s for _, s in seq] == ["forward", "end"] * 3
+          and all(b > a for a, b in zip(stamps, stamps[1:])),
+          f"a marked graph's three replays stamp (forward, end) in order: {seq}")
+    n_kernels = sum(e.name == "stage_mark" for e in prof.events())
+    check(n_kernels == 6, f"six stage_mark kernels under the profiler, got {n_kernels}")
+    plain = Graph(fn, [x], "unmarked")
+    for _ in range(3):
+        plain()
+    torch.cuda.synchronize()
+    check(len(profiling.marks()) == 6, "a graph captured with tracing off writes no mark")
+    ms, passes = profiling.stage_ms()["forward"]
+    profiling.reset()
+    log(f"[tracing] stage_mark in a graph: 3 replays stamped in order, 6 kernels under the "
+        f"profiler, forward {ms * 1e3:.2f} us a pass ({passes} passes); a graph captured "
+        f"with tracing off wrote no mark")
 
 
 def check(cond, msg):
@@ -5639,6 +5688,7 @@ def main():
     libs = cuda_build.build_all(["blend_instances", "blend_instances_bwd", "blend_tiles",
                                  "blend_tiles_bwd"])
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
+    tracing_check()
     for name, so in libs.items():
         for line in so.with_suffix(".log").read_text().splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):

@@ -316,6 +316,9 @@ def mono_forward(model: MonoModel, params: MonoParams, state: MonoState, nets: d
     gaussians, color, cam, deform, opacity_logit = build_gaussians(
         model, params, state, nets, expression, flame_pose, camera)
     bg = model.bg_color if bg_color is None else bg_color
+    # the nearest canonical FLAME vertex, for the lbs distillation loss
+    # (before the render, so a traced step counts it in its forward stage)
+    index_batch = nearest_vertex(deform["pnts_c_flame"], model.canonical_verts)
     out = render(cam, gaussians, bg, config=render_cfg, override_color=color,
                  means2d_probe=means2d_probe)
     visible_now = (torch.sigmoid(opacity_logit[:, 0]) >= model.cfg.prune_thresh) & state.alive
@@ -325,8 +328,7 @@ def mono_forward(model: MonoModel, params: MonoParams, state: MonoState, nets: d
         "radii": out["radii"],
         "overflow": out["overflow"],
         "visible_now": visible_now,
-        # the nearest canonical FLAME vertex, for the lbs distillation loss
-        "index_batch": nearest_vertex(deform["pnts_c_flame"], model.canonical_verts),
+        "index_batch": index_batch,
         "shapedirs": deform["shapedirs"],
         "posedirs": deform["posedirs"],
         "lbs_weights": deform["lbs_weights"],

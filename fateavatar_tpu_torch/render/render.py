@@ -41,6 +41,7 @@ from fateavatar_tpu_torch.render.blend_instances import (
 from fateavatar_tpu_torch.render.blend_tiles import blend_tiles, blend_tiles_bwd, tiles_to_image
 from fateavatar_tpu_torch.render.preprocess import preprocess
 from fateavatar_tpu_torch.render.splats import Gaussians
+from fateavatar_tpu_torch.utils import profiling
 
 # the wrappers of the port's four CUDA kernels, by kernel name; each counts
 # its kernel's launches in ``.launches``
@@ -254,6 +255,11 @@ def render(
     if config.kernel not in ("instances", "tiles"):
         raise NotImplementedError(
             f"kernel {config.kernel!r} is not ported; use 'instances' or 'tiles'")
+    dev = gaussians.xyz.device
+    # stage marks (utils/profiling.py): the raster front runs from the
+    # preprocess through the binning and its sort to the gather, the blend
+    # from the blend kernel's launch to the image
+    profiling.mark("raster_front", dev)
     grid = binning.tile_grid(camera.width, camera.height)
     prep = preprocess(
         camera, gaussians.xyz, gaussians.get_scaling, gaussians.get_rotation,
@@ -287,6 +293,7 @@ def render(
                 instance_budget=config.instance_budget)
         ids = lists.ids.reshape(-1).long()
         data = _TakeDense.apply(torch.stack(channels), ids)       # [9, T*K]
+        profiling.mark("blend", dev)
         img_tiles, t_final = blend_tiles(data, (ids >= 0).to(torch.float32),
                                          lists.counts, bg_color, grid, config.chunk)
         overflow, tile_counts = lists.overflow, lists.counts
@@ -333,6 +340,7 @@ def render(
         # a cutoff <= 1e-4 is the exact blend (the kernels' bits, launched
         # without the cut pass); the blend is called without it then
         cut = {"cutoff": config.t_cutoff} if config.t_cutoff > T_EPS else {}
+        profiling.mark("blend", dev)
         img_tiles, t_final = blend_instances(inst_data, ilists.tile_starts, bg_color,
                                              grid, **cut)
         overflow = ilists.overflow

@@ -66,6 +66,7 @@ from fateavatar_tpu_torch.parallel.data_parallel import (
     scale_tree,
     unstack_frames,
 )
+from fateavatar_tpu_torch.utils import profiling
 
 
 @dataclass
@@ -130,6 +131,7 @@ def param_grads(params, loss_of: Callable, extra=()):
     p = dataclasses.replace(params, **{k: map_leaves(leaf, v)
                                        for k, v in _fields(params).items()})
     loss, aux = loss_of(p)
+    profiling.mark("backward", params_device(params))
     g = torch.autograd.grad(loss, [*leaves, *extra], allow_unused=True)
     g = [torch.zeros_like(x) if gx is None else gx for x, gx in zip([*leaves, *extra], g)]
     it = iter(g)
@@ -215,8 +217,9 @@ def make_gaussianavatars_step(
     def grads(ts: BaselineTrainState, frame: Frame):
         frames = _frames(frame)
         n = ts.params.xyz.shape[0]
-        probe = torch.zeros((len(frames), 2, n), device=ts.params.xyz.device,
-                            requires_grad=True)
+        dev = ts.params.xyz.device
+        profiling.mark("forward", dev)
+        probe = torch.zeros((len(frames), 2, n), device=dev, requires_grad=True)
 
         def loss_of(p):
             outs, losses = [], []
@@ -225,6 +228,7 @@ def make_gaussianavatars_step(
                                     active_sh_degree=active_sh_degree, bg_color=f.bg_color,
                                     render_cfg=render_cfg, means2d_probe=pr)
                 outs.append(out)
+                profiling.mark("loss", dev)
                 losses.append(loss_fn(out, {"rgb": f.rgb}))
             losses = _mean_losses(losses)
             return losses["loss"], (outs, losses)
@@ -245,6 +249,7 @@ def make_gaussianavatars_step(
             raise ValueError("a GaussianAvatars step with an xyz lr schedule reads the host "
                              "step count: it has no maintain=False form")
         g, g_probe, out, losses = grads(ts, frame)
+        profiling.mark("optimizer", ts.params.xyz.device)
         frames, outs = _frames(frame), (out if isinstance(out, list) else [out])
         g_probe = g_probe.reshape(len(outs), 2, -1)
         world = 1 if mesh is None else mesh.size
@@ -287,6 +292,7 @@ def make_gaussianavatars_step(
             opt_state = zero_moment_field(opt_state, "opacity")
         aux = _batch_aux(losses, outs, frames, mesh, whole_batch_psnr=True)
         aux["num_alive"] = torch.sum(state.alive)
+        profiling.mark("end", ts.params.xyz.device)
         return BaselineTrainState(params=params, state=state, opt_state=opt_state,
                                   step=step, generator=ts.generator), aux
 
@@ -323,6 +329,8 @@ def _plain_step(grads_fn, optimizer: MultiAdam, after=None, due=_never):
 
     def step_fn(ts: BaselineTrainState, frame: Frame, mesh=None, maintain: bool = True):
         g, _, out, losses = grads_fn(ts, frame)
+        dev = params_device(ts.params)
+        profiling.mark("optimizer", dev)
         outs = out if isinstance(out, list) else [out]
         g = _reduce_grads(g, mesh)
         updates, opt_state = optimizer.update(g, ts.opt_state, ts.params)
@@ -330,9 +338,10 @@ def _plain_step(grads_fn, optimizer: MultiAdam, after=None, due=_never):
         if after is not None:
             params, state, opt_state = after(params, state, opt_state,
                                              maintain and due(step), outs, mesh)
+        aux = _batch_aux(losses, outs, _frames(frame), mesh)
+        profiling.mark("end", dev)
         return BaselineTrainState(params=params, state=state, opt_state=opt_state,
-                                  step=step, generator=ts.generator), \
-            _batch_aux(losses, outs, _frames(frame), mesh)
+                                  step=step, generator=ts.generator), aux
 
     step_fn.grads = grads_fn
     step_fn.due = due
@@ -344,9 +353,12 @@ def _grads(forward, loss_fn):
     state, frame)`` -> the model's output."""
     def grads(ts: BaselineTrainState, frame: Frame):
         frames = _frames(frame)
+        dev = params_device(ts.params)
+        profiling.mark("forward", dev)
 
         def loss_of(p):
             outs = [forward(p, ts.state, f) for f in frames]
+            profiling.mark("loss", dev)
             losses = _mean_losses([loss_fn(o, {"rgb": f.rgb}) for o, f in zip(outs, frames)])
             return losses["loss"], (outs, losses)
 

@@ -10,6 +10,11 @@ aux value stay on the device, so a step never waits on the card.
 
 :func:`make_inplace_step` is the same step in place, on static buffers, for
 capture in a CUDA graph (the body of the JAX package's scan epoch).
+
+With tracing on (``utils/profiling.py``) the step marks its stages on the
+device: ``forward`` (the render adds ``raster_front`` and ``blend``),
+``loss``, ``backward``, ``optimizer`` (the statistics, Adam, maintenance)
+and ``end``.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from fateavatar_tpu_torch.train.optim import (
     zero_moment_field,
     zero_moment_rows,
 )
+from fateavatar_tpu_torch.utils import profiling
 
 SPLAT_FIELDS = maintenance.SPLAT_FIELDS
 
@@ -115,16 +121,20 @@ def make_train_step(
     the gradients the update took."""
 
     def grads(ts: TrainState, frame: Frame):
+        dev = ts.params.offset.device
+        profiling.mark("forward", dev)
         leaves = {k: v.detach().requires_grad_() for k, v in _fields(ts.params).items()}
         params = dataclasses.replace(ts.params, **leaves)
         probe = torch.zeros((2, ts.params.offset.shape[0]), dtype=torch.float32,
-                            device=ts.params.offset.device, requires_grad=True)
+                            device=dev, requires_grad=True)
         out = fateavatar_forward(
             model, params, ts.state, frame.expression, frame.flame_pose,
             frame.camera, bg_color=frame.bg_color, render_cfg=render_cfg,
             means2d_probe=probe, world_transform=frame.world_transform,
         )
+        profiling.mark("loss", dev)
         losses = loss_fn(out, {"rgb": frame.rgb})
+        profiling.mark("backward", dev)
         g = torch.autograd.grad(losses["loss"], [*leaves.values(), probe],
                                 allow_unused=True)
         param_grads = dataclasses.replace(ts.params, **{
@@ -134,6 +144,7 @@ def make_train_step(
 
     def step_fn(ts: TrainState, frame: Frame, maintain: bool = True):
         param_grads, probe_grad, out, losses = grads(ts, frame)
+        profiling.mark("optimizer", ts.params.offset.device)
         with torch.no_grad():
             psnr = -10.0 * torch.log10(torch.mean(
                 (out["rgb_image"] - as_float_rgb(frame.rgb)) ** 2))
@@ -176,6 +187,7 @@ def make_train_step(
         aux["num_alive"] = torch.sum(state.alive)
         if return_grads:
             aux["grads"] = param_grads
+        profiling.mark("end", ts.params.offset.device)
         new_ts = TrainState(params=params, state=state, opt_state=opt_state,
                             step=step, generator=ts.generator)
         return new_ts, aux

@@ -8,7 +8,10 @@ functional: they return new tables and a new state.
 
 The tracking steps take the gradient of a frame's full loss with respect to
 its rows only (``torch.autograd.grad`` with the rows as inputs): the model's
-parameters and state are read, never written, and gather no gradient.
+parameters and state are read, never written, and gather no gradient. With
+tracing on, a refinement marks its stages as a pass of its own
+(``utils/profiling.py``): ``forward`` and ``backward`` here (the loss of the
+frame marks ``loss``), ``optimizer`` and ``end`` in the row update.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from fateavatar_tpu_torch.utils import profiling
 
 FIELDS = ("expression", "flame_pose", "cam_t")
 
@@ -66,9 +71,11 @@ class RowAdam:
     ) -> Tuple[TrackingTables, RowAdamState]:
         """SparseAdam step on a single row. A device index keeps the step free
         of host values, so it can be captured in a CUDA graph."""
+        dev = opt_state.count.device
+        profiling.mark("optimizer", dev)
         if not torch.is_tensor(idx):
             idx = torch.tensor(idx)
-        idx1 = idx.to(opt_state.count.device).reshape(1).long()
+        idx1 = idx.to(dev).reshape(1).long()
         count = opt_state.count[idx1] + 1                     # [1]
         cf = count.to(torch.float32)
         c1 = 1.0 - self.b1 ** cf
@@ -84,6 +91,7 @@ class RowAdam:
             new_t[f] = table.index_add(0, idx1, step)
             new_mu[f] = mu.index_copy(0, idx1, m_row)
             new_nu[f] = nu.index_copy(0, idx1, v_row)
+        profiling.mark("end", dev)
         return (
             TrackingTables(**new_t),
             RowAdamState(mu=TrackingTables(**new_mu), nu=TrackingTables(**new_nu),
@@ -101,6 +109,7 @@ class RowAdam:
         """SparseAdam step on B rows at once. ``mask`` disables rows (a
         padded batch's duplicates): they are dropped from every scatter, so
         a masked duplicate of a live index cannot race its row's write."""
+        profiling.mark("optimizer", opt_state.count.device)
         n_rows = tables.expression.shape[0]
         idxs = idxs.long()
         count = opt_state.count[idxs] + mask.to(torch.int32)   # [B]
@@ -131,6 +140,7 @@ class RowAdam:
             new_mu[f] = scatter(mu, m_row, add=False)
             new_nu[f] = scatter(nu, v_row, add=False)
         padded = torch.cat([opt_state.count, opt_state.count.new_zeros(1)])
+        profiling.mark("end", opt_state.count.device)
         return (
             TrackingTables(**new_t),
             RowAdamState(mu=TrackingTables(**new_mu), nu=TrackingTables(**new_nu),
@@ -167,9 +177,11 @@ def row_gradients(loss_of_frame: Callable, expression, flame_pose, cam_t,
                   *consts) -> TrackingTables:
     """d loss_of_frame(expression, flame_pose, cam_t, *consts) / d rows, for
     one frame's rows; nothing else receives a gradient."""
+    profiling.mark("forward", expression.device)
     rows = [x.detach().requires_grad_() for x in (expression, flame_pose, cam_t)]
     with torch.enable_grad():
         loss = loss_of_frame(*rows, *consts)
+        profiling.mark("backward", expression.device)
         ge, gp, gt = torch.autograd.grad(loss, rows)
     return TrackingTables(expression=ge, flame_pose=gp, cam_t=gt)
 

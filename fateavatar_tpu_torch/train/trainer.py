@@ -41,6 +41,11 @@ padded tail's repeats masked. DP epochs run per step and eagerly, as in the
 JAX package. Only rank 0 writes logs, snapshots, checkpoints, videos and
 metrics; a checkpoint written under DP resumes in a single-process Trainer
 and the other way round. ``data_parallel`` 0 or 1 trains on one device.
+
+Tracing (``utils/profiling.py``): the counters ``trainer.steps_replayed``,
+``trainer.steps_eager_maintenance`` and ``trainer.steps_eager_per_step``
+count every step by how it ran, each added once an epoch (0 included), so
+their histories line up epoch by epoch.
 """
 
 from __future__ import annotations
@@ -92,6 +97,7 @@ from fateavatar_tpu_torch.train.tracking import (
     tables_from_dataset,
     tracking_tensors,
 )
+from fateavatar_tpu_torch.utils import profiling
 from fateavatar_tpu_torch.utils.graphs import Graph
 from fateavatar_tpu_torch.utils.logging import Logger, save_image, save_image_grid, write_video
 
@@ -100,6 +106,13 @@ FLUSH_EVERY = 50   # steps between fetches of the device-side loss values
 
 def _fields(obj) -> dict:
     return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
+
+
+def _count_steps(replayed: int = 0, maintenance: int = 0, per_step: int = 0) -> None:
+    """An epoch's steps by how they ran, one add to each counter."""
+    profiling.count("trainer.steps_replayed", replayed)
+    profiling.count("trainer.steps_eager_maintenance", maintenance)
+    profiling.count("trainer.steps_eager_per_step", per_step)
 
 
 @dataclasses.dataclass
@@ -365,6 +378,7 @@ class Trainer:
         camera = make_camera(R, cam_t, fovx, fovy, cfg.img_width, cfg.img_height,
                              intrinsics=K, device=self.device)
         out = self._forward(params, mstate, expr, pose, camera, wt)
+        profiling.mark("loss", self.device)
         return self.loss_fn(out, {"rgb": rgb})["loss"]
 
     def _build_tracking_step(self, batched: bool = False, gather=None):
@@ -511,6 +525,7 @@ class Trainer:
         flush()
         dt = time.perf_counter() - t0
         n = len(ds)
+        _count_steps(per_step=n)
         if t_steady is not None and n > 3:
             self._per_step_its = (n - 3) / max(time.perf_counter() - t_steady, 1e-9)
         alive = self._alive()
@@ -581,6 +596,7 @@ class Trainer:
                 flush()
             if self._files and self.global_step % self.snapshot_interval < B:
                 self.save_snapshot(sample)
+        _count_steps(per_step=len(mine))
         flush()
         if ovf_total > 0:
             self.log(f"[WARN] {ovf_total} tile instances dropped by the binning caps in "
@@ -781,11 +797,14 @@ class Trainer:
         self._load_scan_state(scan)
         first = self.ts.step
         due = self._due()
+        eager = 0
         for j in range(n):
             if due(first + j + 1):
                 scan.body(first + j)
+                eager += 1
             else:
                 scan.graph()
+        _count_steps(replayed=n - eager, maintenance=eager)
         self.ts.step = first + n
         self.global_step += n
         # one fetch: float64 holds the float32 values and the counts exactly

@@ -16,15 +16,24 @@ pool, and replays it; every later call replays. On the CPU a
 call runs the function itself on the same buffers: the plain version, as
 each CUDA kernel has one. A capture that fails raises; nothing falls back to
 eager execution on the card.
+
+Tracing (``utils/profiling.py``): a capture is the span ``graph.capture``
+and adds to the counters ``graph.captures`` and ``graph.capture_s`` (host
+seconds of warm-up, capture and instantiation); a call is the span
+``graph.replay``. A graph captured with tracing on holds the stage marks
+its function makes (its warm-up calls make none), so each replay stamps
+them; one captured with tracing off holds none.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional, Sequence
 
 import torch
 
 from fateavatar_tpu_torch.render.render import KERNEL_COUNTERS
+from fateavatar_tpu_torch.utils import profiling
 
 WARMUP = 3   # eager calls on a side stream before the capture
 
@@ -51,24 +60,35 @@ class Graph:
         self.launches_per_replay: dict = {}
 
     def __call__(self):
-        if self.device.type == "cpu":
-            self.fn()
-        else:
+        if self.device.type == "cuda" and self.graph is None:
+            self.capture()
+        with profiling.span("graph.replay", graph=self.name):
             if self.graph is None:
-                self.capture()
-            self.graph.replay()
+                self.fn()
+            else:
+                self.graph.replay()
         self.replays += 1
 
     def capture(self):
         """Warm up (the buffers restored after each call), then capture.
         Raises, naming the graph, when the capture fails."""
+        t0 = time.perf_counter()
+        with profiling.span("graph.capture", graph=self.name):
+            self._capture()
+        profiling.count("graph.captures")
+        profiling.count("graph.capture_s", time.perf_counter() - t0)
+
+    def _capture(self):
+        # the stage ring and the mark kernel cannot be made inside a capture
+        profiling.prepare(self.device)
         # no_grad: a buffer may be a parameter that requires grad
         with torch.no_grad():
             saved = [b.clone() for b in self.buffers]
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
+        # the warm-up calls make no stage marks: only the replays are timed
+        with torch.cuda.stream(side), profiling.tracing(False):
             for _ in range(WARMUP):
                 self.fn()
                 # each warm-up call starts from the caller's state

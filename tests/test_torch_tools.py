@@ -1,5 +1,5 @@
 """The tools against the JAX package, on the CPU: PLY export / import,
-``save_obj``, the profiling helpers, the web viewer's render callback in
+``save_obj``, the tracing helpers, the web viewer's render callback in
 every UI mode, one HTTP round trip (a JPEG, Pillow's bytes), a POST to the
 JAX package's viewer and to the port's on one stub callback (equal
 headers and body), the GIF fallback of ``write_video`` against the JAX
@@ -124,27 +124,29 @@ def test_save_obj_round_trip(tmp_path):
 
 
 def test_profiling_helpers(tmp_path):
-    """``PhaseTimer`` accumulates per phase (fenced where an output is
-    given) and reports the slowest first; ``time_fn`` gives seconds per
-    call; ``trace`` writes a Chrome trace holding an ``annotate`` region."""
-    timer = profiling.PhaseTimer()
+    """``span`` keeps a record (name, parent, ids) only while tracing is on,
+    ``counters`` gives deltas, and ``trace`` writes a Chrome trace that
+    holds an ``fa.`` span."""
+    profiling.reset()
     x = torch.ones(64, 64)
-    for _ in range(3):
-        with timer.phase("matmul", fence=x):
-            y = x @ x
-    with timer.phase("add"):
-        y = y + 1
-    assert dict(timer.counts) == {"matmul": 3, "add": 1}
-    assert all(v > 0 for v in timer.totals.values())
-    lines = timer.report().splitlines()
-    assert len(lines) == 2 and lines[0].split()[0] == max(timer.totals, key=timer.totals.get)
-    assert "x3" in timer.report()
-    assert profiling.time_fn(lambda a: a @ a, x, warmup=1, iters=3) > 0
+    with profiling.span("off"):
+        x @ x
+    assert profiling.spans() == []
+    before = profiling.counters()
+    profiling.count("tools.frames", 3)
+    profiling.count("tools.seconds", 0.25)
+    assert profiling.counters(before) == {**{k: 0 for k in before},
+                                          "tools.frames": 3, "tools.seconds": 0.25}
     with profiling.trace(str(tmp_path / "tr")):
-        with profiling.annotate("viewer-frame"):
+        with profiling.span("viewer.frame", call=1):
             (x @ x).sum()
+    assert not profiling.is_tracing()
+    (rec,) = profiling.spans()
+    assert (rec.name, rec.parent, rec.ids) == ("viewer.frame", None, {"call": 1})
+    assert rec.end >= rec.start
     with open(tmp_path / "tr" / "trace.json") as fh:
-        assert "viewer-frame" in fh.read()
+        assert "fa.viewer.frame" in fh.read()
+    profiling.reset()
 
 
 # ---------------------------------------------------------------------------
