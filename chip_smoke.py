@@ -4,9 +4,11 @@
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
 It builds every CUDA kernel of the port from ``fateavatar_tpu_torch/csrc``
-(the instance blend's and the dense-list blend's forward and backward, one
-nvcc each, in parallel), holds each against its plain PyTorch version on
-the card, and drives the port's main paths at the full width of
+(the instance blend's and the dense-list blend's forward and backward, the
+binning's candidate compaction, one nvcc each, in parallel), holds each
+against its plain PyTorch version on the card (``[compact]``: the
+compaction at MonoGaussianAvatar's shapes too, with its ms and byte
+bound), and drives the port's main paths at the full width of
 ``configs/fateavatar.yaml`` (65,536 splats at a 200,000 capacity, 512x512,
 twotier binning setting R = 64) from seeded synthetic assets (a FLAME
 pickle at FLAME's 5,023 vertices, a matching UV template, random VGG16
@@ -565,6 +567,88 @@ def instance_kernel_cases(rows):
         check_blend_bwd(f"blend case {name}", args, rows["blend_instances_bwd"])
         check_repeatable(f"blend case {name} forward", lambda: bi.blend_instances(*fwd))
         check_repeatable(f"blend case {name} backward", lambda: bi.blend_instances_bwd(*args))
+
+
+def compaction_phase(rows, card):
+    """The binning's compaction kernel (csrc/bin_compact.cu) against its
+    plain version (the [N, R] scatter) on the cases of
+    tests/torch_compact_cases.py, bit for bit at both sizes of each (the
+    budget, past every candidate; a cut inside a splat), each twice for the
+    same bits; at MonoGaussianAvatar's shapes (``mono``: N 100,000, R 1,024,
+    budget 6,291,456) the kernel's ms and the plain version's (CUDA events)
+    beside its bound, the 8 B a slot it writes at 3.35 TB/s; then render()
+    captured in a Graph under onesort (1 launch a replay) and twotier (0)."""
+    import numpy as np
+    import torch
+
+    _tests_on_path()
+    from torch_compact_cases import COMPACT_CASES, compact_case
+
+    from fateavatar_tpu_torch.ops.camera import look_at_camera
+    from fateavatar_tpu_torch.render import binning
+    from fateavatar_tpu_torch.render.render import RenderConfig, render
+    from fateavatar_tpu_torch.render.splats import make_gaussians
+    from fateavatar_tpu_torch.utils.graphs import Graph
+
+    row = rows["bin_compact"] = {
+        "name": "bin_compact", "route": "cuda",
+        "source": "fateavatar_tpu_torch/csrc/bin_compact.cu",
+        "replaces": "none: the JAX package bins with XLA sorts and scatters",
+        "design": "one thread a slot of the budget, its splat by a binary search over "
+                  "the offsets; only kept candidates written, so the sort runs over "
+                  "min(M, N x R) keys", "launches": 0}
+    before = binning.compact_candidates.launches
+    for name in COMPACT_CASES:
+        *arrays, grid, R, sizes = compact_case(name)
+        ins = [torch.from_numpy(a).cuda() for a in arrays]
+        for size in sizes:
+            args = (*ins, size, grid[1], grid[0] * grid[1], R)
+            got = binning.compact_candidates(*args)
+            want = binning._compact_candidates_plain(*args)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"[compact] {name}, size {size}: kernel == plain version")
+            check_repeatable(f"compaction {name}, size {size}",
+                             lambda: binning.compact_candidates(*args))
+        log(f"[compact] {name} (N {arrays[0].shape[0]}, grid {grid}, R {R}, kept "
+            f"{int(arrays[3].sum())}): kernel == plain version bit for bit at sizes {sizes}")
+        if name == "mono":
+            args = (*ins, sizes[0], grid[1], grid[0] * grid[1], R)
+            ms = cuda_ms(lambda: binning.compact_candidates(*args), 50)
+            plain_ms = cuda_ms(lambda: binning._compact_candidates_plain(*args), 5)
+            bound_ms = 8 * sizes[0] / PEAK_BYTES_PER_S * 1e3
+            row.update(ms=round(ms, 5), plain_ms=round(plain_ms, 4), bound_ms=round(bound_ms, 5),
+                       bound="bytes", share=round(bound_ms / ms, 4))
+            log(f"[compact] mono, budget {sizes[0]}: kernel {ms:.5f} ms, plain version "
+                f"{plain_ms:.4f} ms (CUDA events), bound {bound_ms:.5f} ms (8 B a slot "
+                f"written at 3.35 TB/s): {100 * bound_ms / ms:.1f}% of it [{card}]")
+    # the main paths' launches are added in [bake] and [baselines]; these are the cases'
+    row["launches_cases"] = binning.compact_candidates.launches - before
+
+    # a render in a graph under each binning: the compaction runs under onesort only
+    rng = np.random.default_rng(0)
+    n, res = 2000, 128
+    g = make_gaussians(rng.uniform(-0.3, 0.3, (n, 3)), np.log(rng.uniform(0.01, 0.05, (n, 3))),
+                       rng.normal(size=(n, 4)), rng.uniform(-2, 2, (n, 1)),
+                       rng.uniform(-1, 1, (n, 1, 3)), device="cuda")
+    cam = look_at_camera([0.0, 0.0, -2.0], [0, 0, 0], [0, 1, 0], 0.8, 0.8, res, res,
+                         device="cuda")
+    bg = torch.ones(3, device="cuda")
+    per = {}
+    for mode in ("onesort", "twotier"):
+        cfg = RenderConfig(binning=mode, max_tiles_per_gaussian=64)
+        out = torch.zeros((res, res, 3), device="cuda")
+        graph = Graph(lambda: out.copy_(render(cam, g, bg, config=cfg)["render"]), [out],
+                      f"render ({mode})")
+        graph()
+        want = render(cam, g, bg, config=cfg)["render"]
+        torch.cuda.synchronize()
+        per[f"render-{mode}"] = graph.launches_per_replay.get("bin_compact", 0)
+        check(torch.equal(out, want), f"[compact] the {mode} render's replay == eager")
+    log(f"[compact] launches per replay of a render() graph: {per}")
+    check(per == {"render-onesort": 1, "render-twotier": 0},
+          "[compact] one compaction launch a replay under onesort, none under twotier")
+    row["graph_launches_per_replay"] = per
 
 
 def segment_split(label, fn, card, n=10):
@@ -1510,6 +1594,16 @@ def timed(fn, n):
     return (time.perf_counter() - t0) * 1e3 / n, ev[0].elapsed_time(ev[1]) / n
 
 
+def with_compaction(counts, rcfg):
+    """A launch count as the render config ``rcfg`` implies it: the blend
+    kernels' ``counts``, and where ``rcfg`` bins instances with any mode but
+    twotier, the binning's compaction (``bin_compact``) once a render, so as
+    often as the forward blend."""
+    if rcfg.kernel == "instances" and rcfg.binning != "twotier":
+        return {**counts, "bin_compact": counts["blend_instances_fwd"]}
+    return counts
+
+
 def zero_counts():
     from fateavatar_tpu_torch.render.render import KERNEL_COUNTERS
 
@@ -1614,9 +1708,11 @@ def graph_train(tag, tr, card, seen, eager_profile=False):
     check(rel0 <= GRAPH_LOSS0_RTOL, f"[{tag}] first step's loss graph vs eager {rel0:.2e}")
     check(all(v <= GRAPH_STEP_RTOL_L2 for v in errs.values()),
           f"[{tag}] state after one step graph vs eager")
-    check(g.launches_per_replay == {fwd: per, bwd: per}
-          and wrapper == {fwd: (WARMUP + 1) * per, bwd: (WARMUP + 1) * per},
-          f"[{tag}] {per} launch of kernels {fwd} and {bwd} per replay")
+    check(g.launches_per_replay == with_compaction({fwd: per, bwd: per}, tr.render_cfg)
+          and wrapper == with_compaction({fwd: (WARMUP + 1) * per, bwd: (WARMUP + 1) * per},
+                                         tr.render_cfg),
+          f"[{tag}] {per} launch of kernels {fwd} and {bwd} per replay, and of the "
+          f"compaction under {tr.render_cfg.binning} binning")
 
     # ---- a whole epoch each way from the same state
     graph_restore(tr, snap)
@@ -1760,8 +1856,10 @@ def graph_serve(tag, model, params, state, ws, rcfg, cam, exprs, poses, delta, c
         f"{gl_ms[0]:.3f} / {gl_ms[1]:.3f} (warm-up and capture included); the graph's "
         f"{SERVE_LONG * n} replays alone {r_ms[0]:.3f} / {r_ms[1]:.3f} [{card}]")
     check(len(box["graph"]) == n and same, f"[{tag}] served frames graph == eager, bit for bit")
-    check(g.launches_per_replay == {fwd: 1} and wrapper == {fwd: WARMUP + 1},
-          f"[{tag}] one {fwd} launch per replay")
+    check(g.launches_per_replay == with_compaction({fwd: 1}, rcfg)
+          and wrapper == with_compaction({fwd: WARMUP + 1}, rcfg),
+          f"[{tag}] one {fwd} launch per replay, and of the compaction under "
+          f"{rcfg.binning} binning")
     cursor.zero_()
     prof = profile_top(f"{n} replays of the served frame's graph ({tag})", lambda i: g(), n,
                        "frame", card)
@@ -2288,13 +2386,14 @@ def bake_phase(cli, rows, card):
         "(the port's settings, made on import)")
     built, epochs = [], []
     # ---- the bake path: counts to 0 just before, read just after
-    zero_counts()
+    counters = zero_counts()
     t0 = time.perf_counter()
     with recorded(uvd, "build_uv_decoder", built), recorded(UVBaker, "bake_epoch", epochs):
         baker = train_neural_baking.main(args)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
     g = baker.graph
     steps = BAKE_EPOCHS * len(baker.dataset)
     m = baker.model.face_index.shape[0]
@@ -2309,17 +2408,19 @@ def bake_phase(cli, rows, card):
         + "; ".join(f"loss {s['loss']:.5f} reg {s['reg_loss']:.5f} overflow {s['overflow']} "
                     f"{s['its']:.2f} it/s ({e[0]} / {e[1]} wrapper launches, peak "
                     f"{e[3]:.3f} GiB)" for s, e in zip(per_epoch, epochs))
-        + f"; kernel launches by the wrapper {fwd} forward, {bwd} backward ({WARMUP} warm-up "
-        f"calls + the capture), then {g.replays} replays x {g.launches_per_replay}")
+        + f"; kernel launches by the wrappers {wrapper} ({WARMUP} warm-up calls + the "
+        f"capture), then {g.replays} replays x {g.launches_per_replay}")
     losses = [s["loss"] for s in per_epoch]
     check(len(per_epoch) == BAKE_EPOCHS and all(np.isfinite(losses))
           and all(np.isfinite(baker.epoch_losses)), "finite bake losses")
     check(losses[-1] < losses[0], f"bake loss falls over the epochs {losses}")
     check(all(s["overflow"] == 0 for s in per_epoch), "overflow 0 in the bake")
-    check(g.replays == steps and g.launches_per_replay == {"blend_instances_fwd": 1,
-                                                           "blend_instances_bwd": 1}
-          and fwd == bwd == WARMUP + 1, "one launch of kernels 1 and 2 per replay of the "
-          "bake step, one replay per step")
+    blend = {"blend_instances_fwd": 1, "blend_instances_bwd": 1}
+    check(g.replays == steps and g.launches_per_replay == with_compaction(blend, baker.render_cfg)
+          and wrapper == with_compaction({k: WARMUP + 1 for k in blend}, baker.render_cfg),
+          "one launch of kernels 1 and 2 per replay of the bake step, and of the compaction "
+          f"under {baker.render_cfg.binning} binning; one replay per step")
+    rows["bin_compact"]["launches"] += wrapper.get("bin_compact", 0)
     files = [os.path.join(run, "textures", f"texture_epoch{BAKE_EPOCHS}.npz"),
              os.path.join(run, "bake_snapshots", f"texture_epoch{BAKE_EPOCHS}.png"),
              os.path.join(run, "checkpoints_baked", "baked.npz")]
@@ -2792,9 +2893,11 @@ def tools_phase(cli, rows, card):
         regrows, overflow_grown = len(fn.growths), list(fn.growths)
         check(fwd == (WARMUP + 1) * (1 + regrows) and bwd == 0
               and replays == len(VIEWER_UI) + 1 + regrows
-              and graph.launches_per_replay == {"blend_instances_fwd": 1},
+              and graph.launches_per_replay == with_compaction({"blend_instances_fwd": 1},
+                                                               fn.render_cfg),
               "the viewer: the graph's warm-up and capture (again at each growth of the "
-              "caps), then one kernel-1 launch a replay")
+              f"caps), then one kernel-1 launch a replay (and compaction, under "
+              f"{fn.render_cfg.binning} binning)")
         # the served frames against eager forwards of the same states
         stds, psnrs, pil_psnrs, pil_same = [], [], [], []
 
@@ -3525,12 +3628,13 @@ def complete_phase(cli, pseudo, rows, card):
     bake_rcfg = common.render_config(load_config(cli.config[1], []))
     baker = UVBaker(dec, net, const, tr.loss_fn, tr.train_dataset, workspace=None,
                     reg_weight=0.1, reg_attribute=("color",), render_cfg=bake_rcfg)
-    zero_counts()
+    counters = zero_counts()
     t0 = time.perf_counter()
     baker.bake(max_epochs=1, pseudo_dataset=pds)
     torch.cuda.synchronize()
     bake_s = time.perf_counter() - t0
     bfwd, bbwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+    wrapper = {k: c.launches for k, c in counters.items() if c.launches}
     g = baker.graph
     replays, per_replay = g.replays, dict(g.launches_per_replay)
     stats = baker.last_epoch_stats
@@ -3538,15 +3642,17 @@ def complete_phase(cli, pseudo, rows, card):
     log(f"[complete] full-head bake (UVBaker.bake, 1 epoch, pseudo_dataset of {len(pds)} "
         f"frames, M {baker.model.face_index.shape[0]} splats): {bake_s:.1f} s, {stats['steps']} "
         f"steps, losses {[round(x, 5) for x in baker.epoch_losses]}, overflow "
-        f"{stats['overflow']}; wrapper launches {bfwd} / {bbwd} ({WARMUP} warm-up calls + the "
+        f"{stats['overflow']}; wrapper launches {wrapper} ({WARMUP} warm-up calls + the "
         f"capture), then {replays} replays x {per_replay}; "
         f"{bake_s * 1e3 / steps:.2f} ms/step (the capture included) [{card}]")
     check(stats["steps"] == steps and len(pds) > 0, "a pseudo frame after every real one")
     check(np.isfinite(baker.epoch_losses).all(), "finite full-head bake losses")
     check(stats["overflow"] == 0, "overflow 0 in the full-head bake")
-    check(replays == steps and per_replay == {"blend_instances_fwd": 1,
-                                              "blend_instances_bwd": 1}
-          and bfwd == bbwd == WARMUP + 1, "one launch of kernels 1 and 2 per bake step")
+    blend = {"blend_instances_fwd": 1, "blend_instances_bwd": 1}
+    check(replays == steps and per_replay == with_compaction(blend, bake_rcfg)
+          and wrapper == with_compaction({k: WARMUP + 1 for k in blend}, bake_rcfg),
+          "one launch of kernels 1 and 2 per bake step, and of the compaction under "
+          f"{bake_rcfg.binning} binning")
     t_step = []
     frame = baker._prep(pds.sample(0), "pseudo")
     for _ in range(2):
@@ -3945,7 +4051,8 @@ def options_phase(model, params, state, ws, rcfg, cam, exprs, poses, delta, trai
         f"{same}, overflow {ovf}, tiles cut by each frame {cut_tiles} of {T}; wrapper "
         f"launches {wrapper} ({WARMUP} warm-up calls + the capture), {g.replays} replays x "
         f"{g.launches_per_replay}")
-    check(same and not any(ovf) and g.launches_per_replay == {"blend_instances_fwd": 1},
+    check(same and not any(ovf)
+          and g.launches_per_replay == with_compaction({"blend_instances_fwd": 1}, gcfg),
           "[options] the served frames' graph under the options == eager, bit for bit")
     check(sum(cut_tiles) > 0, "[options] the options' graph replays frames with tiles cut")
     del rr
@@ -4307,6 +4414,7 @@ def baseline_family(fam, cli, bws, card):
     import torch
 
     from fateavatar_tpu_torch.cli import train_baseline
+    from fateavatar_tpu_torch.render import binning
     from fateavatar_tpu_torch.render import blend_instances as bi
     from fateavatar_tpu_torch.train import baseline_steps as BS
     from fateavatar_tpu_torch.train.trainer import Trainer
@@ -4332,7 +4440,7 @@ def baseline_family(fam, cli, bws, card):
     over = [*BASELINE_OVERRIDES[fam], *caps]
     log(f"{tag} overrides: {over} (probe and build {time.perf_counter() - t0:.1f} s)")
     names = ("train_epoch", "optimize_tracking", "evaluate")
-    launches = {"blend_instances_fwd": 0, "blend_instances_bwd": 0}
+    launches = {"blend_instances_fwd": 0, "blend_instances_bwd": 0, "bin_compact": 0}
     events, runs = [], []
     with maintenance_events(events):
         for epochs, extra in ((1, []), (2, ["--resume"])):
@@ -4340,6 +4448,7 @@ def baseline_family(fam, cli, bws, card):
             # ---- the baseline CLI: counts to 0 just before, read just after
             bi.blend_instances.launches = 0
             bi.blend_instances_bwd.launches = 0
+            binning.compact_candidates.launches = 0
             t0 = time.perf_counter()
             with counted(Trainer, names, record):
                 if extra:
@@ -4349,8 +4458,10 @@ def baseline_family(fam, cli, bws, card):
             torch.cuda.synchronize()
             run_s = time.perf_counter() - t0
             fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+            compact = binning.compact_candidates.launches
             launches["blend_instances_fwd"] += fwd
             launches["blend_instances_bwd"] += bwd
+            launches["bin_compact"] += compact
             runs.append(tr)
             rec = {n: [r for r in record if r[0] == n] for n in names}
             steps, n_test = len(tr.train_dataset), len(tr.test_dataset)
@@ -4364,6 +4475,9 @@ def baseline_family(fam, cli, bws, card):
                 f"(train step + tracking step); in all {fwd} forward, {bwd} backward")
             check(all(np.isfinite(tr.epoch_losses)) and len(tr.epoch_losses) == steps,
                   f"{fam}: finite loss every step")
+            check(compact == with_compaction({"blend_instances_fwd": fwd}, tr.render_cfg).get(
+                "bin_compact", 0), f"{fam}: {compact} compaction launches, {fwd} renders "
+                f"under {tr.render_cfg.binning} binning")
             if stats["overflow"]:
                 log(f"{tag} overflow: the probe over the training views now counts up to "
                     f"{probe_views(tr)[0]} instances; budget {tr.render_cfg.instance_budget}")
@@ -4454,13 +4568,18 @@ def baseline_family(fam, cli, bws, card):
         # ---- a timed epoch: counts to 0 just before, read just after
         bi.blend_instances.launches = 0
         bi.blend_instances_bwd.launches = 0
+        binning.compact_candidates.launches = 0
         t0 = time.perf_counter()
         tr.train_epoch()
         torch.cuda.synchronize()
         t_ms[label] = (time.perf_counter() - t0) * 1e3 / steps
         fwd, bwd = bi.blend_instances.launches, bi.blend_instances_bwd.launches
+        compact = binning.compact_candidates.launches
         launches["blend_instances_fwd"] += fwd
         launches["blend_instances_bwd"] += bwd
+        launches["bin_compact"] += compact
+        check(compact == with_compaction({"blend_instances_fwd": fwd}, tr.render_cfg).get(
+            "bin_compact", 0), f"{fam}: {compact} compaction launches, {fwd} renders {label}")
         per = 2 if enabled else 1
         check(fwd == bwd == per * steps, f"{fam}: {per} launch(es) of kernels 1 and 2 per "
               f"step {label} ({fwd}, {bwd} in {steps} steps)")
@@ -4602,7 +4721,7 @@ def baselines_phase(cli, rows, card):
     for fam in BASELINES:
         summary[fam] = baseline_family(fam, cli, bws, card)
         torch.cuda.empty_cache()
-    for name in ("blend_instances_fwd", "blend_instances_bwd"):
+    for name in ("blend_instances_fwd", "blend_instances_bwd", "bin_compact"):
         by_family = {f: s["launches"][name] for f, s in summary.items()}
         rows[name]["launches"] += sum(by_family.values())
         rows[name]["launches_baselines"] = by_family
@@ -4709,8 +4828,9 @@ def lpips_phase(s, ws, rows, card):
         check(len(losses) == LPIPS_FRAMES and all(np.isfinite(losses))
               and tr.last_epoch_stats["overflow"] == 0,
               f"[lpips] {tag}: finite losses, overflow 0")
-        check(launches[tag] == {"blend_instances_fwd": LPIPS_FRAMES,
-                                "blend_instances_bwd": LPIPS_FRAMES},
+        check(launches[tag] == with_compaction({"blend_instances_fwd": LPIPS_FRAMES,
+                                                "blend_instances_bwd": LPIPS_FRAMES},
+                                               tr.render_cfg),
               f"[lpips] {tag}: one launch of kernels 1 and 2 a step")
         frame = tr._make_frame(tr.train_dataset.sample(0), cache=False)
         terms = tr.train_step.grads(tr.ts, frame)[3]
@@ -4950,8 +5070,9 @@ def nersemble_phase(ws, cli, rows, card):
           "[nersemble] finite losses, overflow 0 in every epoch")
     check(epochs[-1]["loss"] < epochs[0]["loss"], "[nersemble] the loss falls")
     per_render = WARMUP + 1
-    check(launches == {"blend_instances_fwd": n + per_render + n_videos * per_render,
-                       "blend_instances_bwd": n + per_render},
+    check(launches == with_compaction(
+              {"blend_instances_fwd": n + per_render + n_videos * per_render,
+               "blend_instances_bwd": n + per_render}, tr.render_cfg),
           "[nersemble] launches: the per-step epoch, the scan graph's warm-up and "
           "capture, each serial's render graph's warm-up and capture")
     check(len(renders) == n_videos and all(r[1] == 0 and r[0] == per_render for r in renders),
@@ -5686,7 +5807,7 @@ def main():
     # ---- build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
     libs = cuda_build.build_all(["blend_instances", "blend_instances_bwd", "blend_tiles",
-                                 "blend_tiles_bwd"])
+                                 "blend_tiles_bwd", "bin_compact"])
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
     tracing_check()
     for name, so in libs.items():
@@ -5719,6 +5840,7 @@ def main():
         "bit-equal to a clean call")
     instance_kernel_cases(rows)
     tile_kernel_cases(rows)
+    compaction_phase(rows, card)
 
     # ---- serve phase: seeded workspace, checkpoint, reenactment
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as ws:
@@ -5772,12 +5894,13 @@ def main():
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # ---- the main path: counts to 0 just before, read just after
-        bi.blend_instances.launches = 0
+        counters = zero_counts()
         t0 = time.perf_counter()
         frames = reenactor.reenact(exprs, poses, delta, cam)
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         launches = {"blend_instances_fwd": bi.blend_instances.launches}
+        wrapper = {k: c.launches for k, c in counters.items() if c.launches}
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         g = reenactor.last_graph
         for name, n in launches.items():
@@ -5786,9 +5909,11 @@ def main():
                 f"({WARMUP} warm-up calls + the capture), then {g.replays} replays of the "
                 f"served frame's CUDA graph x {g.launches_per_replay.get(name, 0)}")
             check(n > 0, f"{name} never launched on the main path")
-        check(launches["blend_instances_fwd"] == WARMUP + 1 and g.replays == N_FRAMES
-              and g.launches_per_replay == {"blend_instances_fwd": 1},
-              "one graph replay per frame, one blend launch each")
+        check(wrapper == with_compaction({"blend_instances_fwd": WARMUP + 1}, rcfg)
+              and g.replays == N_FRAMES
+              and g.launches_per_replay == with_compaction({"blend_instances_fwd": 1}, rcfg),
+              f"one graph replay per frame, one blend launch each (and compaction, under "
+              f"{rcfg.binning} binning)")
         check(len(frames) == N_FRAMES and all(f.shape == (h, w, 3) for f in frames),
               "16 frames of 512x512x3")
         spread = float(np.std(np.stack(frames).astype(np.float32)))

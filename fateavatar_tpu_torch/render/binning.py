@@ -17,10 +17,13 @@ accounting.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from fateavatar_tpu_torch.utils import cuda_build
 
 TILE = 16  # pixels per tile edge (config.h:15-17 BLOCK_X/BLOCK_Y)
 
@@ -90,6 +93,70 @@ def _rect_walk(r, rect_w, rmin_x, rmin_y, tx):
     return (rmin_y + q) * tx + rmin_x + (r - q * rect_w)
 
 
+def _compact_candidates_plain(rmin_x, rmin_y, rect_w, touched, offsets, order, size,
+                              grid_x, num_tiles, max_tiles):
+    """:func:`compact_candidates` as the scatter of the [N, R] candidate
+    expansion (binning.py:373-390 of the JAX package)."""
+    n, dev = rmin_x.shape[0], rmin_x.device
+    r = torch.arange(max_tiles, dtype=torch.int32, device=dev)[None, :]
+    w = rect_w[:, None]
+    tile_id = ((rmin_y[:, None] + torch.div(r, w, rounding_mode="floor")) * grid_x
+               + rmin_x[:, None] + torch.remainder(r, w))
+    keep = (r < touched[:, None]) & (offsets[:, None] + r < size)
+    dest = torch.where(keep, offsets[:, None] + r, size).reshape(-1).long()
+    tiles = torch.full((size + 1,), num_tiles, dtype=torch.int32, device=dev)
+    tiles[dest] = tile_id.reshape(-1).to(torch.int32)          # slot `size` takes the rest
+    gauss = torch.full((size + 1,), -1, dtype=torch.int32, device=dev)
+    gauss[dest] = order.to(torch.int32)[:, None].expand(n, max_tiles).reshape(-1)
+    return tiles[:size], gauss[:size]
+
+
+# the C entry point's signature (csrc/bin_compact.cu), the stream last
+_COMPACT_ARGS = (ctypes.c_void_p,) * 6 + (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                          ctypes.c_int64) + (ctypes.c_void_p,) * 3
+
+
+def compact_candidates(rmin_x, rmin_y, rect_w, touched, offsets, order, size, grid_x,
+                       num_tiles, max_tiles):
+    """The kept candidates of the depth-ranked splats at their compact slots:
+    candidate r of rank i, kept where r < ``touched[i]`` and ``offsets[i]``
+    + r < ``size`` (the budget), goes to slot offsets[i] + r as the tile of
+    the rect's row-major walk, (rmin_y + r // w) * grid_x + rmin_x + r % w,
+    and the gaussian ``order[i]``. Returns (tiles, gauss), int32 [size];
+    slots past the kept count hold tile ``num_tiles`` and gaussian -1.
+
+    rmin_x, rmin_y, rect_w (>= 1), touched (<= ``max_tiles``) and offsets
+    (the exclusive scan of touched) are int32 [N], order int64 [N]. A CUDA
+    tensor launches ``csrc/bin_compact.cu`` (counted in
+    ``compact_candidates.launches``), which makes nothing of [N, R] size; a
+    CPU tensor runs the plain version, the [N, R] scatter."""
+    ins = (rmin_x, rmin_y, rect_w, touched, offsets)
+    n, dev = rmin_x.shape[0], rmin_x.device
+    if any(x.dtype != torch.int32 or tuple(x.shape) != (n,) for x in ins):
+        raise ValueError("rmin_x, rmin_y, rect_w, touched and offsets must be int32 [N]")
+    if order.dtype != torch.int64 or tuple(order.shape) != (n,):
+        raise ValueError(f"order must be int64 [{n}], got {order.dtype} {tuple(order.shape)}")
+    if not all(x.device == dev for x in (*ins, order)):
+        raise ValueError("compact_candidates' inputs must be on one device")
+    if dev.type == "cpu":
+        return _compact_candidates_plain(rmin_x, rmin_y, rect_w, touched, offsets, order,
+                                         size, grid_x, num_tiles, max_tiles)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_candidates runs on cuda or cpu, not {dev}")
+    if not all(x.is_contiguous() for x in (*ins, order)):
+        raise ValueError("compact_candidates needs contiguous inputs")
+    tiles = torch.empty((size,), dtype=torch.int32, device=dev)
+    gauss = torch.empty((size,), dtype=torch.int32, device=dev)
+    cuda_build.launch("bin_compact", "bin_compact_launch", _COMPACT_ARGS, (
+        *(x.data_ptr() for x in (*ins, order)), n, num_tiles, grid_x, size,
+        tiles.data_ptr(), gauss.data_ptr()), dev)
+    compact_candidates.launches += 1
+    return tiles, gauss
+
+
+compact_candidates.launches = 0
+
+
 SORT_MODES = ("onesort", "twotier", "stable", "count", "gather", "twokey")
 
 
@@ -118,11 +185,17 @@ def build_instance_lists(
     (0 = min(4N, N*R)) in depth order are kept; instances past the budget or
     a gaussian's cap are counted in ``overflow``. ``sort_mode``:
 
-    * ``onesort``: ONE stable sort of all N*R candidates by tile;
+    * ``onesort`` and ``stable``: the kept candidates at their compact
+      slots (:func:`compact_candidates`), min(M, N*R) of them, then one
+      stable sort by tile. The JAX package's ``onesort`` sorts all N*R
+      candidates, the rest carrying a sentinel tile; the result is the
+      same, since both orders run by (depth rank, r) and a gaussian has at
+      most one candidate in a tile. The two names, one code path here, are
+      kept to match the JAX package's options, and so are its refusals:
+      ``return_groups`` takes ``onesort``, not ``stable``;
     * ``twotier``: R0 = ``tail_r0`` candidates each, R for the ``tail_k``
       largest footprints (0 = max(256, N // 16)), sorted on one packed
       (tile, depth rank) key;
-    * ``stable``: the compaction scatter, then one stable tile sort;
     * ``twokey``: no depth argsort; the compacted instances sorted on
       (tile, depth). The JAX package's sort is unstable there, so depth ties
       in a tile have no defined order; this one breaks them by compaction
@@ -197,26 +270,18 @@ def build_instance_lists(
     offsets = csum - touched_capped                             # exclusive
     n_valid = torch.sum(touched_capped)
     dropped = (dropped + torch.clamp_min(n_valid - M, 0)).to(torch.int32)
-    r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
-    # a candidate is kept under its gaussian's cap and inside the budget
-    keep = (r < touched_capped[:, None]) & (offsets[:, None] + r < M)      # [N, R]
     sort_m = None
 
-    if sort_mode in ("stable", "twokey"):
-        # the compaction scatter: candidate r of depth rank i to slot
-        # offsets[i] + r (binning.py:373-390)
-        w, cx, cy = rect_w[:, None], rmin_x[:, None], rmin_y[:, None]
-        tile_id = (cy + torch.div(r, w, rounding_mode="floor")) * tx + cx + torch.remainder(r, w)
-        dest = torch.where(keep, offsets[:, None] + r, M).reshape(-1).long()
-        comp_tiles = torch.full((M + 1,), num_tiles, dtype=torch.int32, device=dev)
-        comp_tiles[dest] = tile_id.reshape(-1).to(torch.int32)   # slot M takes the rest
-        comp_tiles = comp_tiles[:M]
-        comp_gauss = torch.full((M + 1,), -1, dtype=torch.int32, device=dev)
-        comp_gauss[dest] = order.to(torch.int32)[:, None].expand(n, R).reshape(-1)
-        comp_gauss = comp_gauss[:M]
-        if sort_mode == "stable":
+    if sort_mode != "twotier":
+        # the compaction: candidate r of depth rank i to slot offsets[i] + r
+        # (binning.py:373-390); no more than N*R slots can be filled
+        comp_tiles, comp_gauss = compact_candidates(
+            rmin_x, rmin_y, rect_w, touched_capped, offsets, order, min(M, n * R), tx,
+            num_tiles, R)
+        if sort_mode != "twokey":
             sort_tiles, perm = torch.sort(comp_tiles, stable=True)
-            sort_m = perm.to(torch.int32)
+            if return_slots:    # the compact index of each sorted instance
+                sort_m = perm.to(torch.int32)
         else:
             # (tile, depth, compaction index): a stable sort on depth, then
             # a stable one on tile
@@ -226,7 +291,7 @@ def build_instance_lists(
             sort_tiles, p2 = torch.sort(comp_tiles[perm], stable=True)
             perm = perm[p2]
         sort_gauss = comp_gauss[perm]
-    elif sort_mode == "twotier":
+    else:
         # key = tile * rank_lim + depth rank: one int32 sort key, unique per
         # valid candidate, so main and tail candidates interleave in depth
         # order within a tile
@@ -261,31 +326,18 @@ def build_instance_lists(
         sort_keys, perm = torch.sort(keys, stable=True)
         sort_gauss = gauss[perm]
         sort_tiles = torch.div(sort_keys, rank_lim, rounding_mode="floor")
-    else:
-        # onesort: stable-sort ALL N*R candidates by tile: invalid /
-        # over-budget slots carry the sentinel tile and sort last, so the
-        # first M entries are the compacted, tile-grouped, depth-ordered
-        # instances
-        w, cx, cy = rect_w[:, None], rmin_x[:, None], rmin_y[:, None]
-        tile_all = torch.where(keep, _rect_walk(r, w, cx, cy, tx), num_tiles)
-        gauss_all = torch.where(keep, order.to(torch.int32)[:, None], -1)
-        sort_tiles, perm = torch.sort(tile_all.reshape(-1), stable=True)
-        sort_gauss = gauss_all.reshape(-1)[perm]
-        if return_slots:    # the compact index m, carried through the sort
-            sort_m = torch.where(keep, offsets[:, None] + r, M).reshape(-1)[perm]
 
-    if sort_mode in ("onesort", "twotier"):
-        S = sort_tiles.shape[0]
-        keep_m = min(M, S)
-        sort_tiles = sort_tiles[:keep_m].to(torch.int32)
-        sort_gauss = sort_gauss[:keep_m]
+    # the first M sorted entries, padded to M where fewer were sorted
+    keep_m = min(M, sort_tiles.shape[0])
+    sort_tiles = sort_tiles[:keep_m].to(torch.int32)
+    sort_gauss = sort_gauss[:keep_m]
+    if sort_m is not None:
+        sort_m = sort_m[:keep_m]
+    if keep_m < M:
+        sort_tiles = torch.cat([sort_tiles, sort_tiles.new_full((M - keep_m,), num_tiles)])
+        sort_gauss = torch.cat([sort_gauss, sort_gauss.new_full((M - keep_m,), -1)])
         if sort_m is not None:
-            sort_m = sort_m[:keep_m]
-        if keep_m < M:
-            sort_tiles = torch.cat([sort_tiles, sort_tiles.new_full((M - keep_m,), num_tiles)])
-            sort_gauss = torch.cat([sort_gauss, sort_gauss.new_full((M - keep_m,), -1)])
-            if sort_m is not None:
-                sort_m = torch.cat([sort_m, sort_m.new_full((M - keep_m,), M)])
+            sort_m = torch.cat([sort_m, sort_m.new_full((M - keep_m,), M)])
 
     group_counts = group_tail = None
     if return_groups:
@@ -326,9 +378,12 @@ def build_instance_lists(
             raise NotImplementedError(
                 f"return_slots requires sort_mode 'stable'/'onesort', got {sort_mode!r}")
         # invert the sort permutation (the compact index m of each sorted
-        # instance), then read each candidate's output slot
+        # instance), then read each candidate's output slot: the [N, R]
+        # table is the result itself
         k_of_m = torch.argsort(sort_m, stable=True)
         dst_by_m = dst[k_of_m]
+        r = torch.arange(R, dtype=torch.int32, device=dev)[None, :]
+        keep = (r < touched_capped[:, None]) & (offsets[:, None] + r < M)
         m_nr = torch.clamp_max(offsets[:, None] + r, M - 1).long()
         slot_sorted = torch.where(keep, dst_by_m[m_nr], M_out)
         slots = slot_sorted[torch.argsort(order)].to(torch.int32)

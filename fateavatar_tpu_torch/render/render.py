@@ -43,13 +43,14 @@ from fateavatar_tpu_torch.render.preprocess import preprocess
 from fateavatar_tpu_torch.render.splats import Gaussians
 from fateavatar_tpu_torch.utils import profiling
 
-# the wrappers of the port's four CUDA kernels, by kernel name; each counts
+# the wrappers of the port's rasterizer kernels, by kernel name; each counts
 # its kernel's launches in ``.launches``
 KERNEL_COUNTERS = {
     "blend_instances_fwd": blend_instances,
     "blend_instances_bwd": blend_instances_bwd,
     "blend_tiles_fwd": blend_tiles,
     "blend_tiles_bwd": blend_tiles_bwd,
+    "bin_compact": binning.compact_candidates,
 }
 
 

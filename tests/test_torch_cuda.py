@@ -1,6 +1,7 @@
 """Card-only tests of the port's CUDA kernels: each kernel (the instance
 blend's and the dense-list blend's forward and backward, the instance
-blend's early exit too) against its plain PyTorch version on the card; the
+blend's early exit too, the binning's candidate compaction) against its
+plain PyTorch version on the card; the
 CUDA graphs (the Trainer's scan epoch, a family adapter's too, and
 the served frame) against eager steps and frames; each baseline
 family's step through the kernels against the plain blends; LPIPS on the
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from torch_blend_cases import BLEND_CASES, aligned_layout, blend_case
+from torch_compact_cases import COMPACT_CASES, compact_case
 from torch_determinism import deterministic_sums
 from torch_tile_cases import TILE_CASES, tile_case
 
@@ -48,6 +50,71 @@ def test_blend_kernel_matches_plain_version(name):
     if name == "empty":
         empty = (args[1][1:] - args[1][:-1]) == 0
         assert bool((tfin_k[empty] == 1.0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(COMPACT_CASES))
+def test_compaction_kernel_matches_plain_version(name):
+    """The binning's compaction kernel against its plain version (the
+    [N, R] scatter) on the card, bit for bit, at the budget (past every
+    candidate: a tail of sentinels) and at a size that cuts a splat's
+    candidates; ``mono`` at MonoGaussianAvatar's shapes (N 100,000, R
+    1,024, budget 6,291,456, footprints up to the whole grid). One launch a
+    call; two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.render import binning
+
+    *arrays, grid, R, sizes = compact_case(name)
+    ins = [torch.from_numpy(a).cuda() for a in arrays]
+    for size in sizes:
+        args = (*ins, size, grid[1], grid[0] * grid[1], R)
+        before = binning.compact_candidates.launches
+        tiles, gauss = binning.compact_candidates(*args)
+        again = binning.compact_candidates(*args)
+        want = binning._compact_candidates_plain(*args)
+        torch.cuda.synchronize()
+        assert binning.compact_candidates.launches == before + 2
+        assert torch.equal(tiles, want[0]) and torch.equal(gauss, want[1]), size
+        assert torch.equal(tiles, again[0]) and torch.equal(gauss, again[1])
+        kept = min(size, int(arrays[3].sum()))
+        assert int((gauss >= 0).sum()) == kept and bool((tiles[kept:] == grid[0] * grid[1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, per", [("onesort", 1), ("twotier", 0)])
+def test_compaction_launches_per_render_replay(mode, per):
+    """render() captured in a Graph: one compaction launch per replay under
+    onesort, none under twotier (the served frame's binning), one forward
+    blend launch either way; the replay's image equals an eager render's
+    bit for bit (the forward kernels are deterministic)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from fateavatar_tpu_torch.ops.camera import look_at_camera
+    from fateavatar_tpu_torch.render.render import RenderConfig, render
+    from fateavatar_tpu_torch.render.splats import make_gaussians
+    from fateavatar_tpu_torch.utils.graphs import Graph
+
+    rng = np.random.default_rng(0)
+    n, res = 2000, 128
+    g = make_gaussians(rng.uniform(-0.3, 0.3, (n, 3)), np.log(rng.uniform(0.01, 0.05, (n, 3))),
+                       rng.normal(size=(n, 4)), rng.uniform(-2, 2, (n, 1)),
+                       rng.uniform(-1, 1, (n, 1, 3)), device="cuda")
+    cam = look_at_camera([0.0, 0.0, -2.0], [0, 0, 0], [0, 1, 0], 0.8, 0.8, res, res,
+                         device="cuda")
+    bg = torch.ones(3, device="cuda")
+    cfg = RenderConfig(binning=mode, max_tiles_per_gaussian=64)
+    out = torch.zeros((res, res, 3), device="cuda")
+    graph = Graph(lambda: out.copy_(render(cam, g, bg, config=cfg)["render"]), [out],
+                  f"render ({mode})")
+    graph()
+    graph()
+    want = render(cam, g, bg, config=cfg)["render"]
+    torch.cuda.synchronize()
+    assert graph.replays == 2
+    assert graph.launches_per_replay.get("bin_compact", 0) == per
+    assert graph.launches_per_replay["blend_instances_fwd"] == 1
+    assert torch.equal(out, want) and float(out.std()) > 0
 
 
 def _cotangents(grid, seed=5):
@@ -627,8 +694,10 @@ def test_bake_step_graph_matches_eager():
         baker.restore(snap)
         baker.eager = False
         loss_g = float(baker.step(frame)[0])
+        # the baker's default binning, onesort, compacts its candidates once
         assert baker.graph.launches_per_replay == {"blend_instances_fwd": 1,
-                                                   "blend_instances_bwd": 1}
+                                                   "blend_instances_bwd": 1,
+                                                   "bin_compact": 1}
         assert abs(loss_g - loss_e) <= 1e-6 * abs(loss_e)
         n = len(baker.trainables) + len(baker.stats)
         for a, b in zip(baker.snapshot()[:n], after_e[:n]):
@@ -914,8 +983,9 @@ def test_adapter_graph_step_matches_eager():
     for x, y in zip(a, b):
         if float(y.double().norm()) > 0:
             assert _rel_l2(x, y) <= 1e-4
+    # RenderConfig's default binning, onesort, compacts its candidates once
     assert scan.graph.launches_per_replay == {"blend_instances_fwd": 1,
-                                              "blend_instances_bwd": 1}
+                                              "blend_instances_bwd": 1, "bin_compact": 1}
 
     _restore(tr, snap)
     tr._scan_disabled = True

@@ -50,9 +50,18 @@ def _binning_inputs(n, seed, grid):
 
 
 BINNING_CASES = {
-    # (sort_mode, R, budget, tail_r0, tail_k)
+    # (sort_mode, R, budget, tail_r0, tail_k[, layout and options])
     "onesort": ("onesort", 16, 0, 4, 0),
     "onesort_over_budget": ("onesort", 16, 300, 4, 0),
+    "onesort_r_cap_drops": ("onesort", 4, 0, 4, 0),
+    "onesort_budget_above_nr": ("onesort", 4, 2000, 4, 0),
+    "onesort_aligned_slots_over_budget": ("onesort", 16, 300, 4, 0,
+                                          dict(layout="aligned", return_slots=True)),
+    "onesort_aligned_groups_over_budget": ("onesort", 16, 300, 4, 0,
+                                           dict(layout="aligned", return_groups=True)),
+    "stable_aligned_slots_over_budget": ("stable", 16, 300, 4, 0,
+                                         dict(layout="aligned", return_slots=True)),
+    "twokey_over_budget": ("twokey", 16, 300, 4, 0),
     "twotier": ("twotier", 64, 0, 4, 0),
     "twotier_tail_drops": ("twotier", 64, 0, 2, 8),
     "twotier_over_budget": ("twotier", 32, 250, 4, 16),
@@ -61,23 +70,73 @@ BINNING_CASES = {
 
 @pytest.mark.parametrize("case", sorted(BINNING_CASES))
 def test_build_instance_lists_matches_jax_exactly(case):
-    mode, R, budget, r0, k = BINNING_CASES[case]
+    mode, R, budget, r0, k, *opts = BINNING_CASES[case]
+    opts = {"layout": "compact", **(opts[0] if opts else {})}
     grid = (5, 6)
     mx, my, depth, radius = _binning_inputs(400, seed=len(case), grid=grid)
+    if mode == "twokey":
+        # the JAX package's twokey sort is unstable: distinct depths only
+        depth = np.random.default_rng(len(case)).permutation(
+            np.linspace(0.3, 3.0, depth.size, dtype=np.float32))
     ref = jbinning.build_instance_lists(
         (mx, my), depth, radius, grid, max_tiles_per_gaussian=R,
-        instance_budget=budget, chunk=128, sort_mode=mode, layout="compact",
-        tail_r0=r0, tail_k=k)
+        instance_budget=budget, chunk=128, sort_mode=mode, tail_r0=r0, tail_k=k, **opts)
     out = tbinning.build_instance_lists(
         t(mx), t(my), t(depth), t(radius, torch.int32), grid,
-        max_tiles_per_gaussian=R, instance_budget=budget, sort_mode=mode,
-        layout="compact", tail_r0=r0, tail_k=k)
-    np.testing.assert_array_equal(out.instances.numpy(), np.asarray(ref.instances))
-    np.testing.assert_array_equal(out.tile_starts.numpy(), np.asarray(ref.tile_starts))
+        max_tiles_per_gaussian=R, instance_budget=budget, chunk=128, sort_mode=mode,
+        tail_r0=r0, tail_k=k, **opts)
+    for f in ("instances", "tile_starts", "slots", "group_counts"):
+        a, b = getattr(out, f), getattr(ref, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a.dtype == torch.int32, f
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b), err_msg=f)
     assert int(out.overflow) == int(ref.overflow)
     if "over_budget" in case or "drops" in case:
         assert int(ref.overflow) > 0
-    assert out.instances.dtype == out.tile_starts.dtype == torch.int32
+
+
+def test_compact_candidates_plain_matches_the_expansion():
+    """compact_candidates' plain version against the [N, R] expansion it
+    replaces, written out here: every candidate's tile by the float walk,
+    the kept ones taken in (depth rank, r) order, then sentinels. One budget
+    cuts inside a splat's candidates, one lies past them all."""
+    grid, R = (5, 6), 16
+    mx, my, depth, radius = (torch.as_tensor(x) for x in _binning_inputs(400, 7, grid))
+    order = tbinning._depth_order(depth, radius > 0)
+    rmin_x, rmin_y, rmax_x, rmax_y = tbinning.gaussian_rect(
+        mx[order], my[order], radius[order], grid)
+    w = torch.clamp_min(rmax_x - rmin_x, 1)
+    touched = torch.where(radius[order] > 0, (rmax_x - rmin_x) * (rmax_y - rmin_y), 0)
+    touched = torch.clamp_max(touched, R).to(torch.int32)
+    offsets = (torch.cumsum(touched, 0) - touched).to(torch.int32)
+    assert int(touched[200]) > 1
+    r = torch.arange(R, dtype=torch.int32)[None, :]
+    tile_all = tbinning._rect_walk(r, w[:, None], rmin_x[:, None], rmin_y[:, None], grid[1])
+    gauss_all = order.to(torch.int32)[:, None].expand(-1, R)
+    for budget in (int(offsets[200]) + 1, int(touched.sum()) + 7):
+        tiles, gauss = tbinning.compact_candidates(rmin_x, rmin_y, w, touched, offsets,
+                                                   order, budget, grid[1], 30, R)
+        keep = ((r < touched[:, None]) & (offsets[:, None] + r < budget)).reshape(-1)
+        pad = budget - int(keep.sum())
+        want_t = torch.cat([tile_all.reshape(-1)[keep], torch.full((pad,), 30)])
+        want_g = torch.cat([gauss_all.reshape(-1)[keep], torch.full((pad,), -1)])
+        assert tiles.dtype == gauss.dtype == torch.int32
+        assert torch.equal(tiles, want_t.to(torch.int32)), budget
+        assert torch.equal(gauss, want_g.to(torch.int32)), budget
+
+
+def test_rect_walk_float_formula_equals_integer_division():
+    """The compaction kernel walks a rect with integer division; the JAX
+    package (and the twotier tiers) with floor((r + 0.5) * (1 / w)) in
+    float32. Equal at every r < 4,096 and every width up to 128 tiles (a
+    512x512 frame's grid is 32 wide, R at most 1,024)."""
+    r = torch.arange(4096, dtype=torch.int32)[None, :]
+    w = torch.arange(1, 129, dtype=torch.int32)[:, None]
+    zero = torch.zeros_like(w)
+    walk = tbinning._rect_walk(r, w, zero, zero, 1 << 12)
+    q = torch.div(r, w, rounding_mode="floor")
+    assert torch.equal(walk, q * (1 << 12) + r - q * w)
 
 
 def test_autosize_matches_jax():

@@ -72,7 +72,7 @@ def test_host_cameras_match_jax():
 
 # ---- instance binning: every mode x layout, bit-exact
 
-BIN_SCENES = ("sh0_basic", "sh3_clamp", "aniso")
+BIN_SCENES = ("sh0_basic", "sh3_clamp", "aniso", "alpha_edges")
 BIN_N = 64                 # each scene padded to this many splats (one compile)
 BIN_GRID = (4, 4)          # the golden scenes' 64x64
 BIN_KW = dict(max_tiles_per_gaussian=8, instance_budget=0, chunk=128, tail_r0=2, tail_k=8)
